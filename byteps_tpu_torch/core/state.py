@@ -1,0 +1,128 @@
+"""Process state of the port: the device and the ``dp`` process group.
+
+The JAX package builds a device mesh whose ``dp`` axis spans the local
+chips (parallel/mesh.py, core/state.py). Here one process drives one card,
+and the ``dp`` axis is a ``torch.distributed`` group over the processes of
+the host: NCCL on the card, gloo on the CPU. The rendezvous is loopback
+only (``tcp://127.0.0.1:<BYTEPS_COORD_PORT>``), a store the caller
+passes (such as a ``FileStore`` in a test's temporary directory), or, for
+a group of one, an in-memory store.
+
+Topology comes from the BytePS variables ``BYTEPS_LOCAL_RANK`` and
+``BYTEPS_LOCAL_SIZE`` (default 0 and 1).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from datetime import timedelta
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from ..config import Config
+from ..utils.logging import log, refresh_level
+
+
+def resolve_device(device: Union[None, str, torch.device] = None,
+                   local_rank: Optional[int] = None) -> torch.device:
+    """The device an entry point runs on: the caller's, else
+    ``cuda:<local_rank>``. Without a card, only an explicit CPU device is
+    accepted: nothing runs on the CPU unless asked."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not "
+                               f"available")
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    if local_rank is None:
+        st = get_state()
+        local_rank = st.local_rank if st.initialized else \
+            int(os.environ.get("BYTEPS_LOCAL_RANK", "0") or 0)
+    return torch.device("cuda", local_rank)
+
+
+class GlobalState:
+    """The singleton behind ``byteps_tpu_torch.init``/``shutdown``."""
+
+    _instance: Optional["GlobalState"] = None
+    _cls_lock = threading.Lock()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.initialized = False
+        self.config = Config()
+        self.device: Optional[torch.device] = None
+        self.group = None            # the dp process group
+        self.local_rank = 0
+        self.local_size = 1
+
+    @classmethod
+    def get(cls) -> "GlobalState":
+        with cls._cls_lock:
+            if cls._instance is None:
+                cls._instance = cls()
+            return cls._instance
+
+    def init(self, device=None, store: Optional[dist.Store] = None,
+             rank: Optional[int] = None,
+             world_size: Optional[int] = None) -> None:
+        with self._lock:
+            if self.initialized:
+                log.warning("init() called while already initialized; "
+                            "call shutdown() first to re-initialize")
+                return
+            refresh_level()
+            self.config = Config.from_env()
+            env = os.environ
+            self.local_rank = rank if rank is not None else \
+                int(env.get("BYTEPS_LOCAL_RANK", "0") or 0)
+            self.local_size = world_size if world_size is not None else \
+                int(env.get("BYTEPS_LOCAL_SIZE", "1") or 1)
+            self.device = resolve_device(device, self.local_rank)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            backend = "nccl" if self.device.type == "cuda" else "gloo"
+            kw = dict(backend=backend, rank=self.local_rank,
+                      world_size=self.local_size,
+                      timeout=timedelta(seconds=300))
+            if store is None and self.local_size == 1:
+                store = dist.HashStore()   # one process: no socket
+            if store is not None:
+                kw["store"] = store
+            else:
+                port = env.get("BYTEPS_COORD_PORT", "")
+                if not port:
+                    raise RuntimeError(
+                        "BYTEPS_LOCAL_SIZE > 1 needs BYTEPS_COORD_PORT "
+                        "for the loopback rendezvous")
+                kw["init_method"] = f"tcp://127.0.0.1:{port}"
+            dist.init_process_group(**kw)
+            self.group = dist.group.WORLD
+            self.initialized = True
+            log.info("init: rank %d/%d on %s (%s)", self.local_rank,
+                     self.local_size, self.device, backend)
+
+    def shutdown(self) -> None:
+        with self._lock:
+            if not self.initialized:
+                return
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            self.group = None
+            self.initialized = False
+
+    def require(self) -> "GlobalState":
+        if not self.initialized:
+            raise RuntimeError("byteps_tpu_torch is not initialized: call "
+                               "byteps_tpu_torch.init() first")
+        return self
+
+
+def get_state() -> GlobalState:
+    return GlobalState.get()

@@ -1,0 +1,297 @@
+"""Llama-3-style decoder-only transformer in PyTorch.
+
+Port of byteps_tpu/models/llama.py with the same parameter names, layout
+and numerics, so the JAX package's weights carry across
+(``params_from_jax``) and both give the same loss:
+
+- parameters as in ``init_params``: ``embed`` [V,d], ``blocks`` with
+  every leaf stacked on a leading [n_layers] dim, ``final_norm`` [d],
+  ``lm_head`` [d,V]; projections are ``x @ W``, not ``nn.Linear``;
+- f32 master weights, compute in ``cfg.dtype`` (bf16), RMSNorm in f32,
+  RoPE tables computed in float64 and cast to f32, then to x's dtype;
+- logits stay in ``cfg.dtype``; the cross entropy is the logsumexp form
+  in f32;
+- ``cfg.remat`` recomputes each block in the backward
+  (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
+  does; the attention forward then runs twice per block and step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..core.state import resolve_device
+
+BLOCK_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+              "w_up", "w_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14336          # SwiGLU inner dim
+    max_seq_len: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
+    param_dtype: torch.dtype = torch.float32   # master weights
+    remat: bool = True               # recompute each block in backward
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(vocab_size: int = 256, seq: int = 128) -> "LlamaConfig":
+        """Test-scale config: same code path, toy sizes."""
+        return LlamaConfig(vocab_size=vocab_size, dim=64, n_layers=2,
+                           n_heads=4, n_kv_heads=2, hidden_dim=128,
+                           max_seq_len=seq, remat=False)
+
+    @staticmethod
+    def small(vocab_size: int = 32000) -> "LlamaConfig":
+        """~125M config: 12 layers, dim 768, 6 heads of 128, 2 KV heads."""
+        return LlamaConfig(vocab_size=vocab_size, dim=768, n_layers=12,
+                           n_heads=6, n_kv_heads=2, hidden_dim=2048,
+                           max_seq_len=2048)
+
+
+def param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
+    d, h, L = cfg.dim, cfg.hidden_dim, cfg.n_layers
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "embed": (cfg.vocab_size, d),
+        "blocks": {
+            "attn_norm": (L, d),
+            "wq": (L, d, nh * hd),
+            "wk": (L, d, nkv * hd),
+            "wv": (L, d, nkv * hd),
+            "wo": (L, nh * hd, d),
+            "mlp_norm": (L, d),
+            "w_gate": (L, d, h),
+            "w_up": (L, d, h),
+            "w_down": (L, h, d),
+        },
+        "final_norm": (d,),
+        "lm_head": (d, cfg.vocab_size),
+    }
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device=None) -> Dict[str, Any]:
+    """Random parameters with the JAX package's scales: norms 1, dense
+    leaves N(0, 1/fan_in), the embedding N(0, 0.02^2). Draws come from
+    ``generator``, which lives on ``device``."""
+    device = resolve_device(device)
+    shapes = param_shapes(cfg)
+
+    def dense(shape, scale=None):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+        scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=cfg.param_dtype) * scale
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+
+    blk = shapes["blocks"]
+    return {
+        "embed": dense(shapes["embed"], scale=0.02),
+        "blocks": {k: (ones(s) if k.endswith("norm") else dense(s))
+                   for k, s in blk.items()},
+        "final_norm": ones(shapes["final_norm"]),
+        "lm_head": dense(shapes["lm_head"]),
+    }
+
+
+def params_from_jax(tree: Dict[str, Any], device=None,
+                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """The JAX package's parameter pytree, as nested dicts of numpy
+    arrays, to tensors on ``device`` (names and layout are the same)."""
+    device = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return conv(tree)
+
+
+class Llama(nn.Module):
+    """The parameters of a Llama model, as ``nn.Parameter`` leaves with the
+    JAX names: ``embed``, ``blocks.<leaf>``, ``final_norm``, ``lm_head``.
+    ``params()`` gives the nested dict that the functions below take."""
+
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 generator: Optional[torch.Generator] = None,
+                 params: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.cfg = cfg
+        device = resolve_device(device)
+        if params is None:
+            if generator is None:
+                raise ValueError("Llama needs a seeded torch.Generator or "
+                                 "explicit params")
+            params = init_params(cfg, generator, device)
+        shapes = param_shapes(cfg)
+
+        def as_param(x, shape, name):
+            if tuple(x.shape) != tuple(shape):
+                raise ValueError(f"{name}: shape {tuple(x.shape)} != "
+                                 f"{tuple(shape)}")
+            return nn.Parameter(x.to(device=device, dtype=cfg.param_dtype))
+
+        self.embed = as_param(params["embed"], shapes["embed"], "embed")
+        self.blocks = nn.ParameterDict({
+            k: as_param(params["blocks"][k], shapes["blocks"][k],
+                        f"blocks/{k}") for k in BLOCK_KEYS})
+        self.final_norm = as_param(params["final_norm"],
+                                   shapes["final_norm"], "final_norm")
+        self.lm_head = as_param(params["lm_head"], shapes["lm_head"],
+                                "lm_head")
+
+    def params(self) -> Dict[str, Any]:
+        return {"embed": self.embed,
+                "blocks": {k: self.blocks[k] for k in BLOCK_KEYS},
+                "final_norm": self.final_norm, "lm_head": self.lm_head}
+
+    def forward(self, tokens: torch.Tensor, attn_impl=None) -> torch.Tensor:
+        return forward(self.params(), tokens, self.cfg, attn_impl)
+
+
+# --------------------------------------------------------------------- #
+# forward
+# --------------------------------------------------------------------- #
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * rms).to(x.dtype) * w.to(x.dtype)
+
+
+def rope_cache(cfg: LlamaConfig, seq_len: int, device, offset: int = 0):
+    hd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2) / hd))
+    t = np.arange(offset, offset + seq_len)
+    freqs = np.outer(t, inv_freq)                      # [S, hd/2], float64
+    return (torch.as_tensor(np.cos(freqs), dtype=torch.float32).to(device),
+            torch.as_tensor(np.sin(freqs), dtype=torch.float32).to(device))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, hd]; rotate the two halves."""
+    x1, x2 = x.chunk(2, dim=-1)
+    cos = cos[None, :, None, :].to(x.dtype)
+    sin = sin[None, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _attention(q, k, v, cfg: LlamaConfig, attn_impl=None):
+    """Causal GQA attention, q [B,S,nh,hd], k/v [B,S,nkv,hd]; dense unless
+    ``attn_impl`` is given (e.g. ``make_flash_attn()``)."""
+    if attn_impl is not None:
+        return attn_impl(q, k, v)
+    B, S, nh, hd = q.shape
+    groups = nh // k.shape[2]
+    k = k.repeat_interleave(groups, dim=2)
+    v = v.repeat_interleave(groups, dim=2)
+    scale = 1.0 / np.sqrt(hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(mask[None, None], logits,
+                         torch.full((), -1e30, dtype=logits.dtype,
+                                    device=q.device))
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attn_sublayer(x, p, cos, sin, cfg: LlamaConfig, attn_impl=None):
+    """Pre-norm attention with residual: x + Attn(RMSNorm(x))."""
+    B, S, d = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q = (h @ p["wq"].to(dt)).reshape(B, S, nh, hd)
+    k = (h @ p["wk"].to(dt)).reshape(B, S, nkv, hd)
+    v = (h @ p["wv"].to(dt)).reshape(B, S, nkv, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = _attention(q, k, v, cfg, attn_impl)
+    return x + attn.reshape(B, S, nh * hd) @ p["wo"].to(dt)
+
+
+def _block(x, p, cos, sin, cfg: LlamaConfig, attn_impl=None):
+    """One decoder block; ``p`` holds this layer's (unstacked) params."""
+    dt = cfg.dtype
+    x = attn_sublayer(x, p, cos, sin, cfg, attn_impl)
+    h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    gate = F.silu(h @ p["w_gate"].to(dt))
+    up = h @ p["w_up"].to(dt)
+    return x + (gate * up) @ p["w_down"].to(dt)
+
+
+def next_token_xent(logits: torch.Tensor,
+                    targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy, logsumexp form in f32."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return torch.mean(lse - picked)
+
+
+def split_batch(batch: Dict[str, torch.Tensor]) -> tuple:
+    """(inputs, targets) from a pre-shifted {'inputs','targets'} batch or
+    a raw {'tokens'} batch (shifted here)."""
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"]
+    return batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+
+
+def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
+                   cfg: LlamaConfig, attn_impl=None) -> torch.Tensor:
+    """tokens [B, S] -> final normed hidden [B, S, d] in cfg.dtype."""
+    B, S = tokens.shape
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    cos, sin = rope_cache(cfg, S, x.device)
+    blk = params["blocks"]
+    fn = functools.partial(_block, cfg=cfg, attn_impl=attn_impl)
+    for layer in range(cfg.n_layers):
+        p = {k: v[layer] for k, v in blk.items()}
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(fn, x, p, cos, sin, use_reentrant=False)
+        else:
+            x = fn(x, p, cos, sin)
+    return _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
+            attn_impl=None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] in cfg.dtype."""
+    x = forward_hidden(params, tokens, cfg, attn_impl)
+    return x @ params["lm_head"].to(cfg.dtype)
+
+
+def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: LlamaConfig, attn_impl=None) -> torch.Tensor:
+    """Next-token cross entropy of {'tokens': [B, S+1]} or a pre-shifted
+    {'inputs', 'targets'} batch."""
+    inputs, targets = split_batch(batch)
+    return next_token_xent(forward(params, inputs, cfg, attn_impl), targets)

@@ -1,0 +1,169 @@
+"""Gradient compression for byteps_tpu_torch.
+
+Port of byteps_tpu/ops/compression/__init__.py:
+
+- ``make_compressor(kwargs, size)``: the string-kwargs registry of the
+  reference's CompressorRegistry (compressor_registry.cc:39-56), keys as
+  in BytePS's python surface (``compressor``, ``ef``, ``momentum``,
+  ``scaling``, ``momentum_mu``). Onebit is ported; topk, randomk and
+  dithering raise "not yet ported" and never fall back.
+- ``compressed_psum_tree``: each replica compresses its gradient, the
+  payloads are all-gathered over the ``dp`` group, and every replica
+  decompresses and sums them (core_loops.cc:498-648 collapsed into one
+  collective, as in the JAX package).
+- ``CompressionTransform``: the per-leaf EF/momentum state and step count
+  that ``training.DistributedOptimizer`` carries.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ...config import DEFAULT_MIN_COMPRESS_BYTES
+from ..push_pull import all_reduce_
+from .codecs import Codec, OnebitCodec, resolve_k
+from .feedback import CompressorStack
+
+__all__ = [
+    "Codec", "OnebitCodec", "CompressorStack", "resolve_k",
+    "make_compressor", "default_stacks", "compressed_psum_tree",
+    "CompressionTransform", "NOT_YET_PORTED",
+]
+
+# codecs of the JAX package that the port does not have yet
+NOT_YET_PORTED = ("topk", "randomk", "dithering")
+
+
+def parse_bool_kwarg(kwargs: Dict[str, str], name: str,
+                     default: str = "false") -> bool:
+    return str(kwargs.get(name, default)).lower() in ("1", "true", "yes")
+
+
+def parse_ef_kwarg(kwargs) -> bool:
+    """'vanilla' or a boolean-true spelling enables vanilla EF; a typo
+    fails instead of silently dropping EF."""
+    v = str(kwargs.get("ef", "")).lower()
+    if v in ("vanilla", "true", "1", "yes"):
+        return True
+    if v in ("", "0", "false", "no", "none", "off"):
+        return False
+    raise ValueError(f"unknown ef type {kwargs.get('ef')!r}; "
+                     f"use 'vanilla' (or a boolean spelling)")
+
+
+def parse_momentum_kwarg(kwargs) -> bool:
+    mom = str(kwargs.get("momentum", "")).lower()
+    if mom == "nesterov":
+        return True
+    if mom in ("", "none", "0", "false", "no", "off"):
+        return False
+    raise ValueError(f"unknown momentum type "
+                     f"{kwargs.get('momentum')!r}; use 'nesterov'")
+
+
+def make_compressor(kwargs: Dict[str, str], size: int) -> CompressorStack:
+    """The momentum -> EF -> codec stack from string kwargs."""
+    name = kwargs.get("compressor")
+    if name in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"compressor {name!r} is not yet ported to byteps_tpu_torch "
+            f"(only 'onebit' is); use byteps_tpu for it")
+    if name != "onebit":
+        raise ValueError(f"unknown compressor {name!r}; have ['onebit']")
+    codec = OnebitCodec(size=size,
+                        scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
+    use_ef = parse_ef_kwarg(kwargs)
+    mu = None
+    if parse_momentum_kwarg(kwargs):
+        if not use_ef:
+            raise ValueError("momentum requires ef=vanilla (reference "
+                             "stacking order, compressor.h:28-52)")
+        mu = float(kwargs.get("momentum_mu", 0.9))
+    return CompressorStack(codec=codec, use_ef=use_ef, momentum_mu=mu)
+
+
+def _resolve_min_compress_bytes(v: Optional[int]) -> int:
+    """None -> BYTEPS_MIN_COMPRESS_BYTES as init() read it, else the
+    compiled-in default."""
+    if v is not None:
+        return v
+    from ...core.state import get_state
+    st = get_state()
+    return st.config.min_compress_bytes if st.initialized \
+        else DEFAULT_MIN_COMPRESS_BYTES
+
+
+def default_stacks(params: Sequence[torch.Tensor], kwargs: Dict[str, str],
+                   min_compress_bytes: Optional[int] = None
+                   ) -> List[Optional[CompressorStack]]:
+    """One stack per tensor; None for tensors under ``min_compress_bytes``
+    (counted at 4 bytes an element, BytePS operations.cc:361-364), which
+    take the plain all-reduce."""
+    limit = _resolve_min_compress_bytes(min_compress_bytes)
+    return [make_compressor(kwargs, p.numel()) if p.numel() * 4 >= limit
+            else None for p in params]
+
+
+def compressed_psum_tree(grads: Sequence[torch.Tensor], states: Sequence,
+                         stacks: Sequence[Optional[CompressorStack]],
+                         group, step: int = 0, average: bool = True,
+                         lr=None):
+    """Reduce every gradient over ``group``: compressed leaves through
+    compress -> all_gather -> decompress and sum, the rest through
+    all_reduce. Returns (reduced_grads, new_states); inputs are not
+    modified."""
+    n = dist.get_world_size(group)
+    out, new_states = [], []
+    for g, st, stack in zip(grads, states, stacks):
+        if stack is None:
+            out.append(all_reduce_(g.clone(), group, average))
+            new_states.append(st)
+            continue
+        flat = g.reshape(-1).to(torch.float32)
+        payload, new_st = stack.compress(flat, st, step, lr=lr)
+        # one gather of the wire payload: the words, then the scale's bits
+        wire = torch.cat([payload["bits"],
+                          payload["scale"].reshape(1).view(torch.int32)])
+        gathered = [torch.empty_like(wire) for _ in range(n)]
+        dist.all_gather(gathered, wire, group=group)
+        gathered = torch.stack(gathered)                      # [n, words + 1]
+        dec = stack.decompress({
+            "bits": gathered[:, :-1].contiguous(),
+            "scale": gathered[:, -1].contiguous().view(torch.float32)})
+        total = dec.sum(dim=0)                                # dec [n, size]
+        if average:
+            total = total / n
+        out.append(total.reshape(g.shape).to(g.dtype))
+        new_states.append(new_st)
+    return out, new_states
+
+
+class CompressionTransform:
+    """Compressed cross-replica reduction with EF/momentum state, the
+    counterpart of the JAX ``compression_transform`` (an optax
+    transformation there). ``lr_schedule``: optional step -> lr callable;
+    when given, the EF residual is rescaled across LR changes."""
+
+    def __init__(self, params: Sequence[torch.Tensor],
+                 kwargs: Dict[str, str], group=None, average: bool = True,
+                 min_compress_bytes: Optional[int] = None,
+                 lr_schedule=None):
+        self.stacks = default_stacks(params, kwargs, min_compress_bytes)
+        self.group = group
+        self.average = average
+        self.lr_schedule = lr_schedule
+        self.states = [s.init_state(p.numel(), p.device) if s is not None
+                       else {} for p, s in zip(params, self.stacks)]
+        self.step = 0
+
+    def update(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        lr = self.lr_schedule(self.step) if self.lr_schedule is not None \
+            else None
+        reduced, self.states = compressed_psum_tree(
+            grads, self.states, self.stacks, self.group, self.step,
+            average=self.average, lr=lr)
+        self.step += 1
+        return reduced

@@ -1,0 +1,394 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's training path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--steps 4] [--seed 0]
+
+Phases, each of which must pass or the script exits non-zero without a
+result line:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. the build of every CUDA kernel of the path from ``byteps_tpu_torch/csrc``
+   (one nvcc per source, all at once);
+3. each kernel against its plain PyTorch twin on the card, at the shapes of
+   the training path, with its time, the twin's time, the time of one
+   PyTorch library call for the same function where there is one, and the
+   least time the card could take (bound);
+4. a small fp32 Llama on the card (kernels) against the same model on the
+   CPU (plain twins): loss and every gradient;
+5. the training path: ``init`` -> ``LlamaConfig.small()`` at full width
+   with flash attention -> ``DistributedOptimizer(Adam, onebit + EF)`` ->
+   ``make_train_step`` for ``--steps`` steps on seeded tokens; the kernel
+   launch counters are zeroed just before and read just after.
+
+It prints a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+# the vocab x dim embedding, the training path's largest compressed leaf
+EMBED_N = 32000 * 768
+RAGGED_N = 1_000_003           # not a multiple of 32: the tail word
+FLASH_SHAPE = dict(B=4, S=2048, H=6, Hkv=2, D=128)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi rc={out.returncode}: {out.stderr.strip()}")
+    line = out.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    return line
+
+
+def phase_build() -> None:
+    from byteps_tpu_torch.native import build
+    names = ["onebit", "flash_attn_fwd"]
+    t0 = time.perf_counter()
+    build.build_all(names)
+    print(f"build: {time.perf_counter() - t0:.3f} s for "
+          f"{', '.join(n + '.cu' for n in names)}", flush=True)
+    for n in names:
+        with open(build.log_path(n)) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {n}: {line.strip()}", file=sys.stderr)
+
+
+def phase_onebit(dev, gen) -> list:
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+
+    res = {}
+    for n in (EMBED_N, RAGGED_N):
+        x = torch.randn(n, generator=gen, device=dev)
+        x[::97] = 0.0                       # zeros pack as bit 1
+        words = K.onebit_pack(x)
+        want = K.onebit_pack_plain(x)
+        if not torch.equal(words, want):
+            fail(f"onebit_pack differs from its plain twin at n={n}: "
+                 f"{int((words != want).sum())} words")
+        scale = x.abs().mean()
+        got = K.onebit_unpack(words, scale, n)
+        ref = K.onebit_unpack_plain(want, scale, n)
+        batched = K.onebit_unpack(words[None], scale.reshape(1), n)
+        if not (torch.equal(got, ref) and torch.equal(batched[0], ref)):
+            fail(f"onebit_unpack differs from its plain twin at n={n}")
+        print(f"onebit n={n}: pack and unpack bit-exact", flush=True)
+        if n == EMBED_N:
+            res = dict(x=x, words=words, scale=scale)
+
+    n, x, words, scale = EMBED_N, res["x"], res["words"], res["scale"]
+    nw = words.numel()
+    pack = dict(
+        name="onebit_pack", route="cuda",
+        source="byteps_tpu_torch/csrc/onebit.cu",
+        replaces="byteps_tpu/ops/compression/pallas_kernels.py:36",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: K.onebit_pack(x), 50),
+        plain_ms=cuda_ms(lambda: K.onebit_pack_plain(x), 10),
+        bound_ms=(4 * n + 4 * nw) / PEAK_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None)
+    unpack = dict(
+        name="onebit_unpack", route="cuda",
+        source="byteps_tpu_torch/csrc/onebit.cu",
+        replaces="byteps_tpu/ops/compression/pallas_kernels.py:48",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: K.onebit_unpack(words, scale, n), 50),
+        plain_ms=cuda_ms(lambda: K.onebit_unpack_plain(words, scale, n), 10),
+        bound_ms=(4 * nw + 4 + 4 * n) / PEAK_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None)
+    for e in (pack, unpack):
+        print(f"{e['name']} n={n}: {e['ms']:.4f} ms (plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms)",
+              flush=True)
+    return [pack, unpack]
+
+
+def phase_flash(dev, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from byteps_tpu_torch.ops import flash_attention as FA
+
+    B, S, H, Hkv, D = (FLASH_SHAPE[k] for k in ("B", "S", "H", "Hkv", "D"))
+    bf = torch.bfloat16
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(bf)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf)
+    with torch.no_grad():
+        got = FA.flash_attention_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        ref = FA.blockwise_attention(q, k, v, causal=True)
+    diff = (got.float() - ref.float()).abs()
+    # both round an fp32 result to bf16; the fp32 results differ only by
+    # summation order (~1e-6 relative), so an element may land one bf16
+    # step apart: at most 2^-7 of its magnitude
+    tol = 2.0 ** -7 * ref.float().abs() + 1e-6
+    err = float(diff.max())
+    if not bool(torch.isfinite(got.float()).all()) or bool((diff > tol).any()):
+        fail(f"flash_attention kernel vs blockwise: max abs err {err}, "
+             f"{int((diff > tol).sum())} elements above one bf16 step")
+    print(f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal: "
+          f"max abs err {err} (tolerance: one bf16 step)", flush=True)
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    g = H // Hkv
+    kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: FA.flash_attention_fwd(q, k, v, True), 10)
+        plain_ms = cuda_ms(lambda: FA.blockwise_attention(q, k, v, True), 3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20)
+    flops = 2.0 * B * H * S * S * D
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    e = dict(name="flash_attn_fwd", route="cuda",
+             source="byteps_tpu_torch/csrc/flash_attn_fwd.cu",
+             replaces="byteps_tpu/ops/flash_attention.py:102",
+             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=max(t_flops, t_bytes),
+             bound_by="operations" if t_flops >= t_bytes else "bytes",
+             library_ms=lib_ms)
+    print(f"flash_attention: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+          f"{e['bound_ms']:.4f} ms)", flush=True)
+    return e
+
+
+def phase_small_model(dev) -> None:
+    """A small fp32 Llama with head dim 64: loss and gradients with the
+    kernels on the card against the plain twins on the CPU."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops.flash_attention import make_flash_attn
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, hidden_dim=256, max_seq_len=256,
+                            dtype=torch.float32, remat=True)
+    gen = torch.Generator().manual_seed(1)
+    params = llama.init_params(cfg, gen, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen)
+    attn = make_flash_attn(block_k=64)
+    out = {}
+    for where in ("cpu", dev):
+        model = llama.Llama(cfg, device=where, params=params)
+        loss = llama.loss_fn(model.params(), {"tokens": tokens.to(where)},
+                             cfg, attn)
+        loss.backward()
+        out[str(where)] = (float(loss.detach()), {n: p.grad.detach().cpu()
+                                         for n, p in model.named_parameters()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(dev)]
+    # fp32 on both sides (no TF32): only summation order differs
+    if not (math.isfinite(l_dev) and abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)):
+        fail(f"small model loss on the card {l_dev} vs CPU {l_cpu}")
+    worst = 0.0
+    for name, gc in g_cpu.items():
+        rel = float((g_dev[name] - gc).abs().max()) / \
+            max(float(gc.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > 1e-3:
+            fail(f"small model grad {name}: max err {rel} of its max")
+    print(f"small fp32 model: loss card {l_dev} vs CPU {l_cpu}; worst "
+          f"gradient error {worst:.3e} of the leaf's max", flush=True)
+
+
+def phase_train(args, card: str) -> dict:
+    import torch
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops.compression import kernels as K
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import (DistributedOptimizer,
+                                           make_train_step)
+
+    counters = {"flash_attn_fwd": FA.flash_attention_fwd,
+                "onebit_pack": K.onebit_pack,
+                "onebit_unpack": K.onebit_unpack}
+    bps.init()
+    try:
+        dev = bps.get_state().device
+        cfg = llama.LlamaConfig.small()
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        model = llama.Llama(cfg, device=dev, generator=gen)
+        opt = DistributedOptimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-3,
+                             betas=(0.9, 0.999), eps=1e-8),
+            compression={"compressor": "onebit", "ef": "vanilla"})
+        attn = FA.make_flash_attn()
+        step = make_train_step(
+            lambda b: llama.loss_fn(model.params(), b, cfg, attn), opt)
+        B, S = 4, 2048
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                               device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        n_comp = sum(s is not None for s in opt.compression.stacks)
+        print(f"train: LlamaConfig.small() dim {cfg.dim}, {cfg.n_layers} "
+              f"layers, vocab {cfg.vocab_size}, {n_params} params, "
+              f"{n_comp} of {len(opt.params)} leaves onebit-compressed, "
+              f"B={B} S={S}", flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        losses, times = [], []
+        for i in range(args.steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step({"tokens": tokens})
+            loss_v = float(loss)                # waits for the step
+            times.append(time.perf_counter() - t0)
+            losses.append(loss_v)
+            print(f"step {i}: loss {loss_v:.6f} ({times[-1] * 1e3:.1f} ms)",
+                  flush=True)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if args.profile:
+            profile_step(step, {"tokens": tokens}, args.profile)
+    finally:
+        bps.shutdown()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if any(v == 0 for v in launches.values()):
+        fail(f"a kernel of the path never launched: {launches}")
+    steady = times[1:] if len(times) > 1 else times
+    tok_s = B * S / (sum(steady) / len(steady))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"train: {tok_s:.1f} tokens/s over steps 1..{len(times) - 1} "
+          f"(step 0 has the warm-up) on {card}; peak memory {peak_gb:.2f} "
+          f"GB; launches in {args.steps} steps {launches}", flush=True)
+    return launches
+
+
+def profile_step(step, batch, out_dir: str) -> None:
+    """One more train step under torch.profiler: device time by kernel,
+    the device-busy share of the step, and a Chrome trace in out_dir."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        float(step(batch))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
+
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:                   # union: streams may overlap
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name, by_class = {}, {}
+    for e in kernels:
+        for table, key in ((by_name, e.name), (by_class, _kernel_class(e.name))):
+            t, n = table.get(key, (0.0, 0))
+            table[key] = (t + e.time_range.elapsed_us(), n + 1)
+    print(f"profile: step {wall_ms:.1f} ms, device busy {busy_us / 1e3:.1f} "
+          f"ms ({busy_us / 1e3 / wall_ms:.3f} of the step), "
+          f"{len(kernels)} kernels", flush=True)
+    for title, table, rows in (("by class", by_class, 10),
+                               ("by kernel", by_name, 25)):
+        total = sum(t for t, _ in table.values())
+        print(f"profile {title} (device ms, share of kernel time, count):")
+        for name, (t, n) in sorted(table.items(),
+                                   key=lambda kv: -kv[1][0])[:rows]:
+            print(f"  {t / 1e3:9.3f} ms {t / total:6.3f} x{n:<5d} "
+                  f"{name[:90]}")
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_fwd" in name:
+        return "flash_fwd (B1)"
+    if "onebit" in name:
+        return "onebit (B2, B3)"
+    if "nccl" in name.lower():
+        return "nccl"
+    if "nvjet" in name or ("gemm" in name and "bf16" in name):
+        return "gemm bf16"
+    if "sgemm" in name or "f32f32" in name:
+        return "gemm f32"
+    if "reduce_kernel" in name:
+        return "reductions"
+    if "elementwise" in name or "copy" in name:
+        return "elementwise and copies"
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="profile one extra train step; trace into DIR")
+    args = ap.parse_args()
+    if args.steps < 3:
+        fail("--steps must be at least 3")
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    if not os.path.isdir(os.path.join(ROOT, "byteps_tpu_torch", "csrc")):
+        fail(f"no byteps_tpu_torch package beside {__file__}")
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = phase_card()
+    phase_build()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    kernels = phase_onebit(dev, gen)
+    kernels.insert(0, phase_flash(dev, gen))
+    phase_small_model(dev)
+    launches = phase_train(args, card)
+    for e in kernels:
+        e["launches"] = launches[e["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

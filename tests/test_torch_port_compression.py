@@ -1,0 +1,207 @@
+"""The port's compression stack and push_pull against the JAX package.
+
+The same gradients give the same onebit payload and EF/momentum state
+(bit-identical words; the L1-mean scale and the float state to a stated
+ulp bound, since XLA and torch may sum the mean in other orders). The
+collective paths run over gloo groups of one rank, or of two spawned
+ranks, on a FileStore in the test's temporary directory, so parallel
+workers never share a port.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import byteps_tpu_torch as bps
+from byteps_tpu.ops.compression import make_compressor as j_make
+from byteps_tpu.ops.compression.codecs import OnebitCodec as JOnebit
+from byteps_tpu.ops.compression.feedback import CompressorStack as JStack
+from byteps_tpu_torch.ops import push_pull as tpp
+from byteps_tpu_torch.ops.compression import (
+    CompressionTransform, compressed_psum_tree, default_stacks,
+    make_compressor,
+)
+
+
+@pytest.fixture()
+def group(tmp_path):
+    bps.init(device="cpu", store=dist.FileStore(str(tmp_path / "store"), 1),
+             rank=0, world_size=1)
+    try:
+        yield bps.get_state().group
+    finally:
+        bps.shutdown()
+
+
+def test_registry_onebit_and_not_yet_ported():
+    st = make_compressor({"compressor": "onebit", "ef": "vanilla",
+                          "momentum": "nesterov"}, 100)
+    assert st.use_ef and st.momentum_mu == 0.9 and st.codec.scaled
+    for name in ("topk", "randomk", "dithering"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            make_compressor({"compressor": name}, 100)
+    with pytest.raises(ValueError, match="unknown compressor"):
+        make_compressor({"compressor": "nope"}, 100)
+    with pytest.raises(ValueError, match="momentum requires ef"):
+        make_compressor({"compressor": "onebit", "momentum": "nesterov"}, 10)
+    with pytest.raises(ValueError, match="unknown ef"):
+        make_compressor({"compressor": "onebit", "ef": "vanila"}, 10)
+
+
+def test_min_compress_bytes_threshold():
+    params = [torch.zeros(1000), torch.zeros(10)]
+    stacks = default_stacks(params, {"compressor": "onebit"},
+                            min_compress_bytes=1024)
+    assert stacks[0] is not None and stacks[1] is None
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"compressor": "onebit", "ef": "vanilla"},
+    {"compressor": "onebit", "ef": "vanilla", "momentum": "nesterov"},
+    {"compressor": "onebit", "scaling": "false"},
+])
+def test_stack_payload_and_state_match_jax(kwargs):
+    """Three rounds with an LR schedule (the EF prev_lr rescale): the
+    words are bit-identical and the state agrees to 4 ulps of its scale."""
+    n = 5003
+    jst, tst = j_make(kwargs, n), make_compressor(kwargs, n)
+    assert isinstance(jst, JStack)
+    jst = JStack(codec=JOnebit(size=n, scaled=jst.codec.scaled,
+                               use_pallas=False),
+                 use_ef=jst.use_ef, momentum_mu=jst.momentum_mu)
+    jstate, tstate = jst.init_state(n), tst.init_state(n)
+    rng = np.random.RandomState(0)
+    for step, lr in enumerate((0.1, 0.05, 0.05)):
+        g = rng.randn(n).astype(np.float32)
+        jp, jstate = jst.compress(jnp.asarray(g), jstate, step, lr=lr)
+        tp, tstate = tst.compress(torch.from_numpy(g), tstate, step, lr=lr)
+        np.testing.assert_array_equal(tp["bits"].numpy().view(np.uint32),
+                                      np.asarray(jp["bits"]))
+        np.testing.assert_allclose(tp["scale"].numpy(),
+                                   np.asarray(jp["scale"]), rtol=2e-7)
+        assert set(tstate) == set(jstate)
+        for key in jstate:
+            want = np.asarray(jstate[key])
+            ulp = 4 * np.spacing(np.float32(np.abs(want).max() + 1e-30))
+            np.testing.assert_allclose(tstate[key].numpy(), want, rtol=0,
+                                       atol=ulp, err_msg=key)
+        np.testing.assert_allclose(tst.decompress(tp).numpy(),
+                                   np.asarray(jst.decompress(jp)),
+                                   rtol=2e-7)
+
+
+def test_compressed_psum_tree_one_rank(group):
+    """Over one rank the reduction returns each leaf's own decompressed
+    payload (compressed leaves) or the leaf itself (plain leaves)."""
+    rng = np.random.RandomState(1)
+    grads = [torch.from_numpy(rng.randn(40, 30).astype(np.float32)),
+             torch.from_numpy(rng.randn(7).astype(np.float32))]
+    kw = {"compressor": "onebit", "ef": "vanilla"}
+    stacks = default_stacks(grads, kw, min_compress_bytes=1024)
+    states = [s.init_state(g.numel()) if s else {}
+              for g, s in zip(grads, stacks)]
+    out, new_states = compressed_psum_tree(grads, states, stacks, group)
+    flat = grads[0].reshape(-1)
+    want = torch.where(flat >= 0, 1.0, -1.0) * flat.abs().mean()
+    torch.testing.assert_close(out[0].reshape(-1), want, rtol=0, atol=0)
+    torch.testing.assert_close(new_states[0]["error"], flat - want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out[1], grads[1], rtol=0, atol=0)
+
+    tx = CompressionTransform(grads, kw, group=group, min_compress_bytes=0)
+    r1 = tx.update(grads)
+    r2 = tx.update(grads)
+    assert tx.step == 2 and all(s is not None for s in tx.stacks)
+    assert r1[0].shape == grads[0].shape and r2[1].shape == grads[1].shape
+
+
+def test_two_ranks_match_jax_two_device_mesh(tmp_path):
+    """Two gloo ranks (spawned processes) against the JAX
+    compressed_psum_tree on a two-device dp mesh: the same mean of the
+    decompressed payloads, the same per-rank EF residual, and the
+    truncating integer mean; plus eager push_pull and
+    broadcast_parameters from rank 1."""
+    import multiprocessing as mp
+
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from byteps_tpu.ops.compression import (
+        compressed_psum_tree as j_cpt, default_stacks as j_stacks,
+    )
+    from byteps_tpu.parallel.mesh import make_mesh
+    from byteps_tpu.ops.push_pull import psum_tree as j_psum
+
+    import _torch_port_worker as W
+
+    ctx = mp.get_context("spawn")
+    store, outs = str(tmp_path / "store"), []
+    procs = []
+    for r in range(2):
+        outs.append(str(tmp_path / f"rank{r}.npz"))
+        procs.append(ctx.Process(target=W.run_rank,
+                                 args=(r, 2, store, outs[r])))
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    got = [np.load(o) for o in outs]
+
+    per_rank = [W.grads_for(r) for r in range(2)]
+    stacked = [np.stack([g[i] for g in per_rank]) for i in range(3)]
+    kw = {"compressor": "onebit", "ef": "vanilla"}
+    stacks = j_stacks({"a": stacked[0][0], "b": stacked[1][0]}, kw,
+                      min_compress_bytes=1024)
+
+    def body(a, b, ints):
+        grads = {"a": a[0], "b": b[0]}
+        states = {"a": stacks["a"].init_state(a[0].size), "b": {}}
+        out, new = j_cpt(grads, states, stacks, "dp", 0)
+        return (out["a"][None], out["b"][None], new["a"]["error"][None],
+                j_psum(ints[0], "dp")[None])
+
+    mesh = make_mesh(devices=jax.devices()[:2])
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P("dp"),) * 3,
+                               out_specs=(P("dp"),) * 4, check_vma=False))
+    want = [np.asarray(x) for x in fn(*stacked)]
+    for r in range(2):
+        # the mean of two +-scale vectors, scales equal to an ulp; where
+        # the ranks' signs differ the mean is a difference of scales, so
+        # the bound is absolute: 4 ulps of the largest value
+        for key, w in (("a", want[0][r]), ("error", want[2][r])):
+            ulp4 = 4 * np.spacing(np.float32(np.abs(w).max()))
+            np.testing.assert_allclose(got[r][key], w, rtol=0, atol=ulp4,
+                                       err_msg=key)
+        np.testing.assert_allclose(got[r]["b"], want[1][r], rtol=1e-6)
+        np.testing.assert_array_equal(got[r]["ints"], want[3][r])
+    np.testing.assert_array_equal(got[0]["ints"], [-3, 3, 5])
+    for r in range(2):
+        np.testing.assert_array_equal(got[r]["mean"], [0.5])
+        np.testing.assert_array_equal(got[r]["bcast"], [1.0, 1.0, 1.0])
+
+
+def test_push_pull_and_broadcast_one_rank(group):
+    x = torch.arange(6, dtype=torch.float32)
+    torch.testing.assert_close(bps.push_pull(x), x)
+    torch.testing.assert_close(bps.broadcast(x, root_rank=0), x)
+    tree = {"a": x, "b": [torch.tensor([3, -3], dtype=torch.int32)]}
+    out = tpp.psum_tree(tree, average=True)
+    torch.testing.assert_close(out["b"][0], tree["b"][0])
+    assert bps.size() == 1 and bps.rank() == 0 and bps.local_size() == 1
+
+
+def test_integer_average_truncates_toward_zero():
+    """The truncating integer mean of push_pull.py:48-66 (reference
+    torch/ops.cc:78-90): -3 / 2 is -1, not floor's -2."""
+    t = torch.tensor([-3, 3, -1, 5], dtype=torch.int32)
+    assert tpp._average_(t.clone(), 2).tolist() == [-1, 1, 0, 2]
+    assert tpp._average_(torch.tensor([-3.0]), 2).tolist() == [-1.5]

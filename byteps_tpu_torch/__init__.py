@@ -1,14 +1,18 @@
 """byteps_tpu_torch — the PyTorch and CUDA port of byteps_tpu.
 
-It runs the same training step as the JAX package on an NVIDIA H100:
+It runs the same training steps as the JAX package on an NVIDIA H100:
 the Llama model (``models.llama``), a ``DistributedOptimizer`` that
 push_pulls gradients, with optional onebit compression and error
-feedback, over the ``dp`` process group (``training``), and flash
-attention (``ops.flash_attention``). The Pallas kernels of the JAX package
-are CUDA kernels here (``csrc/``), built with nvcc at first use.
+feedback, over the ``dp`` process group (``training``), flash attention
+(``ops.flash_attention``), and the parameter-server step
+(``training.make_ps_train_step``), whose gradients are compressed on the
+card (onebit, randomk, dithering) and summed by the C++ server
+(``server``, ``native/ps.cc``). The Pallas kernels of the JAX package are
+CUDA kernels here (``csrc/``), built with nvcc at first use.
 
     import byteps_tpu_torch as bps
-    bps.init()                       # cuda:<BYTEPS_LOCAL_RANK>, NCCL group
+    bps.init()                       # cuda:<BYTEPS_LOCAL_RANK>, NCCL group;
+                                     # PS client too if DMLC_NUM_SERVER > 0
     out = bps.push_pull(grad)        # mean across the dp group
     bps.shutdown()
 

@@ -1,15 +1,26 @@
 """Environment configuration read by the PyTorch port.
 
 Only the knobs the port reads live here, with the same names and defaults
-as the JAX package's config (BytePS's global.cc:43 for the compression
-threshold). ``BYTEPS_LOG_LEVEL`` is read by ``utils/logging.py``.
+as the JAX package's config (byteps_tpu/config.py; BytePS's global.cc for
+the partition size and the compression threshold). ``BYTEPS_LOG_LEVEL``
+is read by ``utils/logging.py``.
+
+The parameter-server knobs keep the reference's names, so launch tooling
+carries over: DMLC_* for the topology (communicator.cc:60-96), and
+BYTEPS_PARTITION_BYTES, BYTEPS_SCHEDULING_CREDIT and the server's engine
+threads (global.cc:134-176, server.cc:412-456).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
+# Default partition size: 4 MB (global.cc:42,134-144).
+DEFAULT_PARTITION_BYTES = 4096000
+# Partition lengths round to a page (global.cc:140-144).
+PAGE_SIZE = 4096
 # Minimum tensor size eligible for compression, in bytes (global.cc:43).
 DEFAULT_MIN_COMPRESS_BYTES = 1024000
 
@@ -19,12 +30,53 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v not in (None, "") else default
 
 
+def _env_str(name: str, default: str) -> str:
+    v = os.environ.get(name)
+    return v if v not in (None, "") else default
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
+    # --- identity / topology ---
+    role: str = "worker"                  # DMLC_ROLE: worker | server
+    worker_id: int = 0                    # DMLC_WORKER_ID
+    num_workers: int = 1                  # DMLC_NUM_WORKER
+    num_servers: int = 0                  # DMLC_NUM_SERVER
+    scheduler_uri: str = "127.0.0.1"      # DMLC_PS_ROOT_URI
+    scheduler_port: int = 9000            # DMLC_PS_ROOT_PORT
+    local_rank: int = 0                   # BYTEPS_LOCAL_RANK
+    local_size: int = 1                   # BYTEPS_LOCAL_SIZE
+    global_rank: Optional[int] = None     # BYTEPS_GLOBAL_RANK
+
+    # --- partitioning / scheduling ---
+    partition_bytes: int = DEFAULT_PARTITION_BYTES  # BYTEPS_PARTITION_BYTES
+    scheduling_credit: int = 0            # BYTEPS_SCHEDULING_CREDIT (0 = off)
+    key_hash_fn: str = "djb2"             # BYTEPS_KEY_HASH_FN
+
+    # --- compression ---
     min_compress_bytes: int = DEFAULT_MIN_COMPRESS_BYTES  # BYTEPS_MIN_COMPRESS_BYTES
+
+    # --- server ---
+    server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
 
     @staticmethod
     def from_env() -> "Config":
         return Config(
+            role=_env_str("DMLC_ROLE", "worker"),
+            worker_id=_env_int("DMLC_WORKER_ID", 0),
+            num_workers=_env_int("DMLC_NUM_WORKER", 1),
+            num_servers=_env_int("DMLC_NUM_SERVER", 0),
+            scheduler_uri=_env_str("DMLC_PS_ROOT_URI", "127.0.0.1"),
+            scheduler_port=_env_int("DMLC_PS_ROOT_PORT", 9000),
+            local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
+            local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
+            global_rank=(int(os.environ["BYTEPS_GLOBAL_RANK"])
+                         if os.environ.get("BYTEPS_GLOBAL_RANK") else None),
+            partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
+                                     DEFAULT_PARTITION_BYTES),
+            scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT", 0),
+            key_hash_fn=_env_str("BYTEPS_KEY_HASH_FN", "djb2"),
             min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES",
-                                        DEFAULT_MIN_COMPRESS_BYTES))
+                                        DEFAULT_MIN_COMPRESS_BYTES),
+            server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
+        )

@@ -1,0 +1,170 @@
+"""Tensor declaration, PS key encoding, partitioning and server
+assignment.
+
+Port of byteps_tpu/core/registry.py (``TensorRegistry``), trimmed to what
+the PS train step reads. It gives the same keys and partitions as the JAX
+registry for the same names and sizes, so workers of both packages meet
+on one server:
+
+- declaration -> monotonically increasing ``declared_key`` per tensor
+  name (global.cc:412-429);
+- PS key = ``declared_key << 16 | partition_index`` (operations.cc:306-311);
+- partitions of at most ``partition_bytes``, rounded to a page
+  (operations.cc:140-180; global.cc:134-144);
+- server choice by the BYTEPS_KEY_HASH_FN hash of the key, or the
+  least-loaded server for "mixed" (global.cc:566-677).
+
+Not yet ported: rebalance, live migration, locality shards and the
+colocated mixed mode.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+from ..config import PAGE_SIZE, Config
+from ..utils.logging import log
+from .types import DataType, Partition, TensorContext
+
+# Partition index fits in the low 16 bits of a key (operations.cc:306-311).
+KEY_SHIFT = 16
+MAX_PARTITIONS = 1 << KEY_SHIFT
+
+
+def _hash_naive(s: str) -> int:
+    # the reference's Hash_Naive works on the numeric key (global.cc:598-600)
+    key = int(s)
+    return (((key >> 16) + (key % 65536)) * 9973) & 0xFFFFFFFFFFFFFFFF
+
+
+def _hash_builtin(s: str) -> int:
+    # FNV-1a: Python's str hash is salted per process (global.cc:609-611)
+    h = 0x811C9DC5
+    for ch in s:
+        h ^= ord(ch)
+        h = (h * 0x01000193) & 0xFFFFFFFF
+    return h
+
+
+def _hash_djb2(s: str) -> int:
+    h = 5381
+    for ch in s:
+        h = ((h << 5) + h + ord(ch)) & 0xFFFFFFFF  # global.cc:613-618
+    return h
+
+
+def _hash_sdbm(s: str) -> int:
+    h = 0
+    for ch in s:
+        h = (ord(ch) + (h << 6) + (h << 16) - h) & 0xFFFFFFFF  # :620-626
+    return h
+
+
+_HASH_FNS = {
+    "naive": _hash_naive,
+    "built_in": _hash_builtin,
+    "djb2": _hash_djb2,
+    "sdbm": _hash_sdbm,
+}
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+class TensorRegistry:
+    """Thread-safe name -> TensorContext table with stable key assignment."""
+
+    def __init__(self, config: Config):
+        self._config = config
+        self._lock = threading.Lock()
+        self._contexts: Dict[str, TensorContext] = {}  # guarded-by: _lock
+        self._next_key = 0                             # guarded-by: _lock
+        # per-server accumulated bytes, for "mixed" (least-loaded)
+        # assignment; guarded-by: _lock
+        self._server_load: List[int] = [0] * max(1, config.num_servers)
+        # staging arena (core/arena.py): re-partitioning a tensor makes
+        # its staged slot sizes stale, so the registry drops them
+        self._arena = None
+
+    def attach_arena(self, arena) -> None:
+        self._arena = arena
+
+    def declare(self, name: str,
+                dtype: DataType = DataType.FLOAT32) -> TensorContext:
+        """Declare (or fetch) a tensor by name; the first call assigns the
+        next declared_key (global.cc:412-429)."""
+        with self._lock:
+            ctx = self._contexts.get(name)
+            if ctx is None:
+                ctx = TensorContext(name=name, declared_key=self._next_key,
+                                    dtype=dtype)
+                self._next_key += 1
+                self._contexts[name] = ctx
+                log.debug("declared tensor %s -> key %d", name,
+                          ctx.declared_key)
+            return ctx
+
+    def init_tensor(self, name: str, nbytes: int,
+                    dtype: Optional[DataType] = None) -> TensorContext:
+        """Partition into <= partition_bytes keys and assign each to a
+        server (operations.cc:283-414); idempotent for an unchanged
+        size."""
+        ctx = self.declare(name, dtype or DataType.FLOAT32)
+        if dtype is not None:
+            ctx.dtype = dtype
+        with self._lock:
+            if ctx.initialized and ctx.nbytes == nbytes:
+                return ctx
+            self._partition_locked(ctx, nbytes)
+            ctx.initialized = True
+            return ctx
+
+    def _partition_locked(self, ctx: TensorContext, nbytes: int) -> None:
+        _check(nbytes > 0, f"tensor {ctx.name} has zero size")
+        pb = self._config.partition_bytes
+        part_bytes = max(PAGE_SIZE, (pb + PAGE_SIZE - 1) // PAGE_SIZE
+                         * PAGE_SIZE)
+        # re-init: retire the old partitions' load and staged slots (the
+        # ":" scopes the match to this tensor's keys)
+        if ctx.partitions and self._arena is not None:
+            self._arena.invalidate_prefix(ctx.name + ":")
+        for p in ctx.partitions:
+            if p.server < len(self._server_load):
+                self._server_load[p.server] -= p.length
+        ctx.nbytes = nbytes
+        ctx.partitions = []
+        num_parts = (nbytes + part_bytes - 1) // part_bytes
+        _check(num_parts <= MAX_PARTITIONS,
+               f"{ctx.name}: {num_parts} partitions exceed key space")
+        offset = 0
+        for i in range(num_parts):
+            length = min(part_bytes, nbytes - offset)
+            key = (ctx.declared_key << KEY_SHIFT) | i
+            server = self._assign_server_locked(key, length)
+            ctx.partitions.append(Partition(key=key, index=i, offset=offset,
+                                            length=length, server=server))
+            offset += length
+
+    def _assign_server_locked(self, key: int, length: int) -> int:
+        num_servers = max(1, self._config.num_servers)
+        fn_name = self._config.key_hash_fn
+        if num_servers == 1:
+            server = 0
+        elif fn_name == "mixed":
+            # least-loaded; deterministic across workers, which declare in
+            # the same order
+            server = min(range(num_servers),
+                         key=lambda s: self._server_load[s])
+        else:
+            fn = _HASH_FNS.get(fn_name, _hash_djb2)
+            server = fn(str(key)) % num_servers
+        self._server_load[server] += length
+        return server
+
+    def server_loads(self) -> List[int]:
+        with self._lock:
+            return list(self._server_load)
+

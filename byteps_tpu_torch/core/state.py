@@ -10,14 +10,22 @@ a group of one, an in-memory store.
 
 Topology comes from the BytePS variables ``BYTEPS_LOCAL_RANK`` and
 ``BYTEPS_LOCAL_SIZE`` (default 0 and 1).
+
+PS mode (byteps_tpu/core/state.py:410-424): with ``DMLC_NUM_SERVER`` > 0
+and the worker role, ``init`` also connects the parameter-server client
+and builds the tensor registry, the host staging arena, the pipeline
+scheduler and the handle table that ``training.make_ps_train_step``
+reads. The ``dp`` group stays: it is the intra-node reduce before the
+PS round, as NCCL is in BytePS.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 from datetime import timedelta
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -61,6 +69,13 @@ class GlobalState:
         self.group = None            # the dp process group
         self.local_rank = 0
         self.local_size = 1
+        # PS mode (num_servers > 0, worker role); None otherwise
+        self.ps_client = None
+        self.registry = None
+        self.arena = None
+        self.scheduler = None
+        self.handles = None
+        self._version: Dict[str, int] = {}
 
     @classmethod
     def get(cls) -> "GlobalState":
@@ -84,6 +99,16 @@ class GlobalState:
                 int(env.get("BYTEPS_LOCAL_RANK", "0") or 0)
             self.local_size = world_size if world_size is not None else \
                 int(env.get("BYTEPS_LOCAL_SIZE", "1") or 1)
+            # the PS worker id derives from these, so they must be the
+            # group's own and not a second read of the environment
+            self.config = dataclasses.replace(
+                self.config, local_rank=self.local_rank,
+                local_size=self.local_size)
+            if self._ps_mode() and self.local_size > 1:
+                raise NotImplementedError(
+                    "PS mode with a dp group of more than one process is "
+                    "not yet ported to byteps_tpu_torch (BytePS pushes "
+                    "from the local root only)")
             self.device = resolve_device(device, self.local_rank)
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
@@ -104,14 +129,60 @@ class GlobalState:
                 kw["init_method"] = f"tcp://127.0.0.1:{port}"
             dist.init_process_group(**kw)
             self.group = dist.group.WORLD
+            try:
+                self._init_ps()
+            except BaseException:
+                self._stop_ps()
+                dist.destroy_process_group()
+                raise
             self.initialized = True
-            log.info("init: rank %d/%d on %s (%s)", self.local_rank,
-                     self.local_size, self.device, backend)
+            log.info("init: rank %d/%d on %s (%s)%s", self.local_rank,
+                     self.local_size, self.device, backend,
+                     f", PS client of {self.config.num_servers} server(s)"
+                     if self.ps_client is not None else "")
+
+    def _ps_mode(self) -> bool:
+        return self.config.num_servers > 0 and self.config.role == "worker"
+
+    def _init_ps(self) -> None:
+        cfg = self.config
+        if not self._ps_mode():
+            return
+        from ..server.client import connect_from_config
+        from .arena import StagingArena
+        from .registry import TensorRegistry
+        from .scheduler import HandleManager, PipelineScheduler
+        self.arena = StagingArena()
+        self.registry = TensorRegistry(cfg)
+        self.registry.attach_arena(self.arena)
+        self._version = {}
+        self.ps_client = connect_from_config(cfg)
+        self.scheduler = PipelineScheduler(
+            self.ps_client, credit_bytes=cfg.scheduling_credit)
+        self.handles = HandleManager()
+
+    def _stop_ps(self) -> None:
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        if self.ps_client is not None:
+            self.ps_client.close()
+        if self.arena is not None:
+            self.arena.reset()
+        self.ps_client = self.scheduler = self.handles = None
+        self.registry = self.arena = None
+
+    def next_version(self, name: str) -> int:
+        """Per-tensor submission counter (the reference's version)."""
+        with self._lock:
+            v = self._version.get(name, 0)
+            self._version[name] = v + 1
+            return v
 
     def shutdown(self) -> None:
         with self._lock:
             if not self.initialized:
                 return
+            self._stop_ps()
             if dist.is_initialized():
                 dist.destroy_process_group()
             self.group = None

@@ -1,0 +1,67 @@
+"""Shared types of the PS path.
+
+Port of byteps_tpu/core/types.py, trimmed to what the PS train step
+reads: the wire dtypes and request types, their Cantor-paired command
+word, and the per-tensor and per-partition records. The values are wire
+contract with the C++ server (native/ps.cc) and with workers of the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import List
+
+
+class DataType(enum.IntEnum):
+    """Wire dtypes, in the reference's (mshadow) order (common.h:59-72)."""
+
+    FLOAT32 = 0
+    FLOAT64 = 1
+    FLOAT16 = 2
+    UINT8 = 3
+    INT32 = 4
+    INT8 = 5
+    INT64 = 6
+    BFLOAT16 = 7
+    UINT16 = 8
+
+
+class RequestType(enum.IntEnum):
+    """PS request types (reference: common.h:267-271)."""
+
+    DEFAULT_PUSH_PULL = 0
+    ROW_SPARSE_PUSH_PULL = 1
+    COMPRESSED_PUSH_PULL = 2
+
+
+def get_command_type(req: RequestType, dtype: DataType) -> int:
+    """Cantor pairing of (request type, dtype) into one wire int
+    (reference: common.cc:98-101)."""
+    a, b = int(req), int(dtype)
+    return (a + b) * (a + b + 1) // 2 + b
+
+
+@dataclasses.dataclass
+class Partition:
+    """One <= partition_bytes slice of a declared tensor: the (key,
+    offset, len) triple of TensorTableEntry (common.h:221-264)."""
+
+    key: int          # full PS key: declared_key << 16 | index
+    index: int        # partition index within the tensor
+    offset: int       # byte offset into the flat tensor
+    length: int       # byte length
+    server: int = 0   # assigned PS shard
+
+
+@dataclasses.dataclass
+class TensorContext:
+    """Per-declared-tensor state (reference BPSContext, common.h:177-205)."""
+
+    name: str
+    declared_key: int
+    dtype: DataType
+    nbytes: int = 0
+    partitions: List[Partition] = dataclasses.field(default_factory=list)
+    initialized: bool = False

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels at first use.
+"""Build the port's native code at first use: the CUDA kernels of
+``csrc/`` with nvcc, and the parameter server ``native/ps.cc`` with g++.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with nvcc
 into its own shared library, ``csrc/_build/lib<name>-<digest>.so``, where
@@ -9,6 +10,11 @@ every C entry point returns ``cudaGetLastError()``.
 
 ``build_all`` starts one nvcc per source at once and waits for all, so a
 cold start costs the slowest build, not their sum.
+
+``ps.cc`` is host C++ and builds apart from the kernels (``build_ps``),
+with the flags and the content-hashed cache of the JAX package's
+native/build.py, into ``native/_build/``. The port's ``ps.cc`` is a
+byte-identical copy of the JAX package's, so both packages speak one wire.
 """
 
 from __future__ import annotations
@@ -21,9 +27,23 @@ import subprocess
 import threading
 from typing import Dict, Iterable, List
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_DIR)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
+PS_SOURCE = os.path.join(_DIR, "ps.cc")
+PS_BUILD_DIR = os.path.join(_DIR, "_build")
+
+# ps.cc builds warning-clean by contract (-Wextra -Werror), with one
+# exception: GCC 12 reports (maybe-)uninitialized inside its own AVX-512
+# headers (the ``__Y = __Y`` of _mm512_undefined_*), which fails any
+# -Werror build of ps.cc's fold kernels there; those two stay warnings. The
+# flags are part of the cache hash. -lrt: shm_open on glibc < 2.34; -lz:
+# the lossless wire tier's entropy stage.
+CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall",
+            "-Wextra", "-Werror", "-Wno-error=uninitialized",
+            "-Wno-error=maybe-uninitialized"]
+LDFLAGS = ["-lrt", "-lz"]
 
 # Hopper only: sm_90a admits wgmma/setmaxnreg for the kernels that come
 # to need them. -Xptxas=-v puts registers, shared memory and spills of
@@ -126,3 +146,62 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.bps_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _cpu_tag() -> str:
+    """The build host's CPU: a -march=native library that moves to
+    another host is rebuilt instead of faulting on a smaller ISA."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "Model")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    import platform
+    return platform.processor() or platform.machine()
+
+
+def ps_lib_path() -> str:
+    with open(PS_SOURCE, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(CXXFLAGS + LDFLAGS).encode())
+    h.update(_cpu_tag().encode())
+    return os.path.join(PS_BUILD_DIR,
+                        f"libbyteps_ps-{h.hexdigest()[:16]}.so")
+
+
+_PS_LOCK = threading.Lock()
+
+
+def build_ps() -> str:
+    """Compile ``native/ps.cc`` with g++ if it is not built yet; return
+    the shared library's path."""
+    out = ps_lib_path()
+    with _PS_LOCK:
+        if os.path.exists(out):
+            return out
+        os.makedirs(PS_BUILD_DIR, exist_ok=True)
+        # per-pid tmp: a server and its workers may build at once
+        tmp = f"{out}.tmp.{os.getpid()}"
+        try:
+            # the host's full ISA first, then baseline, then no librt
+            attempts = (
+                [*CXXFLAGS, "-march=native", PS_SOURCE, "-o", tmp, *LDFLAGS],
+                [*CXXFLAGS, PS_SOURCE, "-o", tmp, *LDFLAGS],
+                [*CXXFLAGS, PS_SOURCE, "-o", tmp, "-lz"],
+            )
+            proc = None
+            for args in attempts:
+                proc = subprocess.run(["g++", *args], capture_output=True,
+                                      text=True)
+                if proc.returncode == 0:
+                    break
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed for native/ps.cc:\n{proc.stderr[-4000:]}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return out

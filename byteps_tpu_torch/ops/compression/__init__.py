@@ -5,12 +5,16 @@ Port of byteps_tpu/ops/compression/__init__.py:
 - ``make_compressor(kwargs, size)``: the string-kwargs registry of the
   reference's CompressorRegistry (compressor_registry.cc:39-56), keys as
   in BytePS's python surface (``compressor``, ``ef``, ``momentum``,
-  ``scaling``, ``momentum_mu``). Onebit is ported; topk, randomk and
-  dithering raise "not yet ported" and never fall back.
+  ``scaling``, ``momentum_mu``, and for randomk/dithering ``k``,
+  ``seed``, ``s``, ``partition_type``, ``normalize_type``). Onebit,
+  randomk and dithering are ported; topk raises "not yet ported" and
+  never falls back.
 - ``compressed_psum_tree``: each replica compresses its gradient, the
   payloads are all-gathered over the ``dp`` group, and every replica
   decompresses and sums them (core_loops.cc:498-648 collapsed into one
-  collective, as in the JAX package).
+  collective, as in the JAX package). Onebit only so far: randomk and
+  dithering reach the wire through the PS path
+  (``training.make_ps_train_step``).
 - ``CompressionTransform``: the per-leaf EF/momentum state and step count
   that ``training.DistributedOptimizer`` carries.
 """
@@ -24,17 +28,20 @@ import torch.distributed as dist
 
 from ...config import DEFAULT_MIN_COMPRESS_BYTES
 from ..push_pull import all_reduce_
-from .codecs import Codec, OnebitCodec, resolve_k
+from .codecs import (
+    Codec, DitheringCodec, OnebitCodec, RandomkCodec, resolve_k,
+)
 from .feedback import CompressorStack
 
 __all__ = [
-    "Codec", "OnebitCodec", "CompressorStack", "resolve_k",
+    "Codec", "OnebitCodec", "RandomkCodec", "DitheringCodec",
+    "CompressorStack", "resolve_k",
     "make_compressor", "default_stacks", "compressed_psum_tree",
     "CompressionTransform", "NOT_YET_PORTED",
 ]
 
 # codecs of the JAX package that the port does not have yet
-NOT_YET_PORTED = ("topk", "randomk", "dithering")
+NOT_YET_PORTED = ("topk",)
 
 
 def parse_bool_kwarg(kwargs: Dict[str, str], name: str,
@@ -64,17 +71,38 @@ def parse_momentum_kwarg(kwargs) -> bool:
                      f"{kwargs.get('momentum')!r}; use 'nesterov'")
 
 
+def _make_codec(name: str, kwargs: Dict[str, str], size: int) -> Codec:
+    """The base codec, with the kwargs of the JAX registry
+    (byteps_tpu/ops/compression/__init__.py:94-123)."""
+    if name == "onebit":
+        return OnebitCodec(size=size,
+                           scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
+    if name == "randomk":
+        return RandomkCodec(size=size,
+                            k=resolve_k(float(kwargs.get("k", 0.01)), size),
+                            seed=int(kwargs.get("seed", 0)))
+    # dithering: "s" with the "k" fallback, since the reference passes the
+    # level count as compressor_k (dithering.cc:31)
+    return DitheringCodec(size=size,
+                          s=int(kwargs.get("s", kwargs.get("k", 127))),
+                          partition=kwargs.get("partition_type", "linear"),
+                          normalize=kwargs.get("normalize_type", "max"),
+                          seed=int(kwargs.get("seed", 0)))
+
+
+PORTED = ("onebit", "randomk", "dithering")
+
+
 def make_compressor(kwargs: Dict[str, str], size: int) -> CompressorStack:
     """The momentum -> EF -> codec stack from string kwargs."""
     name = kwargs.get("compressor")
     if name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"compressor {name!r} is not yet ported to byteps_tpu_torch "
-            f"(only 'onebit' is); use byteps_tpu for it")
-    if name != "onebit":
-        raise ValueError(f"unknown compressor {name!r}; have ['onebit']")
-    codec = OnebitCodec(size=size,
-                        scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
+            f"(have {list(PORTED)}); use byteps_tpu for it")
+    if name not in PORTED:
+        raise ValueError(f"unknown compressor {name!r}; have {list(PORTED)}")
+    codec = _make_codec(name, kwargs, size)
     use_ef = parse_ef_kwarg(kwargs)
     mu = None
     if parse_momentum_kwarg(kwargs):
@@ -122,6 +150,12 @@ def compressed_psum_tree(grads: Sequence[torch.Tensor], states: Sequence,
             out.append(all_reduce_(g.clone(), group, average))
             new_states.append(st)
             continue
+        if not isinstance(stack.codec, OnebitCodec):
+            raise NotImplementedError(
+                f"the collective compressed push_pull of "
+                f"{type(stack.codec).__name__} is not yet ported (onebit "
+                f"is); randomk and dithering run on the PS path, "
+                f"training.make_ps_train_step")
         flat = g.reshape(-1).to(torch.float32)
         payload, new_st = stack.compress(flat, st, step, lr=lr)
         # one gather of the wire payload: the words, then the scale's bits

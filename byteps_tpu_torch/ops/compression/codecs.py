@@ -1,9 +1,12 @@
 """Gradient-compression codecs over flat f32 tensors.
 
-Port of byteps_tpu/ops/compression/codecs.py. Onebit is ported; topk,
-randomk and dithering are not yet (ops/compression/__init__.py raises for
-them). A codec implements ``compress(x, step) -> payload`` and
+Port of byteps_tpu/ops/compression/codecs.py. Onebit, randomk and
+dithering are ported; topk is not yet (ops/compression/__init__.py raises
+for it). A codec implements ``compress(x, step) -> payload`` and
 ``decompress(payload) -> x_hat``; ``wire_bytes`` is the payload size.
+Randomk and dithering draw from the counter stream of ``rng.py`` seeded
+by (seed, step): the step is the compression round, and the server
+re-draws randomk's indices from the same stream.
 """
 
 from __future__ import annotations
@@ -13,7 +16,10 @@ from typing import Any, Dict
 
 import torch
 
-from .kernels import n_words, onebit_pack, onebit_unpack
+from . import rng
+from .kernels import (
+    dithering_levels, n_words, onebit_pack, onebit_unpack, randomk_indices,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +71,90 @@ def resolve_k(k_param: float, size: int) -> int:
     else:
         k = max(1, int(size * k_param))
     return min(k, size)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomkCodec(Codec):
+    """k pseudo-random (index, value) pairs seeded by (seed, step), so
+    every party draws the same indices (randomk.cc:24-60).
+
+    The indices come from the B5 kernel on every CUDA launch (the JAX
+    codec launches its kernel only from k = 32768 on; its smaller k takes
+    the jnp twin, with the same indices). The gather ``x[idx]`` and the
+    decompress's scatter stay plain torch, as they are plain jnp there.
+    payload: ``indices`` int32 [k], ``values`` f32 [k]."""
+
+    k: int = 1
+    seed: int = 0
+
+    def compress(self, x: torch.Tensor, step: int = 0) -> Dict[str, Any]:
+        idx = randomk_indices(rng.uniform_base(self.seed, step), self.size,
+                              self.k, x.device)
+        return {"indices": idx, "values": x[idx.long()]}
+
+    def decompress(self, payload: Dict[str, Any]) -> torch.Tensor:
+        vals = payload["values"]
+        out = torch.zeros(self.size, dtype=torch.float32, device=vals.device)
+        # index_put_ without accumulate: a repeated index keeps one of
+        # its (equal) values, like ``.at[idx].set``
+        out[payload["indices"].long()] = vals
+        return out
+
+    def wire_bytes(self) -> int:
+        return self.k * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class DitheringCodec(Codec):
+    """Stochastic s-level quantization (dithering.cc:25-80): normalize by
+    the max or the L2 norm, map |x| onto s linear levels or onto powers of
+    two (natural), round up with the probability of the fractional
+    position, ship dense signed int8 levels and the f32 norm.
+
+    The norm is a plain torch reduction (the JAX codec leaves it to XLA)
+    and reaches the B4 kernel as a device scalar, never read on the host.
+    payload: ``levels`` int8 [n], ``norm`` f32 []."""
+
+    s: int = 127                  # levels; <= 127 so a level fits int8
+    partition: str = "linear"     # or "natural"
+    normalize: str = "max"        # or "l2"
+    seed: int = 0
+
+    def __post_init__(self):
+        if not (1 <= self.s <= 127):
+            raise ValueError(
+                f"dithering s={self.s} out of range [1, 127] (levels are "
+                f"carried as int8; larger s would silently wrap)")
+        if self.partition not in ("linear", "natural"):
+            raise ValueError(f"unknown partition {self.partition!r}")
+        if self.normalize not in ("max", "l2"):
+            raise ValueError(f"unknown normalize {self.normalize!r}")
+
+    def norm(self, x: torch.Tensor) -> torch.Tensor:
+        absx = x.abs()
+        m = absx.max()
+        if self.normalize == "max":
+            norm = m
+        else:
+            # scale-invariant two-pass L2: x*x overflows near f32's max
+            safe_m = torch.clamp_min(m, 1e-30)
+            norm = safe_m * torch.sqrt(torch.sum(torch.square(absx / safe_m)))
+        return torch.clamp_min(norm, 1e-30).to(torch.float32)
+
+    def compress(self, x: torch.Tensor, step: int = 0) -> Dict[str, Any]:
+        norm = self.norm(x)
+        levels = dithering_levels(x, norm, rng.uniform_base(self.seed, step),
+                                  self.s, self.partition)
+        return {"levels": levels, "norm": norm}
+
+    def decompress(self, payload: Dict[str, Any]) -> torch.Tensor:
+        lv = payload["levels"].to(torch.float32)
+        if self.partition == "linear":
+            mag = lv.abs() / float(self.s)
+        else:
+            mag = torch.where(lv == 0, torch.zeros_like(lv),
+                              torch.exp2(-(lv.abs() - 1.0)))
+        return torch.sign(lv) * mag * payload["norm"]
+
+    def wire_bytes(self) -> int:
+        return self.size + 4

@@ -1,0 +1,215 @@
+"""Host-side (numpy) wire codecs: the wire format of the PS path.
+
+Port of byteps_tpu/ops/compression/host.py, trimmed to what the PS train
+step reads: ``make_host_codec`` for onebit, randomk and dithering. The
+device tier
+(``training/device_compression.py``) compresses on the card; it reads a
+host codec only for ``kwargs_wire()`` (the codec configuration sent
+in-band to the server, operations.cc:396-408) and ``wire_bytes()`` (the
+size of a reply). ``compress``/``decompress`` are the numpy golden model
+the tests hold the device tier against.
+
+Wire layouts (little-endian), shared with the JAX package and the C++
+server (native/ps.cc CompressorCfg):
+
+- onebit:    uint32 bits[ceil(n/32)], then f32 scale
+- randomk:   int32 idx[k], then f32 val[k] (``rng.np_index_parallel``)
+- dithering: int8 levels[n], then f32 norm
+
+Not yet ported: topk, the lossless tier, dithering's varint index coding,
+the host tier's error feedback and momentum, and the native (C++) codec
+acceleration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+
+from .codecs import resolve_k
+from .rng import np_index_parallel, np_uniform_parallel
+
+
+class HostCodec:
+    """Base: compress(x, step) -> bytes; decompress(buf) -> f32[n]."""
+
+    n: int
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        raise NotImplementedError
+
+    def decompress(self, buf) -> np.ndarray:
+        raise NotImplementedError
+
+    def wire_bytes(self) -> int:
+        raise NotImplementedError
+
+    def kwargs_wire(self) -> str:
+        """Serialized config for the server (parsed by ps.cc)."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class HostOnebit(HostCodec):
+    n: int
+    scaled: bool = True
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        x = np.ascontiguousarray(x, np.float32)
+        scale = np.float32(np.mean(np.abs(x))) if self.scaled \
+            else np.float32(1.0)
+        signs = np.ones(self.n + (-self.n) % 32, np.uint8)  # pad packs as 1
+        np.greater_equal(x, 0, out=signs[: self.n])
+        # little-endian bit order is the u32-LE "bit i of word w =
+        # element 32w + i" layout, byte for byte
+        return np.packbits(signs, bitorder="little").tobytes() \
+            + scale.tobytes()
+
+    def decompress(self, buf) -> np.ndarray:
+        raw = np.frombuffer(buf, np.uint8)
+        scale = raw[-4:].view(np.float32)[0]
+        signs = np.unpackbits(raw[:-4], bitorder="little", count=self.n)
+        return np.array([-scale, scale], np.float32)[signs]
+
+    def wire_bytes(self) -> int:
+        return ((self.n + 31) // 32) * 4 + 4
+
+    def kwargs_wire(self) -> str:
+        return (f"compressor=onebit;n={self.n};"
+                f"scaling={1 if self.scaled else 0}")
+
+
+@dataclasses.dataclass
+class HostRandomk(HostCodec):
+    n: int
+    k: int
+    seed: int = 0
+
+    def indices(self, step: int) -> np.ndarray:
+        return np_index_parallel(self.seed, self.k, self.n, mix=step)
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        x = np.ascontiguousarray(x, np.float32)
+        idx = self.indices(step)
+        return idx.tobytes() + x[idx].astype(np.float32).tobytes()
+
+    def decompress(self, buf) -> np.ndarray:
+        raw = np.frombuffer(buf, np.uint8)
+        out = np.zeros(self.n, np.float32)
+        out[raw[: 4 * self.k].view(np.int32)] = raw[4 * self.k:].view(
+            np.float32)
+        return out
+
+    def wire_bytes(self) -> int:
+        return self.k * 8
+
+    def kwargs_wire(self) -> str:
+        return f"compressor=randomk;n={self.n};k={self.k};seed={self.seed}"
+
+
+@dataclasses.dataclass
+class HostDithering(HostCodec):
+    n: int
+    s: int = 127
+    partition: str = "linear"
+    normalize: str = "max"
+    seed: int = 0
+
+    def __post_init__(self):
+        # the bound of DitheringCodec and of the C++ parser: a level must
+        # fit signed int8
+        if not 1 <= self.s <= 127:
+            raise ValueError(
+                f"dithering levels s={self.s} out of range [1, 127] "
+                f"(levels ship as signed int8 on the wire)")
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        x = np.ascontiguousarray(x, np.float32)
+        absx = np.abs(x)
+        m = absx.max(initial=np.float32(0))
+        if self.normalize == "max":
+            norm = m
+        else:
+            safe_m = np.float32(max(m, 1e-30))   # scale-invariant two-pass
+            norm = safe_m * np.float32(
+                np.sqrt(np.sum(np.square(absx / safe_m))))
+        norm = np.float32(max(norm, 1e-30))
+        u = np_uniform_parallel(self.seed, self.n, step)
+        scaled = (absx / norm).astype(np.float32)
+        if self.partition == "linear":
+            # the op order of the device codec, for equal rounding
+            pos = scaled * np.float32(self.s)
+            floor = np.floor(pos)
+            level = floor + (u < (pos - floor)).astype(np.float32)
+            level = np.minimum(level, np.float32(self.s))
+        else:
+            safe = np.maximum(scaled, np.float32(1e-30))
+            j = np.clip(np.floor(-np.log2(safe)), 0, 30).astype(np.float32)
+            low = np.exp2(-j - 1).astype(np.float32)
+            high = np.exp2(-j).astype(np.float32)
+            frac = (scaled - low) / (high - low)
+            exp = np.where(u < frac, j, j + 1)
+            level = np.where(scaled < np.exp2(np.float32(-31.0)),
+                             np.float32(0.0), exp + 1.0)
+            level = np.clip(level, 0, 126)
+        levels = (np.sign(x) * level).astype(np.int8)
+        return levels.tobytes() + np.float32(norm).tobytes()
+
+    def decompress(self, buf) -> np.ndarray:
+        raw = np.frombuffer(buf, np.uint8)
+        lv = raw[: self.n].view(np.int8).astype(np.float32)
+        norm = raw[self.n: self.n + 4].view(np.float32)[0]
+        if self.partition == "linear":
+            mag = np.abs(lv) / np.float32(self.s)
+        else:
+            mag = np.where(lv == 0, np.float32(0.0),
+                           np.exp2(-(np.abs(lv) - 1.0)).astype(np.float32))
+        return (np.sign(lv) * mag * norm).astype(np.float32)
+
+    def wire_bytes(self) -> int:
+        return self.n + 4
+
+    def kwargs_wire(self) -> str:
+        return (f"compressor=dithering;n={self.n};s={self.s};"
+                f"partition_type={self.partition};"
+                f"normalize_type={self.normalize};seed={self.seed}")
+
+
+def make_host_codec(kwargs: Dict[str, str], n: int) -> HostCodec:
+    """kwargs -> base codec, with the parameter names of
+    ``make_compressor``. The device tier runs EF and momentum on the card
+    and asks only for the base codec the server mirrors."""
+    from . import (
+        NOT_YET_PORTED, parse_bool_kwarg, parse_ef_kwarg,
+        parse_momentum_kwarg,
+    )
+
+    if parse_ef_kwarg(kwargs) or parse_momentum_kwarg(kwargs):
+        raise NotImplementedError(
+            "host error feedback and momentum are not yet ported to "
+            "byteps_tpu_torch (the device tier runs them on the card)")
+    name = kwargs.get("compressor")
+    if name == "onebit":
+        codec: HostCodec = HostOnebit(
+            n=n, scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
+    elif name == "randomk":
+        codec = HostRandomk(n=n, k=resolve_k(float(kwargs.get("k", 0.01)), n),
+                            seed=int(kwargs.get("seed", 0)))
+    elif name == "dithering":
+        if kwargs.get("index_coding", "dense") != "dense":
+            raise NotImplementedError(
+                "dithering index_coding=varint is not yet ported to "
+                "byteps_tpu_torch (the dense wire is)")
+        codec = HostDithering(
+            n=n, s=int(kwargs.get("s", kwargs.get("k", 127))),
+            partition=kwargs.get("partition_type", "linear"),
+            normalize=kwargs.get("normalize_type", "max"),
+            seed=int(kwargs.get("seed", 0)))
+    elif name in NOT_YET_PORTED or name == "lossless":
+        raise NotImplementedError(
+            f"host codec {name!r} is not yet ported to byteps_tpu_torch")
+    else:
+        raise ValueError(f"unknown compressor {name!r}")
+    return codec

@@ -1,0 +1,316 @@
+"""Parameter-server worker client.
+
+Port of byteps_tpu/server/client.py (``PSClient``), trimmed to what the
+PS train step calls: the init push of a key, the in-band codec install,
+the fused PUSHPULL with its completion reactor, the barrier and close.
+The transport is the native client of ``native/ps.cc`` (the same source
+as the JAX package's), so a worker of either package speaks one wire.
+
+``zpushpull_async`` sends one message per aggregation round trip (the
+THC shape); a single completion-reactor thread drains the native
+completion queue and resolves each request's callback, so in-flight
+requests are not bounded by threads.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import os
+import struct
+import threading
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+
+from ..config import Config
+from ..core.types import RequestType, TensorContext, get_command_type
+from ..native.build import build_ps
+from ..utils.logging import log
+
+# Python mirror of the native wire header (native/ps.cc MsgHeader): magic,
+# op, flags, sender, rid, key, cmd, len, epoch, codec; little-endian,
+# packed. The transport is native; these name the contract for tests and
+# tooling, and must equal the JAX client's.
+WIRE_MAGIC = 0xB17E5003
+WIRE_HEADER_FMT = "<IBBHIQIIQI"
+WIRE_HEADER_BYTES = 40
+assert struct.calcsize(WIRE_HEADER_FMT) == WIRE_HEADER_BYTES
+
+# observability control ops (native/ps.cc enum Op), answered inline by
+# the server's connection loop
+WIRE_CTRL_OPS = {
+    "STATS_PULL": 12,
+    "TRACE_DRAIN": 13,
+    "FLIGHT_DRAIN": 14,
+    "CLOCK_PROBE": 15,
+    "JOIN_PROBE": 16,
+    "DRAIN_REQ": 17,
+    "HEALTH_PULL": 18,
+    "STRIPE_PULL": 19,
+}
+
+# control-pull reply size limits (native/ps.cc enum CtrlLimits)
+WIRE_CTRL_LIMITS = {
+    "kCtrlDrainBatch": 1024,
+    "kCtrlFlightDrainMax": 4096,
+    "kCtrlStripeMax": 64,
+}
+
+
+def _load_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_ps())
+    vp, i32, u32, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                         ctypes.c_uint64)
+    lib.bps_client_create.restype = vp
+    lib.bps_client_create.argtypes = [ctypes.c_char_p, i32]
+    lib.bps_client_init_key.restype = i32
+    lib.bps_client_init_key.argtypes = [vp, i32, u64, vp, u32, u32]
+    # fused op: data, cmd, reply buffer, ticket, epoch stamp, codec tag,
+    # and the wire rid reported back
+    lib.bps_client_pushpull_async2.restype = i32
+    lib.bps_client_pushpull_async2.argtypes = [
+        vp, i32, u64, vp, u32, u32, vp, u32, u64, u64, u32,
+        ctypes.POINTER(u32)]
+    lib.bps_client_cq_poll.restype = i32
+    lib.bps_client_cq_poll.argtypes = [
+        vp, ctypes.POINTER(u64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(u32), i32, i32]
+    lib.bps_client_cq_abort.restype = None
+    lib.bps_client_cq_abort.argtypes = [vp]
+    lib.bps_client_comp_init.restype = i32
+    lib.bps_client_comp_init.argtypes = [vp, i32, u64, ctypes.c_char_p]
+    lib.bps_client_barrier.restype = i32
+    lib.bps_client_barrier.argtypes = [vp]
+    lib.bps_client_shutdown.restype = i32
+    lib.bps_client_shutdown.argtypes = [vp]
+    lib.bps_client_destroy.restype = None
+    lib.bps_client_destroy.argtypes = [vp]
+    return lib
+
+
+def server_addresses(config: Config) -> List[str]:
+    """Server endpoints: BYTEPS_SERVER_HOSTS="h:p,h:p,..." or the
+    scheduler URI with consecutive ports (root_port + server_id); one per
+    server index of the registry."""
+    hosts = os.environ.get("BYTEPS_SERVER_HOSTS", "")
+    if hosts:
+        addrs = [h.strip() for h in hosts.split(",") if h.strip()]
+        if len(addrs) != config.num_servers:
+            raise ValueError(
+                f"BYTEPS_SERVER_HOSTS has {len(addrs)} entries but "
+                f"DMLC_NUM_SERVER={config.num_servers}")
+        return addrs
+    return [f"{config.scheduler_uri}:{config.scheduler_port + i}"
+            for i in range(config.num_servers)]
+
+
+class PSClient:
+    """Thread-safe PS client: one native connection group per server,
+    requests multiplexed by id."""
+
+    # the scheduler takes the fused WIRE stage with this client
+    supports_fused = True
+
+    def __init__(self, servers: Sequence[str], worker_id: int,
+                 num_threads: int = 8):
+        self._lib = _load_lib()
+        self._handle = self._lib.bps_client_create(
+            ",".join(servers).encode(), worker_id)
+        if not self._handle:
+            raise RuntimeError(
+                f"failed to connect to PS servers {servers!r}")
+        self._servers = list(servers)
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=num_threads, thread_name_prefix="bps-init")
+        self._closed = False
+        self._lock = threading.Lock()
+        # key -> store length this client has init-pushed on the server
+        self._inited_keys: dict = {}   # guarded-by: _lock
+        # fused completion reactor: ticket -> (callback, reply buffer).
+        # The buffer ref keeps the memory the native recv loop writes
+        # through alive until the ticket completes.
+        self._fused_mu = threading.Lock()
+        self._fused: dict = {}         # guarded-by: _fused_mu
+        self._next_ticket = 1          # guarded-by: _fused_mu
+        self._reactor: Optional[threading.Thread] = None
+        self._reactor_started = False  # guarded-by: _lock
+
+    def _check_server(self, server: int) -> None:
+        # the native connection table is indexed unchecked
+        if not 0 <= server < len(self._servers):
+            raise ValueError(f"server index {server} out of range "
+                             f"[0, {len(self._servers)})")
+
+    def init_key(self, server: int, key: int, data: np.ndarray,
+                 cmd: int) -> None:
+        """Blocking init push of one key: allocates the server store and
+        is the per-key barrier across workers."""
+        self._check_server(server)
+        buf = np.ascontiguousarray(data)
+        rc = self._lib.bps_client_init_key(
+            self._handle, server, key, buf.ctypes.data, buf.nbytes, cmd)
+        if rc != 0:
+            raise RuntimeError(f"init_key failed key={key}")
+
+    def ensure_init(self, ctx: TensorContext, nbytes: int) -> None:
+        """Init-push (zeros) every partition of ``ctx`` this client has
+        not initialized at its current length."""
+        total = sum(p.length for p in ctx.partitions)
+        if nbytes != total:
+            raise ValueError(
+                f"ensure_init: caller nbytes={nbytes} != partitioned "
+                f"total {total} for {ctx.name!r}")
+        with self._lock:
+            missing = [p for p in ctx.partitions
+                       if self._inited_keys.get(p.key) != p.length]
+        if not missing:
+            return
+        cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, ctx.dtype)
+        futures = [self._pool.submit(self.init_key, p.server, p.key,
+                                     np.zeros(p.length, np.uint8), cmd)
+                   for p in missing]
+        for f in futures:
+            f.result()
+        with self._lock:
+            self._inited_keys.update({p.key: p.length for p in missing})
+
+    def comp_init(self, server: int, key: int, kwargs_wire: str) -> None:
+        """Install a server-side codec for ``key`` (the reference's
+        in-band kwargs push, operations.cc:396-408)."""
+        self._check_server(server)
+        rc = self._lib.bps_client_comp_init(
+            self._handle, server, key, kwargs_wire.encode())
+        if rc != 0:
+            raise RuntimeError(
+                f"comp_init failed key={key} kwargs={kwargs_wire!r}")
+
+    # ---- fused PUSHPULL + completion reactor ------------------------- #
+
+    def zpushpull_async(self, server: int, key: int, data: np.ndarray,
+                        out: np.ndarray, cmd: int,
+                        on_done: Callable[[int, Optional[Exception]], None],
+                        epoch: int = 0, codec: int = 0) -> int:
+        """Push ``data``; when the server's aggregation round completes,
+        the aggregate lands in ``out`` and ``on_done(reply_len, error)``
+        runs on the reactor thread. Returns once the request is on the
+        wire, with its wire rid. ``epoch``: (round << 16 | attempt)
+        replay stamp; ``codec``: adaptive codec tag (0 = none)."""
+        self._check_server(server)
+        if not out.flags["C_CONTIGUOUS"]:
+            raise ValueError("zpushpull_async requires a C-contiguous "
+                             "reply buffer")
+        if self._closed:
+            raise RuntimeError("zpushpull_async on a closed PSClient")
+        data = np.ascontiguousarray(data)
+        with self._fused_mu:
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            # registered before the send: the reply can complete first
+            self._fused[ticket] = (on_done, out)
+        self._ensure_reactor()
+        rid = ctypes.c_uint32(0)
+        rc = self._lib.bps_client_pushpull_async2(
+            self._handle, server, key, data.ctypes.data, data.nbytes, cmd,
+            out.ctypes.data, out.nbytes, ticket, epoch, codec,
+            ctypes.byref(rid))
+        if rc != 0:
+            # the native side still owned the request: exactly one of this
+            # raise and the reactor callback fires
+            with self._fused_mu:
+                owned = self._fused.pop(ticket, None) is not None
+            if owned:
+                raise RuntimeError(f"fused pushpull failed to send "
+                                   f"key={key} (connection lost)")
+        return int(rid.value)
+
+    def _ensure_reactor(self) -> None:
+        with self._lock:
+            if self._reactor_started:
+                return
+            self._reactor = threading.Thread(
+                target=self._reactor_loop, name="bps-cq-reactor",
+                daemon=True)
+            self._reactor_started = True
+            self._reactor.start()
+
+    def _reactor_loop(self) -> None:
+        """Drain the native completion queue in batches and resolve each
+        ticket's callback, until the queue is closed."""
+        max_n = 128
+        tickets = (ctypes.c_uint64 * max_n)()
+        statuses = (ctypes.c_int32 * max_n)()
+        lens = (ctypes.c_uint32 * max_n)()
+        while True:
+            n = self._lib.bps_client_cq_poll(
+                self._handle, tickets, statuses, lens, max_n, 250)
+            if n < 0:
+                return  # closed and drained
+            for i in range(n):
+                with self._fused_mu:
+                    entry = self._fused.pop(int(tickets[i]), None)
+                if entry is None:
+                    continue  # already failed locally
+                cb, _out = entry
+                status = int(statuses[i])
+                err = None
+                if status == -2:
+                    err = TimeoutError(
+                        "fused pushpull timed out waiting for the "
+                        "aggregation round (BYTEPS_CLIENT_TIMEOUT_S)")
+                elif status != 0:
+                    err = RuntimeError(
+                        "fused pushpull failed (server error reply, "
+                        "oversized reply, or connection lost)")
+                try:
+                    cb(int(lens[i]), err)
+                except Exception:  # noqa: BLE001 - must not kill the reactor
+                    log.exception("fused completion callback raised "
+                                  "(ticket %d)", int(tickets[i]))
+
+    def _stop_reactor(self) -> None:
+        """Fail outstanding fused requests, close the queue and join the
+        reactor, so no callback runs after the handle is freed."""
+        with self._lock:
+            started = self._reactor_started
+        if not started:
+            return
+        self._lib.bps_client_cq_abort(self._handle)
+        self._reactor.join(timeout=10)
+        with self._fused_mu:
+            leftovers = list(self._fused.items())
+            self._fused.clear()
+        for ticket, (cb, _out) in leftovers:
+            try:
+                cb(0, RuntimeError("PSClient closed with the fused request "
+                                   "still in flight"))
+            except Exception:  # noqa: BLE001
+                log.exception("fused teardown callback raised (ticket %d)",
+                              ticket)
+
+    def barrier(self) -> None:
+        if self._lib.bps_client_barrier(self._handle) != 0:
+            raise RuntimeError("barrier failed")
+
+    def close(self, shutdown_servers: bool = True) -> None:
+        """Drop the connections; ``shutdown_servers`` also sends SHUTDOWN,
+        and a server exits once every worker has."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._pool.shutdown(wait=True)
+        self._stop_reactor()
+        if shutdown_servers:
+            self._lib.bps_client_shutdown(self._handle)
+        self._lib.bps_client_destroy(self._handle)
+
+
+def connect_from_config(config: Config) -> PSClient:
+    servers = server_addresses(config)
+    if not servers:
+        raise RuntimeError("num_servers > 0 but no server addresses")
+    rank = (config.global_rank if config.global_rank is not None
+            else config.worker_id * config.local_size + config.local_rank)
+    log.info("connecting PS client: servers=%s worker=%d", servers, rank)
+    return PSClient(servers, rank)

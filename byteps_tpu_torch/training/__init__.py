@@ -1,5 +1,6 @@
 """The training adapter: ``DistributedOptimizer`` and
-``broadcast_parameters``.
+``broadcast_parameters``, and the train steps (``make_train_step`` over
+the ``dp`` group, ``make_ps_train_step`` through the parameter server).
 
 Port of byteps_tpu/jax/__init__.py:49-96 (``distributed_optimizer``,
 ``optax.chain(comm, tx)``) onto a ``torch.optim`` optimizer: ``step()``
@@ -21,10 +22,10 @@ import torch.distributed as dist
 from ..core.state import get_state
 from ..ops.compression import CompressionTransform
 from ..ops.push_pull import all_reduce_
-from .train import make_train_step
+from .train import make_ps_train_step, make_train_step
 
 __all__ = ["DistributedOptimizer", "distributed_optimizer",
-           "broadcast_parameters", "make_train_step"]
+           "broadcast_parameters", "make_train_step", "make_ps_train_step"]
 
 
 class DistributedOptimizer:

@@ -39,9 +39,14 @@ def test_registry_onebit_and_not_yet_ported():
     st = make_compressor({"compressor": "onebit", "ef": "vanilla",
                           "momentum": "nesterov"}, 100)
     assert st.use_ef and st.momentum_mu == 0.9 and st.codec.scaled
-    for name in ("topk", "randomk", "dithering"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_compressor({"compressor": name}, 100)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_compressor({"compressor": "topk"}, 100)
+    rk = make_compressor({"compressor": "randomk", "k": "0.1",
+                          "seed": "3"}, 100).codec
+    assert (rk.k, rk.seed) == (10, 3)
+    dt = make_compressor({"compressor": "dithering", "k": "15",
+                          "partition_type": "natural"}, 100).codec
+    assert (dt.s, dt.partition, dt.normalize) == (15, "natural", "max")
     with pytest.raises(ValueError, match="unknown compressor"):
         make_compressor({"compressor": "nope"}, 100)
     with pytest.raises(ValueError, match="momentum requires ef"):

@@ -82,3 +82,48 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 64, 2, 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_fwd(q, q, q)
+
+
+def _dither_input(dev, n, seed):
+    """Normal values; exact powers of two and their neighbours one ulp
+    either side at the front; zeros."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=dev)
+    p2 = 2.0 ** -torch.arange(32, dtype=torch.float32, device=dev)
+    p2 = p2 * torch.where(torch.arange(32, device=dev) % 2 == 1, 1.0, -1.0)
+    x[:32] = p2
+    x[32:64] = torch.nextafter(p2, torch.zeros_like(p2))
+    x[64:96] = torch.nextafter(p2, p2 * 2)
+    x[96:104] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("n", [104, 4099, 1_024_000])
+@pytest.mark.parametrize("partition", ["linear", "natural"])
+def test_dithering_kernel_bit_exact(dev, n, partition):
+    x = _dither_input(dev, n, n)
+    norm = x.abs().max()
+    base = 0x9E3779B1 ^ n
+    before = K.dithering_levels.launches
+    got = K.dithering_levels(x, norm, base, 127, partition)
+    assert K.dithering_levels.launches == before + 1
+    want = K.dithering_levels_plain(x, norm, base, 127, partition)
+    assert torch.equal(got, want), int((got != want).sum())
+    # an L2 norm above max|x|, and the base as a device tensor
+    l2 = x.norm()
+    base_t = torch.full((), base, dtype=torch.int64, device=dev)
+    assert torch.equal(K.dithering_levels(x, l2, base_t, 15, partition),
+                       K.dithering_levels_plain(x, l2, base_t, 15,
+                                                partition))
+
+
+@pytest.mark.parametrize("size,k", [(1000, 10), (1_024_000, 10_240),
+                                    (3 * 2 ** 24 + 7, 1 << 20)])
+def test_randomk_kernel_bit_exact(dev, size, k):
+    from byteps_tpu_torch.ops.compression import rng
+    base = rng.uniform_base(7, 3)
+    before = K.randomk_indices.launches
+    got = K.randomk_indices(base, size, k, dev)
+    assert K.randomk_indices.launches == before + 1
+    assert torch.equal(got, K.randomk_indices_plain(base, size, k, dev))
+    assert torch.equal(got.cpu(), rng.index_parallel(7, k, size, 3))

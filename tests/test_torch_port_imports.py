@@ -46,6 +46,17 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_the_ps_path_modules_are_checked():
+    """The parameter-server slice's modules are among the files above."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("config", "core/arena", "core/registry", "core/scheduler",
+                "core/types", "native/build", "ops/compression/host",
+                "ops/compression/rng", "server/__init__", "server/client",
+                "training/device_compression", "training/train",
+                "utils/spans"):
+        assert f"byteps_tpu_torch/{mod}.py" in files, mod
+
+
 def test_forbidden_name_rule():
     assert _forbidden("byteps_tpu.ops") and _forbidden("jax.numpy")
     assert not _forbidden("byteps_tpu_torch.ops")
@@ -77,7 +88,8 @@ def test_import_with_jax_blocked():
 
 
 @pytest.mark.parametrize("path", ["byteps_tpu_torch/csrc/onebit.cu",
-                                  "byteps_tpu_torch/csrc/flash_attn_fwd.cu"])
+                                  "byteps_tpu_torch/csrc/flash_attn_fwd.cu",
+                                  "byteps_tpu_torch/csrc/counter_rng.cu"])
 def test_kernel_sources_export_the_error_string(path):
     """Every kernel library exports bps_error_string, which the loader
     binds (native/build.py)."""

@@ -12,6 +12,9 @@ Port of byteps_tpu/ops/flash_attention.py. Interface of the Llama model's
   Pallas ``_flash_fwd_kernel``) on a CUDA tensor, or the blockwise path on
   a CPU tensor; the backward recomputes through ``blockwise_attention``,
   the ``custom_vjp`` of the JAX package (flash_attention.py:211-237).
+  bf16 runs on the tensor cores (wgmma; 128-row query tiles, 64-key KV
+  tiles brought in by TMA, which needs every row of q, k and v to start
+  16-byte aligned); f32 runs a CUDA-core kernel.
 - ``make_flash_attn``: binds it as the model's ``attn_impl``.
 """
 
@@ -26,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from ..native import build
 from ..parallel.ring_attention import NEG_INF, block_attn_accum
 
-TILE = 64   # the kernel's query and key tile; S must be a multiple
+TILE = 64   # the kernels' KV tile (and f32 query tile); S must be a multiple
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -84,12 +87,22 @@ def _lib():
     return lib
 
 
+def _strides(t: torch.Tensor) -> list:
+    """(batch, seq, head) element strides; a dim of size 1 takes the
+    stride a contiguous tensor would give it (its own is never used)."""
+    st = [t.stride(0), t.stride(1), t.stride(2), 1]
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = st[i + 1] * t.shape[i + 1]
+    return st[:3]
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, block_k: int = 512
                         ) -> torch.Tensor:
     """Attention forward: the kernel for CUDA tensors, the blockwise twin
     for CPU tensors (``block_k`` sizes the twin's blocks; the kernel's
-    tile is fixed at 64)."""
+    tiles are fixed)."""
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, causal=causal, block_k=block_k)
     if q.device.type != "cuda":
@@ -115,15 +128,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: the head dim must be contiguous")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v on different devices")
+    strides = [_strides(t) for t in (q, k, v)]
+    if q.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in st)
+            for t, st in zip((q, k, v), strides)):
+        raise ValueError("flash_attention: bf16 q, k, v rows must start "
+                         "16-byte aligned (the kernel's TMA copies need it)")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
-                                        for i in range(3)))
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flash_attention_fwd.launches += 1
     build.check(lib, lib.bps_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, S, H, Hkv, D, strides,
+        _DTYPES[q.dtype], B, S, H, Hkv, D,
+        (ctypes.c_longlong * 9)(*(x for st in strides for x in st)),
         float(np.float32(1.0 / np.sqrt(D))), int(causal), stream),
         "flash_attention")
     return out

@@ -193,16 +193,20 @@ def phase_onebit(dev, gen) -> list:
     return [pack, unpack]
 
 
-def phase_flash(dev, gen) -> dict:
+def _flash_inputs(gen, dev, D):
     import torch
-    import torch.nn.functional as F
-    from byteps_tpu_torch.ops import flash_attention as FA
-
-    B, S, H, Hkv, D = (FLASH_SHAPE[k] for k in ("B", "S", "H", "Hkv", "D"))
+    B, S, H, Hkv = (FLASH_SHAPE[k] for k in ("B", "S", "H", "Hkv"))
     bf = torch.bfloat16
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(bf)
-    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf)
-    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf)
+    return (torch.randn(B, S, H, D, generator=gen, device=dev).to(bf),
+            torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf),
+            torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(bf))
+
+
+def _flash_check(q, k, v) -> float:
+    """The kernel against its blockwise twin under one bf16 step of the
+    fp32 result; returns the max abs error."""
+    import torch
+    from byteps_tpu_torch.ops import flash_attention as FA
     with torch.no_grad():
         got = FA.flash_attention_fwd(q, k, v, True)
         torch.cuda.synchronize()
@@ -214,33 +218,69 @@ def phase_flash(dev, gen) -> dict:
     tol = 2.0 ** -7 * ref.float().abs() + 1e-6
     err = float(diff.max())
     if not bool(torch.isfinite(got.float()).all()) or bool((diff > tol).any()):
-        fail(f"flash_attention kernel vs blockwise: max abs err {err}, "
-             f"{int((diff > tol).sum())} elements above one bf16 step")
+        fail(f"flash_attention kernel vs blockwise at {tuple(q.shape)}: max "
+             f"abs err {err}, {int((diff > tol).sum())} elements above one "
+             f"bf16 step")
+    return err
+
+
+def _flash_times(q, k, v, plain: bool) -> tuple:
+    """(kernel ms, plain twin ms or None, scaled_dot_product_attention ms,
+    bound ms, bound_by) at q's shape, causal."""
+    import torch
+    import torch.nn.functional as F
+    from byteps_tpu_torch.ops import flash_attention as FA
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kt = kt.repeat_interleave(H // Hkv, 1)
+    vt = vt.repeat_interleave(H // Hkv, 1)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: FA.flash_attention_fwd(q, k, v, True), 50)
+        plain_ms = cuda_ms(lambda: FA.blockwise_attention(q, k, v, True), 3) \
+            if plain else None
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 50)
+    t_flops = _flash_flops(B, S, H, D) / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D) \
+        / PEAK_BYTES_PER_S * 1e3
+    bound_by = "operations" if t_flops >= t_bytes else "bytes"
+    return ms, plain_ms, lib_ms, max(t_flops, t_bytes), bound_by
+
+
+def _flash_flops(B: int, S: int, H: int, D: int) -> float:
+    """QK^T and PV over the causal half."""
+    return 2.0 * B * H * S * S * D
+
+
+def phase_flash(dev, gen) -> dict:
+    """B1 at the training path's shape (D = 128) and at D = 64 (the card
+    tests' second width): the gate against the blockwise twin, the time,
+    the twin's time, scaled_dot_product_attention's and the bound."""
+    B, S, H, Hkv, D = (FLASH_SHAPE[k] for k in ("B", "S", "H", "Hkv", "D"))
+    q, k, v = _flash_inputs(gen, dev, D)
+    err = _flash_check(q, k, v)
     print(f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal: "
           f"max abs err {err} (tolerance: one bf16 step)", flush=True)
-
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    g = H // Hkv
-    kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
-    with torch.no_grad():
-        ms = cuda_ms(lambda: FA.flash_attention_fwd(q, k, v, True), 10)
-        plain_ms = cuda_ms(lambda: FA.blockwise_attention(q, k, v, True), 3)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20)
-    flops = 2.0 * B * H * S * S * D
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
-    t_flops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    ms, plain_ms, lib_ms, bound_ms, bound_by = _flash_times(q, k, v, True)
     e = dict(name="flash_attn_fwd", route="cuda",
              source="byteps_tpu_torch/csrc/flash_attn_fwd.cu",
              replaces="byteps_tpu/ops/flash_attention.py:102",
-             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             bound_ms=max(t_flops, t_bytes),
-             bound_by="operations" if t_flops >= t_bytes else "bytes",
-             library_ms=lib_ms)
-    print(f"flash_attention: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-          f"{e['bound_ms']:.4f} ms)", flush=True)
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+             bound_by=bound_by, library_ms=lib_ms)
+    print(f"flash_attention: {ms:.4f} ms, "
+          f"{_flash_flops(B, S, H, D) / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of its bound ({bound_ms:.4f} ms, "
+          f"{bound_by}); {ms / lib_ms:.2f}x scaled_dot_product_attention's "
+          f"{lib_ms:.4f} ms; plain twin {plain_ms:.4f} ms", flush=True)
+    q, k, v = _flash_inputs(gen, dev, 64)
+    err64 = _flash_check(q, k, v)
+    ms, _, lib_ms, bound_ms, _ = _flash_times(q, k, v, False)
+    print(f"flash_attention D=64: {ms:.4f} ms, "
+          f"{_flash_flops(B, S, H, 64) / ms / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / ms:.3f} of its bound ({bound_ms:.4f} ms); "
+          f"{ms / lib_ms:.2f}x scaled_dot_product_attention's {lib_ms:.4f} "
+          f"ms; max abs err {err64}", flush=True)
     return e
 
 

@@ -75,6 +75,57 @@ def test_flash_kernel_reads_strided_inputs(dev):
             rtol=1e-5, atol=1e-5)
 
 
+def _one_bf16_step(got, ref):
+    """|got - ref| <= one bf16 step of the fp32 result, everywhere."""
+    got, ref = got.float(), ref.float()
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal", [
+    (4, 2048, 6, 2, 128, True),     # the training path's shape
+    (2, 192, 4, 2, 128, True),      # S % 128 == 64: a half query tile
+    (2, 192, 4, 2, 64, False),
+    (1, 384, 4, 2, 64, False),      # D = 64, non-causal
+    (2, 256, 6, 6, 128, True),      # GQA groups of 1
+    (2, 256, 6, 1, 128, True),      # GQA groups of 6
+], ids=["path", "S192-causal", "S192-D64", "D64-noncausal", "groups1",
+        "groups6"])
+def test_flash_bf16_kernel_within_one_step(dev, B, S, H, Hkv, D, causal):
+    g = torch.Generator(device=dev).manual_seed(S + H + Hkv + D)
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
+    before = FA.flash_attention_fwd.launches
+    with torch.no_grad():
+        got = FA.flash_attention_fwd(q, k, v, causal)
+        ref = FA.blockwise_attention(q, k, v, causal=causal)
+    assert FA.flash_attention_fwd.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert _one_bf16_step(got, ref)
+
+
+def test_flash_bf16_kernel_reads_the_fused_projection(dev):
+    """bf16 q/k/v as views of a fused [B,S,H+2Hkv,D] projection."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    fused = torch.randn(2, 256, 10, 128, generator=g, device=dev).bfloat16()
+    q, k, v = fused[:, :, :6], fused[:, :, 6:8], fused[:, :, 8:10]
+    with torch.no_grad():
+        assert _one_bf16_step(FA.flash_attention_fwd(q, k, v, True),
+                              FA.blockwise_attention(q, k, v, causal=True))
+
+
+def test_flash_bf16_kernel_refuses_unaligned_rows(dev):
+    """TMA reads rows that start 16-byte aligned: a view whose base is off
+    that boundary raises instead of being copied or sent elsewhere."""
+    flat = torch.zeros(1 + 128 * 2 * 64, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(1, 128, 2, 64)
+    before = FA.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention_fwd(q, q, q)
+    assert FA.flash_attention_fwd.launches == before
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 100, 2, 64, device=dev)
     with pytest.raises(ValueError, match="multiple of 64"):

@@ -95,6 +95,16 @@ def test_wrappers_refuse_devices_without_a_kernel_or_twin():
         tfa.flash_attention_fwd(q, q, q)
 
 
+def test_flash_strides_of_views_and_unit_dims():
+    """The strides the kernel is given: a view's own, except that a dim of
+    size 1 takes a contiguous tensor's (its own may be anything)."""
+    fused = torch.zeros(2, 128, 10, 64)
+    assert tfa._strides(fused[:, :, 6:8]) == [128 * 640, 640, 64]
+    one = torch.zeros(1, 128, 1, 64).transpose(0, 2)          # [1,128,1,64]
+    assert one.stride(0) != 128 * 64
+    assert tfa._strides(one) == [128 * 64, 64, 64]
+
+
 def _qkv(B, S, H, Hkv, D, seed):
     rng = np.random.RandomState(seed)
     return (rng.randn(B, S, H, D).astype(np.float32),

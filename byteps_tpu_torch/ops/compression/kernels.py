@@ -9,20 +9,26 @@
 - ``dithering_levels`` and ``randomk_indices`` (``csrc/counter_rng.cu``)
   replace the Pallas kernels of the same names (B4 and B5): stochastic
   quantization to int8 levels, and randomk's indices, both drawn from the
-  counter stream of ``rng.py``. Their ``base`` (the uint32 stream base of
-  ``rng.uniform_base``) may be an int or an int64 tensor of one element;
-  the kernels read it, and ``norm``, from device memory.
+  counter stream of ``rng.py``. Each kernel runs over a whole round of
+  partitions in one launch (``dithering_levels_round``,
+  ``randomk_indices_round``, driven by a ``RoundTable``); the
+  one-partition wrappers are rounds of one. The ``base`` (the uint32
+  stream base of ``rng.uniform_base``) goes by value, or, as an int64
+  tensor of one element, is read by the kernel from device memory, as
+  are the norms.
 
 Each wrapper takes the plain twin for a tensor on the CPU, launches the
 kernel for a CUDA tensor, and raises for anything else; there is no
 fallback from one to the other. ``<wrapper>.launches`` counts kernel
-launches.
+launches (for B4 and B5, round launches, whichever wrapper made them).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
+import numpy as np
 import torch
 
 from ...native import build
@@ -146,32 +152,140 @@ onebit_unpack.launches = 0
 # ------------------------------------------------------------------ #
 
 PARTITIONS = ("linear", "natural")
+# work of one block: kDitherTile and kIndexTile of counter_rng.cu
+DITHER_TILE = 4096      # elements: 256 threads x 16
+INDEX_TILE = 1024       # indices: 256 threads x 4
 
 
 def _rng_lib():
     lib = build.load("counter_rng")
     if not getattr(lib, "_bps_typed", False):
-        lib.bps_dithering_levels.argtypes = [_VP, _VP, _VP, ctypes.c_float,
-                                             ctypes.c_int, _VP, _LL, _VP]
+        lib.bps_dithering_levels.argtypes = [
+            _VP, _VP, _VP, _VP, ctypes.c_int, _LL, _LL, _VP, ctypes.c_uint,
+            ctypes.c_float, ctypes.c_int, _VP, _VP]
         lib.bps_dithering_levels.restype = ctypes.c_int
-        lib.bps_randomk_indices.argtypes = [_VP, ctypes.c_uint, _VP, _LL,
-                                            _VP]
+        lib.bps_randomk_indices.argtypes = [
+            _VP, _VP, ctypes.c_int, _LL, _LL, _LL, _VP, ctypes.c_uint, _VP,
+            _VP]
         lib.bps_randomk_indices.restype = ctypes.c_int
         lib._bps_typed = True
     return lib
 
 
-def _base_on(base, device) -> torch.Tensor:
-    """The stream base as an int64 scalar on ``device``: a tensor stays
-    where it is, an int is written by a fill kernel (no host copy, no
-    wait)."""
+class RoundTable:
+    """The descriptor table of one B4 or B5 round: a row of four int64
+    per partition, and the prefix sums of the rows' tiles. B4 rows are
+    (x offset, n, out offset, norm index), B5 rows (size, k, out offset,
+    0). Built on the host once; ``on(device)`` uploads it once per
+    device."""
+
+    def __init__(self, rows, tile: int, x_extent: int = 0):
+        self.rows = np.asarray(rows, np.int64).reshape(-1, 4)
+        if (self.rows < 0).any():
+            raise ValueError("round table: negative offset or length")
+        work = self.rows[:, 1]
+        self.tile_start = np.concatenate(
+            [[0], np.cumsum(-(-work // tile))]).astype(np.int64)
+        self.out_extent = int((self.rows[:, 2] + work).max(initial=0))
+        self.x_extent = x_extent        # elements of x the rows read
+        self._dev: Dict[torch.device, tuple] = {}
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tile_start[-1])
+
+    def on(self, device) -> tuple:
+        """(rows, tile_start) as int64 tensors on ``device``."""
+        device = torch.device(device)
+        t = self._dev.get(device)
+        if t is None:
+            t = self._dev[device] = (
+                torch.from_numpy(self.rows).to(device),
+                torch.from_numpy(self.tile_start).to(device))
+        return t
+
+
+def dithering_table(x_offs, ns, out_offs) -> RoundTable:
+    """B4 rows: partition i reads x[x_offs[i]:][:ns[i]] with norms[i] and
+    writes its levels at out_offs[i]."""
+    x_offs, ns = np.asarray(x_offs, np.int64), np.asarray(ns, np.int64)
+    return RoundTable(np.stack([x_offs, ns, np.asarray(out_offs, np.int64),
+                                np.arange(len(ns))], axis=1), DITHER_TILE,
+                      x_extent=int((x_offs + ns).max(initial=0)))
+
+
+def randomk_table(sizes, ks, out_offs) -> RoundTable:
+    """B5 rows: partition i draws ks[i] indices in [0, sizes[i]) and
+    writes them at out_offs[i]."""
+    sizes = np.asarray(sizes, np.int64)
+    if ((sizes < 1) | (sizes >= 2 ** 32)).any():
+        raise ValueError("randomk_indices: a size outside [1, 2^32)")
+    return RoundTable(np.stack([sizes, np.asarray(ks, np.int64),
+                                np.asarray(out_offs, np.int64),
+                                np.zeros_like(sizes)], axis=1), INDEX_TILE)
+
+
+def _base_arg(base, device) -> tuple:
+    """The stream base as (int64 scalar on ``device`` or None, value): a
+    one-element tensor is read by the kernel (no host copy, no wait), an
+    int goes by value. The caller holds the tensor until it has
+    launched."""
     if isinstance(base, torch.Tensor):
         if base.numel() != 1 or base.device != device:
             raise ValueError(f"base: expected one element on {device}, got "
                              f"{tuple(base.shape)} on {base.device}")
-        return base.reshape(()).to(torch.int64)
-    return torch.full((), int(base) & rng.M32, dtype=torch.int64,
-                      device=device)
+        return base.reshape(()).to(torch.int64), 0
+    return None, int(base) & rng.M32
+
+
+def _launch_dithering(x, norms, table, base, s, partition, out,
+                      one_n: int = 0) -> None:
+    """One B4 launch over ``table``'s rows, or (table None) over one
+    partition of ``one_n`` elements with norms[0]."""
+    if table is None:
+        parts = tile_start = None
+        n_parts, n_tiles = 1, -(-one_n // DITHER_TILE)
+    else:
+        rows, ts = table.on(x.device)
+        parts, tile_start = rows.data_ptr(), ts.data_ptr()
+        n_parts, n_tiles = len(table), table.n_tiles
+    if n_tiles == 0:
+        return
+    base_t, base_v = _base_arg(base, x.device)
+    base_p = None if base_t is None else base_t.data_ptr()
+    lib = _rng_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dithering_levels.launches += 1
+    build.check(lib, lib.bps_dithering_levels(
+        x.data_ptr(), norms.data_ptr(), parts, tile_start, n_parts, n_tiles,
+        one_n, base_p, base_v, float(s), int(partition == "natural"),
+        out.data_ptr(), stream), "dithering_levels")
+
+
+def _launch_randomk(table, base, out, one_size: int = 0,
+                    one_k: int = 0) -> None:
+    """One B5 launch over ``table``'s rows, or (table None) over one
+    partition of ``one_k`` indices in [0, one_size)."""
+    if table is None:
+        parts = tile_start = None
+        n_parts, n_tiles = 1, -(-one_k // INDEX_TILE)
+    else:
+        rows, ts = table.on(out.device)
+        parts, tile_start = rows.data_ptr(), ts.data_ptr()
+        n_parts, n_tiles = len(table), table.n_tiles
+    if n_tiles == 0:
+        return
+    base_t, base_v = _base_arg(base, out.device)
+    base_p = None if base_t is None else base_t.data_ptr()
+    lib = _rng_lib()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    randomk_indices.launches += 1
+    build.check(lib, lib.bps_randomk_indices(
+        parts, tile_start, n_parts, n_tiles, one_size, one_k, base_p, base_v,
+        out.data_ptr(), stream), "randomk_indices")
 
 
 def dithering_levels_plain(x: torch.Tensor, norm, base, s: int,
@@ -201,17 +315,22 @@ def dithering_levels_plain(x: torch.Tensor, norm, base, s: int,
     return (torch.sign(x) * level).to(torch.int8)
 
 
-def dithering_levels(x: torch.Tensor, norm: torch.Tensor, base, s: int,
-                     partition: str = "linear") -> torch.Tensor:
-    """Fused counter uniform + stochastic quantization: flat f32 ``x``
-    [n] -> int8 levels [n]. ``norm``: f32 scalar tensor (max or L2 of
-    |x|, computed by the caller); ``s``: the level count (linear)."""
-    if x.dim() != 1:
-        raise ValueError(f"dithering_levels: expected a flat tensor, got "
-                         f"shape {tuple(x.shape)}")
+def _check_partition(partition: str) -> None:
     if partition not in PARTITIONS:
         raise ValueError(f"dithering_levels: unknown partition "
                          f"{partition!r}")
+
+
+def dithering_levels(x: torch.Tensor, norm: torch.Tensor, base, s: int,
+                     partition: str = "linear") -> torch.Tensor:
+    """Fused counter uniform + stochastic quantization: flat f32 ``x``
+    [n] -> int8 levels [n]; a round of one partition. ``norm``: f32
+    scalar tensor (max or L2 of |x|, computed by the caller); ``s``: the
+    level count (linear)."""
+    if x.dim() != 1:
+        raise ValueError(f"dithering_levels: expected a flat tensor, got "
+                         f"shape {tuple(x.shape)}")
+    _check_partition(partition)
     if not _route(x, "dithering_levels"):
         return dithering_levels_plain(x, norm, base, s, partition)
     _check_cuda(x, "dithering_levels x", torch.float32)
@@ -220,20 +339,56 @@ def dithering_levels(x: torch.Tensor, norm: torch.Tensor, base, s: int,
         raise ValueError("dithering_levels: norm must be a one-element "
                          "tensor on x's device")
     norm = norm.reshape(()).to(torch.float32)
-    base_t = _base_on(base, x.device)
-    n = x.shape[0]
-    out = torch.empty(n, dtype=torch.int8, device=x.device)
-    lib = _rng_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    dithering_levels.launches += 1
-    build.check(lib, lib.bps_dithering_levels(
-        x.data_ptr(), norm.data_ptr(), base_t.data_ptr(), float(s),
-        int(partition == "natural"), out.data_ptr(), n, stream),
-        "dithering_levels")
+    out = torch.empty(x.shape[0], dtype=torch.int8, device=x.device)
+    _launch_dithering(x, norm, None, base, s, partition, out,
+                      one_n=x.shape[0])
     return out
 
 
 dithering_levels.launches = 0
+
+
+def dithering_levels_round_plain(x: torch.Tensor, norms: torch.Tensor,
+                                 table: RoundTable, base, s: int,
+                                 partition: str,
+                                 out: torch.Tensor) -> torch.Tensor:
+    """The plain twin of a B4 round: ``dithering_levels_plain`` row by
+    row, each partition's levels into its slot of ``out``."""
+    for x_off, n, out_off, ni in table.rows.tolist():
+        out[out_off: out_off + n] = dithering_levels_plain(
+            x[x_off: x_off + n], norms[ni], base, s, partition)
+    return out
+
+
+def dithering_levels_round(x: torch.Tensor, norms: torch.Tensor,
+                           table: RoundTable, base, s: int, partition: str,
+                           out: torch.Tensor) -> torch.Tensor:
+    """B4 over a round in one launch: for every row of ``table`` (see
+    ``dithering_table``), the levels of its slice of flat f32 ``x`` under
+    its norm in f32 ``norms``, written into its slot of flat int8
+    ``out``. The stream base is the round's; each partition counts its
+    elements from 0. Returns ``out``."""
+    _check_partition(partition)
+    for t, name, dt in ((x, "x", torch.float32), (norms, "norms",
+                                                  torch.float32),
+                        (out, "out", torch.int8)):
+        if t.dim() != 1 or t.dtype != dt:
+            raise ValueError(f"dithering_levels_round: {name} must be a "
+                             f"flat {dt} tensor")
+    if x.numel() < table.x_extent or out.numel() < table.out_extent or \
+            norms.numel() < len(table):
+        raise ValueError("dithering_levels_round: x, out or norms is "
+                         "smaller than the table's rows")
+    if not _route(x, "dithering_levels_round"):
+        return dithering_levels_round_plain(x, norms, table, base, s,
+                                            partition, out)
+    for t, name in ((x, "x"), (norms, "norms"), (out, "out")):
+        _check_cuda(t, f"dithering_levels_round {name}", t.dtype)
+        if t.device != x.device:
+            raise ValueError("dithering_levels_round: x, norms and out on "
+                             "different devices")
+    _launch_dithering(x, norms, table, base, s, partition, out)
+    return out
 
 
 def randomk_indices_plain(base, size: int, k: int,
@@ -246,7 +401,8 @@ def randomk_indices_plain(base, size: int, k: int,
 
 def randomk_indices(base, size: int, k: int, device) -> torch.Tensor:
     """k pseudo-random indices in [0, size) on ``device``, bit-identical
-    to ``rng.np_index_parallel`` and to the server's re-draw."""
+    to ``rng.np_index_parallel`` and to the server's re-draw; a round of
+    one partition."""
     if not 0 < size < 2 ** 32:
         raise ValueError(f"randomk_indices: size {size} outside "
                          f"[1, 2^32)")
@@ -254,15 +410,38 @@ def randomk_indices(base, size: int, k: int, device) -> torch.Tensor:
     device = probe.device                             # cuda -> cuda:<n>
     if not _route(probe, "randomk_indices"):
         return randomk_indices_plain(base, size, k, device)
-    base_t = _base_on(base, device)
     out = torch.empty(k, dtype=torch.int32, device=device)
-    lib = _rng_lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    randomk_indices.launches += 1
-    build.check(lib, lib.bps_randomk_indices(
-        base_t.data_ptr(), size, out.data_ptr(), k, stream),
-        "randomk_indices")
+    _launch_randomk(None, base, out, one_size=size, one_k=k)
     return out
 
 
 randomk_indices.launches = 0
+
+
+def randomk_indices_round_plain(table: RoundTable, base,
+                                out: torch.Tensor) -> torch.Tensor:
+    """The plain twin of a B5 round: ``randomk_indices_plain`` row by
+    row, each partition's indices into its slot of ``out``."""
+    for size, k, out_off, _ in table.rows.tolist():
+        out[out_off: out_off + k] = randomk_indices_plain(base, size, k,
+                                                          out.device)
+    return out
+
+
+def randomk_indices_round(table: RoundTable, base,
+                          out: torch.Tensor) -> torch.Tensor:
+    """B5 over a round in one launch: for every row of ``table`` (see
+    ``randomk_table``), its k indices in [0, size) written into its slot
+    of flat int32 ``out``. Partitions of equal size draw equal indices
+    (they share the round's base). Returns ``out``."""
+    if out.dim() != 1 or out.dtype != torch.int32:
+        raise ValueError("randomk_indices_round: out must be a flat int32 "
+                         "tensor")
+    if out.numel() < table.out_extent:
+        raise ValueError("randomk_indices_round: out is smaller than the "
+                         "table's rows")
+    if not _route(out, "randomk_indices_round"):
+        return randomk_indices_round_plain(table, base, out)
+    _check_cuda(out, "randomk_indices_round out", torch.int32)
+    _launch_randomk(table, base, out)
+    return out

@@ -5,8 +5,10 @@ feedback -> codec stack runs on the card, so only wire-sized payloads
 cross to the host, and the server's aggregate comes back wire-sized and
 is decompressed on the card. One round of the whole gradient tree:
 
-1. compress every partition of every leaf on the device (the B2, B4 and
-   B5 kernels, by codec);
+1. compress on the device: the dithering or randomk partitions of every
+   leaf as one round (``_Round``: one error-feedback buffer, one norm
+   reduction, one B4 or B5 launch that writes straight into the packed
+   buffer, one residual pass), onebit partition by partition (B2);
 2. pack the payloads into one buffer per dtype and copy each into pinned
    host memory; the round waits on the copy's event before any byte is
    read (the D2H);
@@ -16,8 +18,8 @@ is decompressed on the card. One round of the whole gradient tree:
    the priority scheduler's fused PUSHPULL;
 4. parse the replies, copy them into fresh pinned buffers, one per
    dtype, that no arena slot aliases, and upload them (the H2D);
-5. decompress on the device, concatenate the partitions and average over
-   the workers.
+5. decompress on the device (a round's partitions in one pass over the
+   round), concatenate the partitions and average over the workers.
 
 The per-plan round counter is the JAX package's (it seeds randomk and
 dithering; the server re-draws randomk's indices from it). Onebit's
@@ -39,6 +41,8 @@ from ..ops.compression import make_compressor
 from ..ops.compression.codecs import (
     Codec, DitheringCodec, OnebitCodec, RandomkCodec,
 )
+from ..ops.compression import kernels as K
+from ..ops.compression import rng
 from ..ops.compression.feedback import CompressorStack
 from ..utils.logging import log
 from ..utils.spans import StepSpans
@@ -128,15 +132,22 @@ class _PackSpec:
                 leaf.append(slots)
             self.layout.append(leaf)
         self.sizes = offsets
+        self.round: Optional[_Round] = None   # set by DeviceCompressor
 
-    def pack(self, payloads) -> Dict[str, torch.Tensor]:
-        """On the device: payloads -> {dtype: flat buffer}."""
+    def pack(self, payloads, written=None) -> Dict[str, torch.Tensor]:
+        """On the device: payloads -> {dtype: flat buffer}. ``written``:
+        buffers that a round kernel already filled, slot by slot."""
+        written = written or {}
         buckets: Dict[str, list] = {}
         for leaf_slots, leaf_pl in zip(self.layout, payloads):
             for slots, pl in zip(leaf_slots, leaf_pl):
                 for key, dt, _, _, _ in slots:
-                    buckets.setdefault(dt, []).append(pl[key].reshape(-1))
-        return {dt: torch.cat(v) for dt, v in buckets.items()}
+                    if dt not in written:
+                        buckets.setdefault(dt, []).append(
+                            pl[key].reshape(-1))
+        out = dict(written)
+        out.update({dt: torch.cat(v) for dt, v in buckets.items()})
+        return out
 
     def unpack(self, packed: Dict[str, Any]):
         """{dtype: buffer} -> payloads of views (numpy or torch)."""
@@ -206,6 +217,199 @@ class _LeafPlan:
             hb.wire_bytes()
 
 
+class _Round:
+    """The dithering or randomk partitions of one round (every leaf of a
+    ``push_pull_leaves`` call), compressed and decompressed as a whole.
+    Their slices form the round's flat ``x``, in [leaf][partition] order;
+    it has one error-feedback buffer, one norm reduction, one B4 or B5
+    launch over a descriptor table, and one residual pass. Every level,
+    index, norm and wire byte is the partition-by-partition codec's.
+
+    All compressed partitions of a call share one kwargs, so one codec's
+    settings (its size and k aside), and their levels (int8) or indices
+    (int32) fill that dtype's whole packed buffer in round order. Built
+    once per pack spec, with its tables."""
+
+    def __init__(self, plans: List["_LeafPlan"], spec: "_PackSpec",
+                 members: list):
+        self.members = members      # (leaf, partition, flat offset, n, stack)
+        self.codec = members[0][4].codec
+        self.use_ef = members[0][4].use_ef
+        self.dithering = isinstance(self.codec, DitheringCodec)
+        ns = np.array([m[3] for m in members], np.int64)
+        x_offs = np.concatenate([[0], np.cumsum(ns)[:-1]]).astype(np.int64)
+        self.spans = list(zip(x_offs.tolist(), ns.tolist()))
+        self.total = int(ns.sum())
+        self.at = {(i, j): span for (i, j, *_), span in
+                   zip(members, self.spans)}
+        # leaves whose every partition is in the round: one view of it
+        self.whole = {}
+        for i, p in enumerate(plans):
+            spans = [self.at.get((i, j)) for j in range(len(p.codecs))]
+            if None not in spans:
+                self.whole[i] = (spans[0][0], spans[-1][0] + spans[-1][1])
+        slots = [{key: off for key, _, _, _, off in spec.layout[i][j]}
+                 for i, j, *_ in members]
+        if self.dithering:
+            if [sl["levels"] for sl in slots] != x_offs.tolist() or \
+                    spec.sizes["int8"] != self.total:
+                raise ValueError("a dithering round must fill the int8 "
+                                 "buffer in round order")
+            self.table = K.dithering_table(x_offs, ns, x_offs)
+            self._host = {"f32_slots": np.array([sl["norm"] for sl in slots],
+                                                np.int64)}
+            # runs of consecutive members of one length (15 on the
+            # training path): the norm broadcast as one [m, n] * [m, 1]
+            # product a run; repeat_interleave's index of the whole round
+            # cost 2.6 ms on the card
+            self.runs = []        # (first element, first member, m, n)
+            for i, (a, n) in enumerate(self.spans):
+                if self.runs and self.runs[-1][3] == n:
+                    a0, i0, m, _ = self.runs[-1]
+                    self.runs[-1] = (a0, i0, m + 1, n)
+                else:
+                    self.runs.append((a, i, 1, n))
+        else:
+            ks = np.array([m[4].codec.k for m in members], np.int64)
+            k_offs = np.concatenate([[0], np.cumsum(ks)[:-1]])
+            if [sl["indices"] for sl in slots] != k_offs.tolist() or \
+                    spec.sizes["int32"] != int(ks.sum()):
+                raise ValueError("a randomk round must fill the int32 "
+                                 "buffer in round order")
+            self.table = K.randomk_table(ns, ks, k_offs)
+            self.k_spans = list(zip(k_offs.tolist(), ks.tolist()))
+            # each value's slot in the f32 buffer, each index's partition
+            f32_slots = np.concatenate([sl["values"] + np.arange(k)
+                                        for sl, k in zip(slots, ks)])
+            self._host = {"f32_slots": f32_slots,
+                          "starts": np.repeat(x_offs, ks)}
+        self._dev: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self.error: Optional[torch.Tensor] = None
+        self.error_views: List[torch.Tensor] = []
+
+    @staticmethod
+    def build(plans: List["_LeafPlan"],
+              spec: "_PackSpec") -> Optional["_Round"]:
+        members = [(i, j, q.offset // 4, q.length // 4, stack)
+                   for i, p in enumerate(plans)
+                   for j, (q, stack) in enumerate(zip(p.ctx.partitions,
+                                                      p.stacks))
+                   if stack is not None and isinstance(
+                       stack.codec, (DitheringCodec, RandomkCodec))]
+        return _Round(plans, spec, members) if members else None
+
+    def _on(self, device) -> Dict[str, torch.Tensor]:
+        """The round's index tensors on ``device``, uploaded once."""
+        d = self._dev.get(device)
+        if d is None:
+            d = self._dev[device] = {k: torch.from_numpy(v).to(device)
+                                     for k, v in self._host.items()}
+        return d
+
+    def _error_buffer(self, plans, device) -> torch.Tensor:
+        """The round's error buffer. Every member's ``state["error"]`` is
+        a view into it; a residual that another round's buffer (or the
+        plan's own) holds is copied in first."""
+        if self.error is None:
+            self.error = torch.zeros(self.total, dtype=torch.float32,
+                                     device=device)
+            self.error_views = [self.error[a: a + n] for a, n in self.spans]
+        for (i, j, *_), view in zip(self.members, self.error_views):
+            st = plans[i].states[j]
+            if st["error"] is not view:
+                view.copy_(st["error"])
+                st["error"] = view
+        return self.error
+
+    def compress(self, plans, flats: List[torch.Tensor], step: int,
+                 payloads: list) -> Dict[str, torch.Tensor]:
+        """Momentum (per partition) -> error feedback -> codec over the
+        round. Fills the members' payload dicts in ``payloads``
+        [leaf][partition] and returns the packed buffer that the round
+        kernel wrote, {dtype: buffer}."""
+        device = flats[0].device
+        pieces = []
+        for i, j, off, n, stack in self.members:
+            x = flats[i][off: off + n]
+            if stack.momentum_mu is not None:
+                st, mu = plans[i].states[j], stack.momentum_mu
+                st["momentum"] = mu * st["momentum"] + x
+                x = x + mu * st["momentum"]
+            pieces.append(x)
+        x = torch.cat(pieces)
+        if self.use_ef:
+            # grad + error, in place (f32 addition commutes bit for bit)
+            x = self._error_buffer(plans, device).add_(x)
+        base = rng.uniform_base(self.codec.seed, step)
+        c = self.codec
+        if self.dithering:
+            norms = self.norms(self.error_views if self.use_ef else
+                               [x[a: a + n] for a, n in self.spans])
+            levels = torch.empty(self.total, dtype=torch.int8, device=device)
+            K.dithering_levels_round(x, norms, self.table, base, c.s,
+                                     c.partition, levels)
+            for m, ((i, j, *_), (a, n)) in enumerate(zip(self.members,
+                                                         self.spans)):
+                payloads[i][j] = {"levels": levels[a: a + n],
+                                  "norm": norms[m]}
+            if self.use_ef:
+                x.sub_(self.dequantize(levels, norms))
+            return {"int8": levels}
+        idx = torch.empty(self.table.out_extent, dtype=torch.int32,
+                          device=device)
+        K.randomk_indices_round(self.table, base, idx)
+        at = idx.long().add_(self._on(device)["starts"])
+        values = x[at]
+        for (i, j, *_), (a, k) in zip(self.members, self.k_spans):
+            payloads[i][j] = {"indices": idx[a: a + k],
+                              "values": values[a: a + k]}
+        if self.use_ef:
+            # x - scatter(values): a drawn x[i] - x[i] is +0
+            x.index_fill_(0, at, 0.0)
+        return {"int32": idx}
+
+    def norms(self, views: List[torch.Tensor]) -> torch.Tensor:
+        """f32 [members]: ``DitheringCodec.norm`` of each member's slice.
+        The max norm is one reduction over the round (a max is exact in
+        any order, so the bits are codec.norm's); L2 stays partition by
+        partition, keeping its summation order."""
+        if self.codec.normalize == "max":
+            norms = torch.stack(torch._foreach_norm(views, float("inf")))
+            return norms.clamp_min_(1e-30)
+        return torch.stack([self.codec.norm(v) for v in views])
+
+    def dequantize(self, levels: torch.Tensor,
+                   norms: torch.Tensor) -> torch.Tensor:
+        """sign(lv) * mag * norm over the round: the f32 operations of
+        ``DitheringCodec.decompress`` in their order, each partition's
+        norm broadcast to its elements."""
+        c = self.codec
+        lv = levels.to(torch.float32)
+        if c.partition == "linear":
+            mag = lv.abs().div_(float(c.s))
+        else:
+            mag = torch.where(lv == 0, torch.zeros_like(lv),
+                              torch.exp2(-(lv.abs() - 1.0)))
+        out = torch.sign(lv).mul_(mag)
+        for a, i, m, n in self.runs:
+            out[a: a + m * n].view(m, n).mul_(norms[i: i + m, None])
+        return out
+
+    def decompress(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The round's part of the uploaded aggregate, f32 [total] in
+        round order."""
+        f32 = dev["float32"]
+        d = self._on(f32.device)
+        if self.dithering:
+            return self.dequantize(dev["int8"], f32[d["f32_slots"]])
+        out = torch.zeros(self.total, dtype=torch.float32, device=f32.device)
+        # index_put_ without accumulate: a repeated index keeps one of
+        # its (equal) values, like RandomkCodec.decompress
+        out.index_put_((dev["int32"].long().add_(d["starts"]),),
+                       f32[d["f32_slots"]])
+        return out
+
+
 class DeviceCompressor:
     """Whole-tree compress/decompress on the device around the scheduled
     PS pipeline. One instance per (client, kwargs); it holds the device
@@ -245,10 +449,13 @@ class DeviceCompressor:
             plan.installed = True
 
     def _spec(self, plans: List[_LeafPlan]) -> _PackSpec:
+        """The pack spec of these leaves, and beside it (``spec.round``)
+        their dithering or randomk round, or None."""
         key = tuple((p.name, p.n) for p in plans)
         spec = self._specs.get(key)
         if spec is None:
             spec = self._specs[key] = _PackSpec(plans)
+            spec.round = _Round.build(plans, spec)
         return spec
 
     def push_pull_leaves(self, state, names: List[str],
@@ -283,23 +490,24 @@ class DeviceCompressor:
         for p in plans:
             p.step = step0 + 1
 
-        payloads = []
-        for plan, leaf in zip(plans, leaves):
-            flat = leaf.detach().reshape(-1).to(torch.float32)
-            pl, new_states = [], []
-            for q, stack, st in zip(plan.ctx.partitions, plan.stacks,
-                                    plan.states):
+        flats = [leaf.detach().reshape(-1).to(torch.float32)
+                 for leaf in leaves]
+        payloads = [[None] * len(p.codecs) for p in plans]
+        written = {} if spec.round is None else \
+            spec.round.compress(plans, flats, step0, payloads)
+        # the rest partition by partition: dense, and onebit (B2)
+        for plan, flat, pl in zip(plans, flats, payloads):
+            for j, (q, stack) in enumerate(zip(plan.ctx.partitions,
+                                               plan.stacks)):
+                if pl[j] is not None:
+                    continue
                 x = flat[q.offset // 4: (q.offset + q.length) // 4]
                 if stack is None:
-                    pl.append({"raw": x})
-                    new_states.append(st)
+                    pl[j] = {"raw": x}
                 else:
-                    payload, st2 = stack.compress(x, st, step0)
-                    pl.append(payload)
-                    new_states.append(st2)
-            payloads.append(pl)
-            plan.states = new_states
-        packed = spec.pack(payloads)
+                    pl[j], plan.states[j] = stack.compress(
+                        x, plan.states[j], step0)
+        packed = spec.pack(payloads, written)
         spans.mark("compress")
         # ONE wire-sized buffer per dtype crosses device -> host, into
         # pinned memory; the event wait is the only sync of the round
@@ -359,11 +567,25 @@ class DeviceCompressor:
         dev = {dt: t.to(device, non_blocking=True) for dt, t in up.items()}
         spans.mark("h2d")
 
+        rnd = spec.round
+        agg = None if rnd is None else rnd.decompress(dev)
         out = []
-        for plan, leaf, reps in zip(plans, leaves, spec.unpack(dev)):
-            chunks = [rep["raw"] if c is None else c.decompress(rep)
-                      for rep, c in zip(reps, plan.codecs)]
-            flat = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        for i, (plan, leaf, reps) in enumerate(zip(plans, leaves,
+                                                   spec.unpack(dev))):
+            if rnd is not None and i in rnd.whole:
+                a, b = rnd.whole[i]
+                flat = agg[a: b]
+            else:
+                chunks = []
+                for j, (rep, c) in enumerate(zip(reps, plan.codecs)):
+                    if c is None:
+                        chunks.append(rep["raw"])
+                    elif rnd is not None and (i, j) in rnd.at:
+                        a, n = rnd.at[(i, j)]
+                        chunks.append(agg[a: a + n])
+                    else:
+                        chunks.append(c.decompress(rep))
+                flat = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
             if average and self.num_workers > 1:
                 flat = flat / self.num_workers
             out.append(flat.reshape(leaf.shape).to(leaf.dtype))

@@ -13,7 +13,9 @@ result line:
 3. each kernel against its plain PyTorch twin on the card, at the shapes of
    the training paths, with its time, the twin's time, the time of one
    PyTorch library call for the same function where there is one, and the
-   least time the card could take (bound);
+   least time the card could take (bound); B4 and B5 over the PS path's
+   whole round (one launch for its 125 partitions) and over a ragged
+   round, and timed also as one launch per partition;
 4. a small fp32 Llama on the card (kernels) against the same model on the
    CPU (plain twins): loss and every gradient;
 5. the collective training path: ``init`` -> ``LlamaConfig.small()`` at
@@ -24,7 +26,8 @@ result line:
    ``make_ps_train_step`` with Adam, under dithering + EF for ``--steps``
    steps, then under randomk (k = 1%) + EF for 3; gradients are
    compressed on the card, summed by the C++ server, decompressed on the
-   card. One more dithering step records where a step's time goes.
+   card, with one B4 or B5 launch a step. One more dithering step records
+   where a step's time goes.
 
 Before each path runs, the kernel launch counters are zeroed; they are
 read just after. It prints a ``{"kernels": [...]}`` line and, last,
@@ -284,14 +287,52 @@ def phase_flash(dev, gen) -> dict:
     return e
 
 
-def path_partition_n() -> int:
-    """Elements in one partition of the PS path: the registry's
-    partition length for a leaf as large as the embedding."""
+# a ragged round: partitions of 1, 15, 16, 17 and 4,099 elements, each
+# slot behind a gap of 3, so that no slot after the first starts on a
+# 16-byte boundary (x offsets 3, 7, 25, 44, 64; out offsets 4, 9, 28, 48,
+# 69)
+RAGGED_ROUND = (1, 15, 16, 17, 4099)
+RAGGED_GAP = 3
+
+
+def path_round(kw: dict, dev):
+    """The PS path's round for ``LlamaConfig.small()``: the
+    ``DeviceCompressor``'s own ``_Round`` (and its tables) over the
+    registry's partitions of every gradient leaf, built without a server,
+    with the default partition size and compression threshold."""
+    import types
+
+    import torch
     from byteps_tpu_torch.config import Config
     from byteps_tpu_torch.core.registry import TensorRegistry
-    ctx = TensorRegistry(Config(num_servers=1)).init_tensor("probe",
-                                                            EMBED_N * 4)
-    return ctx.partitions[0].length // 4
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training.device_compression import \
+        DeviceCompressor
+    from byteps_tpu_torch.training.train import named_leaves
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(v) for k, v in node.items()}
+        return torch.empty(node, device="meta")
+
+    cfg = Config(num_servers=1)
+    state = types.SimpleNamespace(registry=TensorRegistry(cfg))
+    dc = DeviceCompressor(None, 1, kw, cfg.min_compress_bytes)
+    plans = [dc.plan(state, "grad/" + name, t.numel(), dev) for name, t in
+             named_leaves(meta(llama.param_shapes(llama.LlamaConfig.small())))]
+    return dc._spec(plans).round
+
+
+def _ragged_layout(ns):
+    """x and out offsets of a round with RAGGED_GAP unused elements
+    before each slot (one more in out); the x and out lengths."""
+    x_offs, out_offs, xe, oe = [], [], 0, 0
+    for n in ns:
+        xe, oe = xe + RAGGED_GAP, oe + RAGGED_GAP + 1
+        x_offs.append(xe)
+        out_offs.append(oe)
+        xe, oe = xe + n, oe + n
+    return x_offs, out_offs, xe, oe
 
 
 def _power_of_two_front(x):
@@ -308,117 +349,198 @@ def _power_of_two_front(x):
     return x
 
 
-def phase_dither(dev, gen, seed: int) -> dict:
-    """B4 at one partition of the path and at a ragged n: linear and
-    natural, max and L2, against the plain twin on the card and (max
-    norms) against the numpy golden of the host codec."""
+def _dither_round_check(x, norms, table, base, partition, what, golden):
+    """The B4 round kernel against its plain twin on the card (linear
+    bit-exact; natural off by one at most, in at most n/100,000 levels of
+    a partition, where log2 rounds at a power of two) and, where
+    ``golden`` holds (seed, step), against the numpy host codec; returns
+    the largest level difference."""
     import numpy as np
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+    from byteps_tpu_torch.ops.compression.host import HostDithering
+
+    n_out = table.out_extent
+    got = K.dithering_levels_round(
+        x, norms, table, base, 127, partition,
+        torch.zeros(n_out, dtype=torch.int8, device=x.device))
+    want = K.dithering_levels_round_plain(
+        x, norms, table, base, 127, partition,
+        torch.zeros(n_out, dtype=torch.int8, device=x.device))
+    torch.cuda.synchronize()
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs().cpu().numpy()
+    got_np, x_np = got.cpu().numpy(), x.cpu().numpy() if golden else None
+    n_diff = g_diff = 0
+    for x_off, n, out_off, _ in table.rows.tolist():
+        d = diff[out_off: out_off + n]
+        nd = int((d > 0).sum())
+        n_diff += nd
+        if (partition == "linear" and nd) or nd > max(1, n // 100_000) \
+                or (nd and d.max() > 1):
+            fail(f"{what}: {nd} levels of a partition of {n} differ from "
+                 f"the twin, by up to {int(d.max())}")
+        if golden:
+            seed, step = golden
+            host = HostDithering(n=n, s=127, partition=partition, seed=seed)
+            wire = np.frombuffer(host.compress(x_np[x_off: x_off + n],
+                                               step), np.int8)
+            gd = int((wire[:n] != got_np[out_off: out_off + n]).sum())
+            g_diff += gd
+            if gd > max(1, n // 100_000) or (partition == "linear" and gd):
+                fail(f"{what}: {gd} levels of a partition of {n} differ "
+                     f"from the numpy golden")
+    gold = f", {g_diff} from the numpy golden" if golden else ""
+    print(f"{what}: {n_diff} levels differ from the twin{gold}", flush=True)
+    return int(diff.max(initial=0))
+
+
+def phase_dither(dev, gen, seed: int) -> dict:
+    """B4 over the PS path's round (the 125 compressed partitions of
+    ``LlamaConfig.small()``) and over a ragged round with unaligned slots:
+    linear and natural, max and L2, against the plain twin on the card and
+    (max norms) against the numpy golden of the host codec. Times the
+    round launch (CUDA-graph replay and one eager call), the same round as
+    one launch per partition (the form before rounds), the twin and the
+    bound."""
     import torch
     from byteps_tpu_torch.ops.compression import kernels as K
     from byteps_tpu_torch.ops.compression import rng
     from byteps_tpu_torch.ops.compression.codecs import DitheringCodec
-    from byteps_tpu_torch.ops.compression.host import HostDithering
 
-    part_n = path_partition_n()
+    rnd = path_round({"compressor": "dithering"}, dev)
+    total, n_parts = rnd.total, len(rnd.members)
+    print(f"dithering round of the PS path: {n_parts} partitions, {total} "
+          f"elements", flush=True)
     step = 3
     base = rng.uniform_base(seed, step)
-    worst, timed = 0, None
-    for n in (part_n, RAGGED_N):
-        x = _power_of_two_front(torch.randn(n, generator=gen, device=dev))
-        for partition in ("linear", "natural"):
-            for normalize in ("max", "l2"):
-                codec = DitheringCodec(size=n, s=127, partition=partition,
-                                       normalize=normalize, seed=seed)
-                norm = codec.norm(x)
-                got = K.dithering_levels(x, norm, base, 127, partition)
-                want = K.dithering_levels_plain(x, norm, base, 127,
-                                                partition)
-                diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
-                n_diff, err = int((diff > 0).sum()), int(diff.max())
-                worst = max(worst, err)
-                what = f"dithering_levels {partition}/{normalize} n={n}"
-                # linear must be bit-exact; natural may differ only where
-                # log2 rounds at a power of two: off by one, rarely
-                if partition == "linear" and n_diff:
-                    fail(f"{what}: {n_diff} levels differ from the twin")
-                if n_diff > max(1, n // 100_000) or err > 1:
-                    fail(f"{what}: {n_diff} levels differ, by up to {err}")
-                gold = ""
-                if normalize == "max":
-                    host = HostDithering(n=n, s=127, partition=partition,
-                                         seed=seed)
-                    wire = np.frombuffer(host.compress(x.cpu().numpy(),
-                                                       step), np.int8)
-                    g_diff = int((wire[:n] != got.cpu().numpy()).sum())
-                    if g_diff > max(1, n // 100_000) or \
-                            (partition == "linear" and g_diff):
-                        fail(f"{what}: {g_diff} levels differ from the "
-                             f"numpy golden")
-                    gold = f", {g_diff} from the numpy golden"
-                call = lambda: K.dithering_levels(  # noqa: E731
-                    x, norm, base, 127, partition)
-                ms, call_ms = cuda_graph_ms(call), cuda_ms(call, 50)
-                print(f"{what}: {n_diff} levels differ from the twin"
-                      f"{gold}; {ms:.4f} ms on the device, {call_ms:.4f} "
-                      f"ms a call from Python (bound "
-                      f"{5 * n / PEAK_BYTES_PER_S * 1e3:.4f} ms)",
-                      flush=True)
-                if (n, partition, normalize) == (part_n, "linear", "max"):
-                    timed = dict(x=x, norm=norm, ms=ms)
-    x, norm = timed["x"], timed["norm"]
-    plain = lambda: K.dithering_levels_plain(  # noqa: E731
-        x, norm, base, 127, "linear")
-    plain_ms = cuda_graph_ms(plain, reps=5)
-    print(f"dithering_levels_plain linear/max n={part_n}: {plain_ms:.4f} ms "
-          f"on the device, {cuda_ms(plain, 10):.4f} ms a call", flush=True)
+    x = _power_of_two_front(torch.randn(total, generator=gen, device=dev))
+    views = [x[a: a + n] for a, n in rnd.spans]
+    r_x, r_out, r_nx, _ = _ragged_layout(RAGGED_ROUND)
+    rx = _power_of_two_front(torch.randn(r_nx, generator=gen, device=dev))
+    r_table = K.dithering_table(r_x, RAGGED_ROUND, r_out)
+    worst = 0
+    for partition in ("linear", "natural"):
+        for normalize in ("max", "l2"):
+            codec = DitheringCodec(size=1, s=127, partition=partition,
+                                   normalize=normalize, seed=seed)
+            norms = torch.stack([codec.norm(v) for v in views])
+            if normalize == "max" and partition == "linear":
+                # the path's one reduction over the round: codec.norm's bits
+                if not torch.equal(rnd.norms(views), norms):
+                    fail("the round's max norms differ from codec.norm")
+            golden = (seed, step) if normalize == "max" else None
+            err = _dither_round_check(
+                x, norms, rnd.table, base, partition,
+                f"dithering_levels round {partition}/{normalize} "
+                f"({n_parts} partitions, n={total})", golden)
+            r_norms = torch.stack([codec.norm(rx[a: a + n])
+                                   for a, n in zip(r_x, RAGGED_ROUND)])
+            r_err = _dither_round_check(
+                rx, r_norms, r_table, base, partition,
+                f"dithering_levels ragged round {partition}/{normalize} "
+                f"{RAGGED_ROUND}", golden)
+            worst = max(worst, err, r_err)
+    # the one-partition wrapper is a round of one: same levels
+    norms = rnd.norms(views)
+    levels = torch.empty(total, dtype=torch.int8, device=dev)
+    K.dithering_levels_round(x, norms, rnd.table, base, 127, "linear",
+                             levels)
+    for m, (a, n) in enumerate(rnd.spans):
+        if not torch.equal(K.dithering_levels(views[m], norms[m], base, 127,
+                                              "linear"), levels[a: a + n]):
+            fail("dithering_levels (one partition) differs from its round")
+
+    call = lambda: K.dithering_levels_round(  # noqa: E731
+        x, norms, rnd.table, base, 127, "linear", levels)
+    parts = lambda: [K.dithering_levels(  # noqa: E731
+        views[m], norms[m], base, 127, "linear") for m in range(n_parts)]
+    plain = lambda: K.dithering_levels_round_plain(  # noqa: E731
+        x, norms, rnd.table, base, 127, "linear", levels)
+    ms, call_ms = cuda_graph_ms(call), cuda_ms(call, 50)
+    parts_ms, parts_call_ms = cuda_graph_ms(parts, reps=2), cuda_ms(parts, 5)
+    plain_ms = cuda_graph_ms(plain, reps=1, replays=3)
+    plain_call_ms = cuda_ms(plain, 2)
+    bound_ms = 5 * total / PEAK_BYTES_PER_S * 1e3
+    print(f"dithering_levels round linear/max ({n_parts} partitions, "
+          f"n={total}): {ms:.4f} ms on the device, {call_ms:.4f} ms a call "
+          f"from Python; as {n_parts} one-partition launches {parts_ms:.4f} "
+          f"ms on the device, {parts_call_ms:.4f} ms from Python; bound "
+          f"{bound_ms:.4f} ms ({bound_ms / ms:.3f} of it); plain twin "
+          f"{plain_ms:.4f} ms on the device, {plain_call_ms:.4f} ms a call",
+          flush=True)
     return dict(
         name="dithering_levels", route="cuda",
         source="byteps_tpu_torch/csrc/counter_rng.cu",
         replaces="byteps_tpu/ops/compression/pallas_kernels.py:157",
-        max_abs_err=float(worst), ms=timed["ms"], plain_ms=plain_ms,
-        bound_ms=5 * part_n / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None)
+        max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
 def phase_randomk(dev, seed: int) -> dict:
-    """B5 at the path's k (1% of a partition) and at k = 2^20 over the
-    embedding, bit-exact against the twin and the numpy golden."""
+    """B5 over the PS path's round (k = 1% of each of the 125 partitions)
+    and over a ragged round with unaligned slots, bit-exact against the
+    twin and, partition by partition, the numpy golden; the one-partition
+    wrapper at k = 2^20 over the embedding. Times as phase_dither."""
     import numpy as np
     import torch
     from byteps_tpu_torch.ops.compression import kernels as K
     from byteps_tpu_torch.ops.compression import rng
-    from byteps_tpu_torch.ops.compression.codecs import resolve_k
 
-    part_n = path_partition_n()
-    path_k = resolve_k(0.01, part_n)
+    rnd = path_round({"compressor": "randomk", "k": "0.01"}, dev)
+    table = rnd.table
+    k_total, n_parts = table.out_extent, len(table)
     step = 5
     base = rng.uniform_base(seed, step)
-    out = {}
-    for size, k in ((part_n, path_k), (EMBED_N, RANDOMK_BIG_K)):
-        got = K.randomk_indices(base, size, k, dev)
+    _, r_out, _, r_nout = _ragged_layout(RAGGED_ROUND)
+    r_table = K.randomk_table([n + 1000 for n in RAGGED_ROUND], RAGGED_ROUND,
+                              r_out)
+    for what, tab in ((f"path round ({n_parts} partitions, k={k_total})",
+                       table), (f"ragged round k={RAGGED_ROUND}", r_table)):
+        got = K.randomk_indices_round(tab, base, torch.full(
+            (tab.out_extent,), -1, dtype=torch.int32, device=dev))
+        want = K.randomk_indices_round_plain(tab, base, torch.full(
+            (tab.out_extent,), -1, dtype=torch.int32, device=dev))
         torch.cuda.synchronize()
-        if not torch.equal(got, K.randomk_indices_plain(base, size, k, dev)):
-            fail(f"randomk_indices k={k} differs from its plain twin")
-        if not np.array_equal(got.cpu().numpy(),
-                              rng.np_index_parallel(seed, k, size, step)):
-            fail(f"randomk_indices k={k} differs from the numpy golden")
-        call = lambda: K.randomk_indices(base, size, k, dev)  # noqa: E731
-        plain = lambda: K.randomk_indices_plain(  # noqa: E731
-            base, size, k, dev)
-        ms, plain_ms = cuda_graph_ms(call), cuda_graph_ms(plain, reps=5)
-        print(f"randomk_indices size={size} k={k}: bit-exact; {ms:.4f} ms "
-              f"on the device, {cuda_ms(call, 50):.4f} ms a call from "
-              f"Python (plain {plain_ms:.4f} ms on the device, "
-              f"{cuda_ms(plain, 10):.4f} ms a call; bound "
-              f"{4 * k / PEAK_BYTES_PER_S * 1e3:.6f} ms)", flush=True)
-        out[k] = (ms, plain_ms)
-    ms, plain_ms = out[path_k]
+        if not torch.equal(got, want):
+            fail(f"randomk_indices {what} differs from its plain twin")
+        got_np = got.cpu().numpy()
+        for size, k, out_off, _ in tab.rows.tolist():
+            if not np.array_equal(got_np[out_off: out_off + k],
+                                  rng.np_index_parallel(seed, k, size,
+                                                        step)):
+                fail(f"randomk_indices {what}: a partition of size {size} "
+                     f"differs from the numpy golden")
+        print(f"randomk_indices {what}: bit-exact with the twin and the "
+              f"numpy golden", flush=True)
+    big = K.randomk_indices(base, EMBED_N, RANDOMK_BIG_K, dev)
+    if not np.array_equal(big.cpu().numpy(), rng.np_index_parallel(
+            seed, RANDOMK_BIG_K, EMBED_N, step)):
+        fail(f"randomk_indices k={RANDOMK_BIG_K} differs from the golden")
+
+    idx = torch.empty(k_total, dtype=torch.int32, device=dev)
+    rows = table.rows.tolist()
+    call = lambda: K.randomk_indices_round(table, base, idx)  # noqa: E731
+    parts = lambda: [K.randomk_indices(  # noqa: E731
+        base, size, k, dev) for size, k, _, _ in rows]
+    plain = lambda: K.randomk_indices_round_plain(  # noqa: E731
+        table, base, idx)
+    ms, call_ms = cuda_graph_ms(call), cuda_ms(call, 50)
+    parts_ms, parts_call_ms = cuda_graph_ms(parts, reps=2), cuda_ms(parts, 5)
+    plain_ms = cuda_graph_ms(plain, reps=1, replays=3)
+    plain_call_ms = cuda_ms(plain, 2)
+    bound_ms = 4 * k_total / PEAK_BYTES_PER_S * 1e3
+    print(f"randomk_indices round ({n_parts} partitions, k={k_total}): "
+          f"{ms:.4f} ms on the device, {call_ms:.4f} ms a call from "
+          f"Python; as {n_parts} one-partition launches {parts_ms:.4f} ms on "
+          f"the device, {parts_call_ms:.4f} ms from Python; bound "
+          f"{bound_ms:.6f} ms ({bound_ms / ms:.3f} of it); plain twin "
+          f"{plain_ms:.4f} ms on the device, {plain_call_ms:.4f} ms a call",
+          flush=True)
     return dict(
         name="randomk_indices", route="cuda",
         source="byteps_tpu_torch/csrc/counter_rng.cu",
         replaces="byteps_tpu/ops/compression/pallas_kernels.py:223",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        bound_ms=4 * path_k / PEAK_BYTES_PER_S * 1e3,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes", library_ms=None)
 
 
@@ -672,10 +794,13 @@ def phase_ps_train(args, card: str, dev=None, cfg=None, B: int = 4,
               ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})"
                         for k, v in spans.items()), flush=True)
         out[label] = launches
-    if out["dithering"]["dithering_levels"] == 0:
-        fail(f"dithering_levels never launched on the PS path: {out}")
-    if out["randomk"]["randomk_indices"] == 0:
-        fail(f"randomk_indices never launched on the PS path: {out}")
+    # one B4 or B5 launch per PS round, that is per step
+    for label, name in (("dithering", "dithering_levels"),
+                        ("randomk", "randomk_indices")):
+        n_steps = next(n for lb, _, n in runs if lb == label)
+        if out[label][name] != n_steps:
+            fail(f"{name}: {out[label][name]} launches in {n_steps} PS "
+                 f"{label} steps, not one a step: {out}")
     return out
 
 

@@ -1,0 +1,223 @@
+"""Loopback parameter-server helpers for the port's PS tests, and the
+round harness that the CPU tests (against the JAX package) and the card
+tests share. It imports only torch, numpy and byteps_tpu_torch, so the
+card tests, which run without JAX, can use it.
+
+- ``bounded``, ``ps_server``, ``_ps_env``: a server thread on a free
+  port, the worker's environment, and a time limit on every body that
+  talks to the server;
+- ``port_rounds``: two ``DeviceCompressor`` rounds of the leaves in
+  ``LEAVES`` through a loopback server, with every wire recorded;
+- ``partition_path_wires``: the same two rounds' wires, partition by
+  partition through each partition's own ``CompressorStack``;
+- ``path_round_lengths``: the partitions of the training path's round.
+"""
+
+import contextlib
+import socket
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import byteps_tpu_torch as bps
+from byteps_tpu_torch.config import Config
+from byteps_tpu_torch.core.registry import TensorRegistry
+from byteps_tpu_torch.ops.compression import make_compressor
+from byteps_tpu_torch.server import run_server
+from byteps_tpu_torch.training import device_compression as tdc
+
+TIMEOUT_S = 60
+
+
+def bounded(fn, timeout=TIMEOUT_S):
+    """Run ``fn`` in a thread; fail the test if it has not returned in
+    ``timeout`` seconds (a PS round that never completes)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        pytest.fail(f"no reply from the PS server within {timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box.get("out")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def ps_server(num_workers=1):
+    port = _free_port()
+    t = threading.Thread(target=run_server, args=(
+        port, Config(num_workers=num_workers, num_servers=1)), daemon=True)
+    t.start()
+    try:
+        yield port
+    except BaseException:
+        t.join(timeout=10)
+        raise
+    # every worker sent SHUTDOWN: the server must have exited
+    t.join(timeout=10)
+    assert not t.is_alive(), "the PS server did not exit"
+
+
+# the other variables the PS setup reads: an earlier test in this process
+# may have left one set (a JAX elastic resume rewrites BYTEPS_SERVER_HOSTS)
+_OTHER_PS_VARS = ("BYTEPS_SERVER_HOSTS", "DMLC_ROLE", "DMLC_WORKER_ID",
+                  "BYTEPS_GLOBAL_RANK", "BYTEPS_LOCAL_RANK",
+                  "BYTEPS_LOCAL_SIZE", "BYTEPS_PARTITION_BYTES",
+                  "BYTEPS_SCHEDULING_CREDIT", "BYTEPS_KEY_HASH_FN",
+                  "BYTEPS_MIN_COMPRESS_BYTES")
+
+
+def _ps_env(monkeypatch, port, num_workers=1):
+    for name in _OTHER_PS_VARS:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("DMLC_NUM_WORKER", str(num_workers))
+    monkeypatch.setenv("DMLC_NUM_SERVER", "1")
+    monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
+    monkeypatch.setenv("DMLC_PS_ROOT_PORT", str(port))
+
+
+# --------------------------------------------------------------------- #
+# two rounds of a few leaves split into several partitions
+# --------------------------------------------------------------------- #
+
+# with 8192-byte partitions (2048 elements): 2048+2048+904, 2048,
+# 2048+952, 2048+2048+204 and 100; below 2048 bytes a partition travels
+# dense (the 204 tail and the 100-element leaf)
+PARTITION_BYTES = 8192
+LEAVES = {"r/a": 5000, "r/b": 2048, "r/c": 3000, "r/d": 4300, "r/e": 100}
+MIN_BYTES = 2048
+ROUND_MEMBERS = [2048, 2048, 904, 2048, 2048, 952, 2048, 2048]
+ROUND_KWS = [{"compressor": "dithering", "ef": "vanilla", "seed": "4"},
+             {"compressor": "randomk", "k": "0.05", "ef": "vanilla",
+              "seed": "6"}]
+
+
+def leaves(step):
+    rs = np.random.RandomState(10 + step)
+    return [rs.randn(n).astype(np.float32) for n in LEAVES.values()]
+
+
+def record_wires(state, wires):
+    """Append (leaf name, [wire bytes per partition]) to ``wires`` for
+    every leaf that ``state``'s scheduler is given."""
+    submit = state.scheduler.submit_wire
+
+    def recording(ctx, wire_list, *args, **kwargs):
+        wires.append((ctx.name, [bytes(np.asarray(w)) for w in wire_list]))
+        return submit(ctx, wire_list, *args, **kwargs)
+
+    state.scheduler.submit_wire = recording
+
+
+def errors(dc):
+    """{(leaf, partition): EF residual} of a DeviceCompressor's plans
+    (the port's or the JAX package's), as numpy arrays."""
+    out = {}
+    for name, p in dc._plans.items():
+        for j, st in enumerate(p.states):
+            if "error" in st:
+                e = st["error"]
+                out[(name, j)] = e.cpu().numpy().copy() \
+                    if isinstance(e, torch.Tensor) else np.array(e)
+    return out
+
+
+def port_rounds(monkeypatch, kw, device="cpu", seed_errors=None):
+    """The port's two rounds through a loopback server: wires,
+    aggregates (numpy), the residuals after the first round, and the pack
+    spec. ``seed_errors``: residuals written into the round's error
+    buffer after the first round."""
+    wires, outs, errs = [], [], []
+    with ps_server() as port:
+        _ps_env(monkeypatch, port)
+        monkeypatch.setenv("BYTEPS_PARTITION_BYTES", str(PARTITION_BYTES))
+        bps.init(device=device)
+        try:
+            state = bps.get_state()
+            record_wires(state, wires)
+            dc = tdc.DeviceCompressor(state.ps_client, 1, kw, MIN_BYTES)
+
+            def run():
+                for step in range(2):
+                    out = dc.push_pull_leaves(
+                        state, list(LEAVES),
+                        [torch.from_numpy(x).to(device)
+                         for x in leaves(step)], average=False)
+                    outs.append([o.cpu().numpy().copy() for o in out])
+                    errs.append(errors(dc))
+                    if step == 0 and seed_errors is not None:
+                        for (name, j), e in seed_errors.items():
+                            dc._plans[name].states[j]["error"].copy_(
+                                torch.from_numpy(e))
+
+            bounded(run)
+            spec = next(iter(dc._specs.values()))
+        finally:
+            bps.shutdown()
+    return wires, outs, errs[0], spec
+
+
+def partition_path_wires(kw, device="cpu"):
+    """The wires of the same two rounds, partition by partition through
+    each partition's own CompressorStack (the form before rounds)."""
+    reg = TensorRegistry(Config(num_servers=1,
+                                partition_bytes=PARTITION_BYTES))
+    parts = {name: reg.init_tensor(name, n * 4).partitions
+             for name, n in LEAVES.items()}
+    stacks, states, wires = {}, {}, []
+    for step in range(2):
+        for (name, n), x in zip(LEAVES.items(), leaves(step)):
+            ws = []
+            for j, q in enumerate(parts[name]):
+                xq = torch.from_numpy(
+                    x[q.offset // 4: (q.offset + q.length) // 4]).to(device)
+                if q.length < MIN_BYTES:
+                    ws.append(xq.cpu().numpy().tobytes())
+                    continue
+                key = (name, j)
+                if key not in stacks:
+                    stacks[key] = make_compressor(kw, xq.numel())
+                    states[key] = stacks[key].init_state(xq.numel(), device)
+                pl, states[key] = stacks[key].compress(xq, states[key], step)
+                ws.append(tdc.payload_to_wire(
+                    stacks[key].codec,
+                    {k: v.cpu().numpy() for k, v in pl.items()}).tobytes())
+            wires.append((name, ws))
+    return wires
+
+
+def path_round_lengths():
+    """The lengths of the compressed partitions of ``LlamaConfig.small()``'s
+    gradient leaves at the default partition size and compression
+    threshold: the PS training path's round."""
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training.train import named_leaves
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(v) for k, v in node.items()}
+        return torch.empty(node, device="meta")
+
+    cfg = Config(num_servers=1)
+    reg = TensorRegistry(cfg)
+    named = named_leaves(meta(llama.param_shapes(llama.LlamaConfig.small())))
+    return [q.length // 4 for name, t in named
+            for q in reg.init_tensor("grad/" + name,
+                                     t.numel() * 4).partitions
+            if q.length >= cfg.min_compress_bytes]

@@ -6,11 +6,17 @@ the fixture, never at import). On a machine with an H100:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda -q
 """
 
+import numpy as np
 import pytest
 import torch
 
+from _torch_port_ps_util import (
+    ROUND_KWS, ROUND_MEMBERS, bounded, partition_path_wires,
+    path_round_lengths, port_rounds,
+)
 from byteps_tpu_torch.ops import flash_attention as FA
 from byteps_tpu_torch.ops.compression import kernels as K
+from byteps_tpu_torch.ops.compression import rng
 
 pytestmark = pytest.mark.cuda
 
@@ -171,10 +177,123 @@ def test_dithering_kernel_bit_exact(dev, n, partition):
 @pytest.mark.parametrize("size,k", [(1000, 10), (1_024_000, 10_240),
                                     (3 * 2 ** 24 + 7, 1 << 20)])
 def test_randomk_kernel_bit_exact(dev, size, k):
-    from byteps_tpu_torch.ops.compression import rng
     base = rng.uniform_base(7, 3)
     before = K.randomk_indices.launches
     got = K.randomk_indices(base, size, k, dev)
     assert K.randomk_indices.launches == before + 1
     assert torch.equal(got, K.randomk_indices_plain(base, size, k, dev))
     assert torch.equal(got.cpu(), rng.index_parallel(7, k, size, 3))
+
+
+# --------------------------------------------------------------------- #
+# B4 and B5 over a round: one launch for every partition
+# --------------------------------------------------------------------- #
+
+# (lengths, gap): each slot behind ``gap`` unused elements in x and one
+# more in out, so that with a gap no slot after the first starts on 16
+# bytes
+ROUNDS = {
+    "ragged": lambda: ([1, 15, 16, 17, 4099, 8192], 0),
+    "empty-and-one": lambda: ([0, 1, 4096, 0, 33, 0], 0),
+    "unaligned": lambda: ([1, 15, 16, 17, 4099, 8192], 3),
+    "path": lambda: (path_round_lengths(), 0),
+}
+
+
+def _layout(ns, gap):
+    x_offs, out_offs, xe, oe = [], [], 0, 0
+    for n in ns:
+        xe, oe = xe + gap, oe + (gap + 1 if gap else 0)
+        x_offs.append(xe)
+        out_offs.append(oe)
+        xe, oe = xe + n, oe + n
+    return x_offs, out_offs, xe, oe
+
+
+@pytest.mark.parametrize("partition", ["linear", "natural"])
+@pytest.mark.parametrize("case", list(ROUNDS))
+def test_dithering_round_kernel_matches_twin(dev, case, partition):
+    ns, gap = ROUNDS[case]()
+    x_offs, out_offs, n_x, n_out = _layout(ns, gap)
+    x = _dither_input(dev, max(n_x, 104), len(ns) + gap)[:n_x]
+    norms = torch.stack([x[a: a + n].abs().max() if n else x.new_ones(())
+                         for a, n in zip(x_offs, ns)]).clamp_min(1e-30)
+    table = K.dithering_table(x_offs, ns, out_offs)
+    base = rng.uniform_base(3, len(ns))
+    before = K.dithering_levels.launches
+    got = K.dithering_levels_round(
+        x, norms, table, base, 127, partition,
+        torch.full((n_out,), 99, dtype=torch.int8, device=dev))
+    assert K.dithering_levels.launches == before + 1
+    want = K.dithering_levels_round_plain(
+        x, norms, table, base, 127, partition,
+        torch.full((n_out,), 99, dtype=torch.int8, device=dev))
+    if partition == "linear":
+        assert torch.equal(got, want), int((got != want).sum())
+        return
+    # natural: off by one at most, where log2 rounds at a power of two,
+    # in at most n/100,000 levels of a partition
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs().cpu().numpy()
+    assert diff.max(initial=0) <= 1
+    for o, n in zip(out_offs, ns):
+        assert (diff[o: o + n] > 0).sum() <= max(1, n // 100_000)
+
+
+@pytest.mark.parametrize("case", list(ROUNDS))
+def test_randomk_round_kernel_matches_twin_and_golden(dev, case):
+    from byteps_tpu_torch.ops.compression.codecs import resolve_k
+    ns, gap = ROUNDS[case]()
+    if case == "path":
+        sizes, ks = ns, [resolve_k(0.01, n) for n in ns]
+    else:
+        sizes, ks = [n + 1000 for n in ns], ns
+    _, out_offs, _, n_out = _layout(ks, gap)
+    table = K.randomk_table(sizes, ks, out_offs)
+    seed, step = 7, len(ns)
+    base = rng.uniform_base(seed, step)
+    before = K.randomk_indices.launches
+    got = K.randomk_indices_round(table, base, torch.full(
+        (n_out,), -1, dtype=torch.int32, device=dev))
+    assert K.randomk_indices.launches == before + 1
+    want = K.randomk_indices_round_plain(table, base, torch.full(
+        (n_out,), -1, dtype=torch.int32, device=dev))
+    assert torch.equal(got, want)
+    got = got.cpu().numpy()
+    for o, size, k in zip(out_offs, sizes, ks):
+        np.testing.assert_array_equal(
+            got[o: o + k], rng.np_index_parallel(seed, k, size, step))
+
+
+def test_one_partition_wrappers_are_rounds_of_one(dev):
+    x = _dither_input(dev, 4099, 11)
+    norm, base = x.abs().max(), rng.uniform_base(2, 9)
+    for view in (x, x[3:]):       # the second off 16 bytes: scalar loads
+        n = view.numel()
+        one = K.dithering_levels(view, norm, base, 127, "linear")
+        assert torch.equal(one, K.dithering_levels_plain(view, norm, base,
+                                                         127, "linear"))
+        rnd = K.dithering_levels_round(
+            view, norm.reshape(1), K.dithering_table([0], [n], [0]), base,
+            127, "linear", torch.empty(n, dtype=torch.int8, device=dev))
+        assert torch.equal(one, rnd)
+    idx = K.randomk_indices(base, 5000, 300, dev)
+    assert torch.equal(idx, K.randomk_indices_round(
+        K.randomk_table([5000], [300], [0]), base,
+        torch.empty(300, dtype=torch.int32, device=dev)))
+
+
+@pytest.mark.parametrize("kw", ROUND_KWS, ids=lambda kw: kw["compressor"])
+def test_ps_round_on_the_card_pushes_the_partition_path_wire_bytes(
+        dev, kw, monkeypatch):
+    """Two PS rounds of leaves split into ragged partitions, through a
+    loopback server: one B4 or B5 launch a round, and the wire bytes of
+    the partition-by-partition path on the card."""
+    from byteps_tpu_torch.native import build
+    bounded(build.build_ps, timeout=240)
+    counter = K.dithering_levels if kw["compressor"] == "dithering" \
+        else K.randomk_indices
+    before = counter.launches
+    wires, _, _, spec = port_rounds(monkeypatch, kw, device=dev)
+    assert counter.launches == before + 2
+    assert [m[3] for m in spec.round.members] == ROUND_MEMBERS
+    assert wires == partition_path_wires(kw, device=dev)

@@ -17,11 +17,9 @@ server runs its body in a thread joined with a timeout, so a server that
 never answers fails the test instead of hanging the suite.
 """
 
-import contextlib
 import dataclasses
 import filecmp
 import pathlib
-import socket
 import threading
 
 import numpy as np
@@ -40,54 +38,12 @@ from byteps_tpu_torch.core import types as ttypes
 from byteps_tpu_torch.core.registry import TensorRegistry
 from byteps_tpu_torch.native import build as tbuild
 from byteps_tpu_torch.server import client as tclient
-from byteps_tpu_torch.server import run_server
 from byteps_tpu_torch.training import device_compression as tdc
+from _torch_port_ps_util import (
+    TIMEOUT_S, _free_port, _ps_env, bounded, ps_server,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-TIMEOUT_S = 60
-
-
-def bounded(fn, timeout=TIMEOUT_S):
-    """Run ``fn`` in a thread; fail the test if it has not returned in
-    ``timeout`` seconds (a PS round that never completes)."""
-    box = {}
-
-    def run():
-        try:
-            box["out"] = fn()
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            box["err"] = e
-
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(timeout)
-    if t.is_alive():
-        pytest.fail(f"no reply from the PS server within {timeout} s")
-    if "err" in box:
-        raise box["err"]
-    return box.get("out")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-@contextlib.contextmanager
-def ps_server(num_workers=1):
-    port = _free_port()
-    t = threading.Thread(target=run_server, args=(
-        port, Config(num_workers=num_workers, num_servers=1)), daemon=True)
-    t.start()
-    try:
-        yield port
-    except BaseException:
-        t.join(timeout=10)
-        raise
-    # every worker sent SHUTDOWN: the server must have exited
-    t.join(timeout=10)
-    assert not t.is_alive(), "the PS server did not exit"
 
 
 @pytest.fixture(scope="module")
@@ -103,24 +59,6 @@ def jax_uses_port_lib(ps_lib, monkeypatch):
     for mod in (jbuild, jclient):
         monkeypatch.setattr(mod, "build", lambda *a, **k: ps_lib)
     monkeypatch.setenv("BYTEPS_NATIVE_CODEC", "0")
-
-
-# the other variables the PS setup reads: an earlier test in this process
-# may have left one set (a JAX elastic resume rewrites BYTEPS_SERVER_HOSTS)
-_OTHER_PS_VARS = ("BYTEPS_SERVER_HOSTS", "DMLC_ROLE", "DMLC_WORKER_ID",
-                  "BYTEPS_GLOBAL_RANK", "BYTEPS_LOCAL_RANK",
-                  "BYTEPS_LOCAL_SIZE", "BYTEPS_PARTITION_BYTES",
-                  "BYTEPS_SCHEDULING_CREDIT", "BYTEPS_KEY_HASH_FN",
-                  "BYTEPS_MIN_COMPRESS_BYTES")
-
-
-def _ps_env(monkeypatch, port, num_workers=1):
-    for name in _OTHER_PS_VARS:
-        monkeypatch.delenv(name, raising=False)
-    monkeypatch.setenv("DMLC_NUM_WORKER", str(num_workers))
-    monkeypatch.setenv("DMLC_NUM_SERVER", "1")
-    monkeypatch.setenv("DMLC_PS_ROOT_URI", "127.0.0.1")
-    monkeypatch.setenv("DMLC_PS_ROOT_PORT", str(port))
 
 
 def _golden_aggregate(kwargs, xs, n, step=0):

@@ -16,6 +16,11 @@ CUDA kernels here (``csrc/``), built with nvcc at first use.
     out = bps.push_pull(grad)        # mean across the dp group
     bps.shutdown()
 
+In PS mode the Horovod-style asynchronous surface of BytePS pushes host
+tensors through the scheduler: ``h = bps.push_pull_async(array, name)``,
+``bps.poll(h)``, ``bps.synchronize(h)``, and ``bps.declare_tensor`` fixes
+a name's key ahead of time.
+
 The package imports ``torch`` and numpy and nothing of JAX.
 """
 
@@ -23,11 +28,16 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from .core.state import get_state
+from .core.types import DataType
 from .ops.push_pull import broadcast, push_pull
 
 __all__ = ["init", "shutdown", "rank", "size", "local_rank", "local_size",
-           "push_pull", "broadcast"]
+           "push_pull", "broadcast", "declare_tensor", "push_pull_async",
+           "poll", "synchronize"]
 
 
 def init(device=None, store=None, rank: Optional[int] = None,
@@ -57,3 +67,55 @@ def local_rank() -> int:
 
 def local_size() -> int:
     return get_state().require().local_size
+
+
+def declare_tensor(name: str, dtype: DataType = DataType.FLOAT32):
+    """Declare a tensor name so that its PS key is assigned now, in the
+    caller's order (byteps_declare_tensor, operations.cc:420-427)."""
+    return get_state().require().registry.declare(name, dtype)
+
+
+def push_pull_async(tensor, name: str, average: bool = True,
+                    priority: Optional[int] = None, out=None) -> int:
+    """Asynchronous PS push_pull of a host tensor (a numpy array or a CPU
+    tensor): returns an int handle at once; the partitions flow through
+    the priority-scheduled pipeline, and ``synchronize(handle)`` returns
+    the cross-worker sum (mean when ``average``) as a numpy array of the
+    input's shape. ``priority=None`` follows the key's pinned priority
+    (-declared_key, unless the streamed train step pinned its production
+    order); an explicit one counts at the key's first submission only.
+    ``out``: a flat result buffer that the caller keeps until the handle
+    resolves (torch/ops.py:157-174)."""
+    state = get_state().require()
+    if state.scheduler is None:
+        raise RuntimeError("push_pull_async requires a connected PS "
+                           "(DMLC_NUM_SERVER > 0)")
+    if isinstance(tensor, torch.Tensor) and tensor.device.type != "cpu":
+        raise TypeError(f"push_pull_async takes a host tensor, got one on "
+                        f"{tensor.device}")
+    from .server.client import get_or_init_ctx
+    host = np.ascontiguousarray(tensor)
+    flat = host.reshape(-1)
+    ctx = get_or_init_ctx(state, name, flat)
+    handle = state.handles.allocate(name)
+    handle.shape = host.shape
+    state.scheduler.submit(ctx, flat, handle, average,
+                           state.config.num_workers,
+                           version=state.next_version(name),
+                           priority=priority, out=out)
+    return handle.id
+
+
+def poll(handle: int) -> bool:
+    """True once the push_pull behind ``handle`` finished (PollHandle,
+    torch/ops.cc:129-135)."""
+    return get_state().require().handles.poll(handle)
+
+
+def synchronize(handle: int, timeout: Optional[float] = None):
+    """Wait for the push_pull behind ``handle``; returns the reduced
+    array (WaitAndClear, torch/__init__.py:160-176)."""
+    handles = get_state().require().handles
+    h = handles.get(handle)
+    out = handles.wait_and_clear(handle, timeout)
+    return out.reshape(getattr(h, "shape", out.shape))

@@ -8,7 +8,9 @@ is read by ``utils/logging.py``.
 The parameter-server knobs keep the reference's names, so launch tooling
 carries over: DMLC_* for the topology (communicator.cc:60-96), and
 BYTEPS_PARTITION_BYTES, BYTEPS_SCHEDULING_CREDIT and the server's engine
-threads (global.cc:134-176, server.cc:412-456).
+threads (global.cc:134-176, server.cc:412-456). The PS train step's host
+tier reads three knobs of the JAX package's own (byteps_tpu/config.py):
+BYTEPS_FUSION_BYTES, BYTEPS_STREAM_EXPORT and BYTEPS_SHARDED_APPLY.
 """
 
 from __future__ import annotations
@@ -23,11 +25,20 @@ DEFAULT_PARTITION_BYTES = 4096000
 PAGE_SIZE = 4096
 # Minimum tensor size eligible for compression, in bytes (global.cc:43).
 DEFAULT_MIN_COMPRESS_BYTES = 1024000
+# Leaves below this many bytes fuse into one bucket key (byteps_tpu).
+DEFAULT_FUSION_BYTES = 2097152
 
 
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
 
 
 def _env_str(name: str, default: str) -> str:
@@ -56,6 +67,15 @@ class Config:
     # --- compression ---
     min_compress_bytes: int = DEFAULT_MIN_COMPRESS_BYTES  # BYTEPS_MIN_COMPRESS_BYTES
 
+    # --- the PS train step's host tier ---
+    # leaves under this many bytes travel in one fused bucket key; the
+    # rest may stream out of the backward (0: nothing fuses)
+    fusion_bytes: int = DEFAULT_FUSION_BYTES  # BYTEPS_FUSION_BYTES
+    # export each eligible gradient as the backward produces it
+    stream_export: bool = True            # BYTEPS_STREAM_EXPORT
+    # the optimizer step per leaf as its aggregate lands
+    sharded_apply: bool = True            # BYTEPS_SHARDED_APPLY
+
     # --- server ---
     server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
 
@@ -78,5 +98,9 @@ class Config:
             key_hash_fn=_env_str("BYTEPS_KEY_HASH_FN", "djb2"),
             min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES",
                                         DEFAULT_MIN_COMPRESS_BYTES),
+            fusion_bytes=_env_int("BYTEPS_FUSION_BYTES",
+                                  DEFAULT_FUSION_BYTES),
+            stream_export=_env_bool("BYTEPS_STREAM_EXPORT", True),
+            sharded_apply=_env_bool("BYTEPS_SHARDED_APPLY", True),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
         )

@@ -5,6 +5,13 @@ Port of byteps_tpu/core/arena.py: the cpubuff discipline of the reference
 reused every round. Per staging key, an aligned slot is allocated at the
 first checkout and handed out again at each later one.
 
+For a card the slots are pinned (page-locked) host memory, from
+``torch.empty(..., pin_memory=True)``: a ``non_blocking`` copy between the
+card and pageable memory is synchronous, and would stall the thread that
+issues it (the backward's, for a streamed gradient). A lease gives the
+slot as a numpy array (``buf``, for the client) and as a torch tensor
+(``tensor``, for the copies).
+
 Correctness never depends on the arena. A slot is handed out only while
 it is free; if it is still leased (``checkout_conflicts``), the caller
 gets a fresh untracked buffer with the same semantics. A caller that hits an error
@@ -18,6 +25,7 @@ import threading
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 # cache-line alignment for the memcpy-heavy fill and drain paths
 SLOT_ALIGN = 64
@@ -31,37 +39,47 @@ def usable_staging(out: Optional[np.ndarray], dtype, nbytes: int) -> bool:
             and out.nbytes == nbytes and out.flags["C_CONTIGUOUS"])
 
 
-def _aligned_empty(nbytes: int, align: int = SLOT_ALIGN) -> np.ndarray:
-    """Uninitialized uint8 buffer with an align-rounded data pointer."""
-    raw = np.empty(nbytes + align, np.uint8)
-    off = (-raw.ctypes.data) % align
+def _aligned_empty(nbytes: int, pin: bool,
+                   align: int = SLOT_ALIGN) -> torch.Tensor:
+    """Uninitialized uint8 tensor on the host with an align-rounded data
+    pointer, page-locked when ``pin``."""
+    raw = torch.empty(nbytes + align, dtype=torch.uint8, pin_memory=pin)
+    off = (-raw.data_ptr()) % align
     return raw[off:off + nbytes]
 
 
 class _Slot:
-    __slots__ = ("buf", "busy", "version")
+    __slots__ = ("tensor", "buf", "busy", "version")
 
-    def __init__(self, buf: np.ndarray):
-        self.buf = buf
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+        self.buf = tensor.numpy()
         self.busy = False
         self.version = 0
 
 
 class ArenaLease:
     """One checkout of one staging buffer: ``buf`` is a C-contiguous uint8
-    array of exactly the requested size. ``fresh`` marks an untracked
-    allocation, whose release is a no-op."""
+    array of exactly the requested size, ``tensor`` the same bytes as a
+    torch tensor. ``fresh`` marks an untracked allocation, whose release
+    is a no-op."""
 
-    __slots__ = ("_arena", "key", "buf", "fresh", "_version", "_open")
+    __slots__ = ("_arena", "key", "buf", "tensor", "fresh", "_version",
+                 "_open")
 
     def __init__(self, arena: Optional["StagingArena"], key: str,
-                 buf: np.ndarray, fresh: bool, version: int = 0):
+                 slot: _Slot, fresh: bool, version: int = 0):
         self._arena = arena
         self.key = key
-        self.buf = buf
+        self.buf = slot.buf
+        self.tensor = slot.tensor
         self.fresh = fresh
         self._version = version
         self._open = True
+
+    def array(self, dtype) -> np.ndarray:
+        """The whole slot as a flat array of ``dtype``."""
+        return self.buf.view(dtype)
 
     def release(self) -> None:
         """Return the slot for reuse, once nothing reads or writes it."""
@@ -82,37 +100,46 @@ class ArenaLease:
 
 
 class StagingArena:
-    """Thread-safe key -> persistent staging slot table."""
+    """Thread-safe key -> persistent staging slot table. ``pin``: slots in
+    page-locked memory (a card's copies read and write them)."""
 
-    def __init__(self) -> None:
+    def __init__(self, pin: bool = False) -> None:
+        self.pin = pin
         self._mu = threading.Lock()
         self._slots: Dict[str, _Slot] = {}  # guarded-by: _mu
         # counters, all guarded-by: _mu
         self._slot_allocs = 0
         self._allocs_avoided = 0
         self._conflicts = 0
+        self._tag_checkouts: Dict[str, int] = {}
 
-    def checkout(self, key: str, nbytes: int) -> ArenaLease:
+    def checkout(self, key: str, nbytes: int,
+                 tag: Optional[str] = None) -> ArenaLease:
         """Lease the slot for ``key`` (allocated at first use), or a fresh
-        buffer when the slot is still leased."""
+        buffer when the slot is still leased. ``tag`` counts the checkout
+        under a pipeline stage in ``stats()`` (``export``: the streamed
+        export's slots)."""
         nbytes = int(nbytes)
         with self._mu:
+            if tag is not None:
+                self._tag_checkouts[tag] = \
+                    self._tag_checkouts.get(tag, 0) + 1
             slot = self._slots.get(key)
             if slot is not None and slot.busy:
                 self._conflicts += 1
-                return ArenaLease(self, key, _aligned_empty(nbytes),
-                                  fresh=True)
+                return ArenaLease(self, key, _Slot(_aligned_empty(
+                    nbytes, self.pin)), fresh=True)
             if slot is not None and slot.buf.nbytes != nbytes:
                 slot = None
             if slot is None:
-                slot = _Slot(_aligned_empty(nbytes))
+                slot = _Slot(_aligned_empty(nbytes, self.pin))
                 self._slots[key] = slot
                 self._slot_allocs += 1
             else:
                 self._allocs_avoided += 1
             slot.busy = True
             slot.version += 1
-            return ArenaLease(self, key, slot.buf, fresh=False,
+            return ArenaLease(self, key, slot, fresh=False,
                               version=slot.version)
 
     def _release(self, key: str, version: int) -> None:
@@ -150,4 +177,5 @@ class StagingArena:
                 "slot_allocs": self._slot_allocs,
                 "allocs_avoided": self._allocs_avoided,
                 "checkout_conflicts": self._conflicts,
+                "export_checkouts": self._tag_checkouts.get("export", 0),
             }

@@ -1,10 +1,11 @@
 """Host-side pipeline scheduler of the PS path.
 
-Port of byteps_tpu/core/scheduler.py, trimmed to what the device-
-compressed train step uses: prebuilt wire payloads (``submit_wire``)
-through the fused WIRE stage, one PUSHPULL message per partition, with
-the reference's worker-side scheduling (scheduled_queue.cc,
-core_loops.cc):
+Port of byteps_tpu/core/scheduler.py, trimmed to what the PS train step
+uses: dense tensors and host-compressed ones (``submit``, with the
+COMPRESS and DECOMPRESS stages around the wire) and prebuilt wire
+payloads of the device tier (``submit_wire``), each through the fused
+WIRE stage, one PUSHPULL message per partition, with the reference's
+worker-side scheduling (scheduled_queue.cc, core_loops.cc):
 
 - ``ScheduledQueue``: tasks ordered by (priority desc, key asc), admitted
   while the in-flight byte credit lasts (BYTEPS_SCHEDULING_CREDIT), and
@@ -14,15 +15,17 @@ core_loops.cc):
   the WIRE stage; the client's completion reactor finishes them; the
   per-tensor ``TaskGroup`` fires the handle when the last partition
   lands;
-- ``HandleManager``: integer handles (torch/handle_manager.cc).
+- ``HandleManager``: integer handles (torch/handle_manager.cc), with
+  done-callbacks that drive the train step's completion-ordered drain.
 
 Each task carries its key's round number in the epoch stamp. Priority is
 -declared_key by default (front-of-model tensors win ties,
-tensorflow/ops.cc:155-158), pinned per key at its first submission.
+tensorflow/ops.cc:155-158), or the measured production order of the
+streamed export (``production_priority``), pinned per key at its first
+submission.
 
 Not yet ported: the two-op PUSH/PULL fallback, wire retry and server
-failover, the host-codec COMPRESS/DECOMPRESS stages, dense and rowsparse
-submission, production-order priority and the codec plane.
+failover, rowsparse submission and the codec plane.
 """
 
 from __future__ import annotations
@@ -37,7 +40,10 @@ import numpy as np
 
 from ..utils.logging import log
 from .arena import usable_staging
-from .types import Partition, TensorContext
+from .types import (
+    DataType, Partition, RequestType, TensorContext, get_command_type,
+    trunc_divide_inplace,
+)
 
 # credit when scheduling is off: effectively unlimited (the reference's
 # 32 GB, scheduled_queue.cc:33-45)
@@ -127,22 +133,31 @@ class ScheduledQueue:
 
 class PartitionTask:
     """One partition of one push_pull (TensorTableEntry,
-    common.h:221-264): a prebuilt wire payload up, a reply buffer down."""
+    common.h:221-264). Dense: ``in_view`` up, the reply into
+    ``out_view``. Host-compressed: ``stack`` compresses ``in_view`` into
+    ``wire`` and decompresses the reply into ``out_view``. Device tier:
+    a prebuilt ``wire`` up, ``pull_len`` reply bytes into ``out_view``."""
 
-    __slots__ = ("ctx", "partition", "priority", "version", "out_view",
-                 "group", "cmd", "wire", "pull_len", "round_no")
+    __slots__ = ("ctx", "partition", "priority", "version", "in_view",
+                 "out_view", "group", "cmd", "wire", "pull_len", "stack",
+                 "step", "lease", "round_no")
 
     def __init__(self, ctx, partition, priority, version, out_view, group,
-                 cmd, wire, pull_len):
+                 cmd, wire=None, pull_len=None, in_view=None, stack=None,
+                 step=0):
         self.ctx: TensorContext = ctx
         self.partition: Partition = partition
         self.priority = priority
         self.version = version
-        self.out_view = out_view   # np.uint8 reply buffer
+        self.in_view = in_view     # np.uint8 dense input (or None)
+        self.out_view = out_view   # np.uint8 reply/result buffer
         self.group: "TaskGroup" = group
         self.cmd = cmd             # command word of push and reply
-        self.wire = wire           # prebuilt push payload
-        self.pull_len = pull_len   # reply bytes
+        self.wire = wire           # push payload, prebuilt or compressed
+        self.pull_len = pull_len   # device tier: reply bytes
+        self.stack = stack         # host codec stack (or None)
+        self.step = step           # compression round of the stack
+        self.lease = None          # arena scratch of a compressed reply
         self.round_no = 0          # per-key submission ordinal
 
     @property
@@ -198,6 +213,21 @@ class Handle:
         self._ev = threading.Event()
         self._err: Optional[Exception] = None
         self.result = None
+        self._cb_mu = threading.Lock()
+        self._cbs: List[Callable[[], None]] = []  # guarded-by: _cb_mu
+
+    def done(self) -> bool:
+        return self._ev.is_set()
+
+    def add_done_callback(self, fn: Callable[[], None]) -> None:
+        """Run ``fn()`` when the handle completes, on the completing
+        thread (at once if it has). The train step's drain hangs on this:
+        keep ``fn`` tiny."""
+        with self._cb_mu:
+            if not self._ev.is_set():
+                self._cbs.append(fn)
+                return
+        fn()
 
     def wait(self, timeout: Optional[float] = None):
         if not self._ev.wait(timeout):
@@ -209,11 +239,19 @@ class Handle:
     def _finish(self, result, err) -> None:
         self.result = result
         self._err = err
-        self._ev.set()
+        with self._cb_mu:
+            self._ev.set()
+            cbs, self._cbs = self._cbs, []
+        for fn in cbs:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 - must not poison completion
+                log.exception("handle done-callback for %r raised",
+                              self.name)
 
 
 class HandleManager:
-    """int handle allocation and wait (torch/handle_manager.cc:22)."""
+    """int handle allocation, poll and wait (torch/handle_manager.cc:22)."""
 
     def __init__(self) -> None:
         self._mu = threading.Lock()
@@ -227,9 +265,31 @@ class HandleManager:
             self._next += 1
             return h
 
-    def wait_and_clear(self, hid: int, timeout=None):
+    def get(self, hid: int) -> Handle:
         with self._mu:
-            h = self._handles[hid]
+            try:
+                return self._handles[hid]
+            except KeyError:
+                raise KeyError(f"unknown or already-synchronized handle "
+                               f"{hid}") from None
+
+    def poll(self, hid: int) -> bool:
+        """True once the handle's round finished; a cleared handle reports
+        done (PollHandle, torch/handle_manager.cc), one never allocated
+        raises."""
+        with self._mu:
+            if hid < 0 or hid >= self._next:
+                raise KeyError(f"handle {hid} was never allocated")
+            h = self._handles.get(hid)
+        return True if h is None else h.done()
+
+    def discard(self, hid: int) -> None:
+        """Drop a handle without its result (an abandoned round)."""
+        with self._mu:
+            self._handles.pop(hid, None)
+
+    def wait_and_clear(self, hid: int, timeout=None):
+        h = self.get(hid)
         try:
             out = h.wait(timeout)
         except TimeoutError:
@@ -244,30 +304,37 @@ class HandleManager:
 
 
 class PipelineScheduler:
-    """Priority-scheduled fused PUSHPULL of prebuilt wire payloads.
+    """Priority-scheduled fused PUSHPULL.
 
     The dispatcher is the only consumer of the queue, so credit and
     priority order are decided in one place. An admitted task goes to the
-    WIRE stage, which sends one fused PUSHPULL and returns its thread;
+    COMPRESS stage (host-compressed tasks, on the codec pool) and then to
+    the WIRE stage, which sends one fused PUSHPULL and returns its thread;
     the reply lands in the task's buffer from the native recv loop, and
-    the client's completion reactor hands the finish to a pool thread.
-    Credit is held from admission until the reply."""
+    the client's completion reactor hands the rest to a pool thread: the
+    DECOMPRESS stage, or the finish. Credit is held from admission until
+    the finish."""
 
-    def __init__(self, client, num_threads: int = 8, credit_bytes: int = 0):
+    def __init__(self, client, num_threads: int = 8, credit_bytes: int = 0,
+                 arena=None):
         if not getattr(client, "supports_fused", False):
             raise NotImplementedError(
                 "the two-op PUSH/PULL pipeline is not yet ported to "
                 "byteps_tpu_torch: the client must speak the fused "
                 "PUSHPULL op")
         self._client = client
+        self._arena = arena        # scratch for compressed replies
         self._queue = ScheduledQueue(credit_bytes)
         self._push_pool = concurrent.futures.ThreadPoolExecutor(
             num_threads, thread_name_prefix="bps-push")
         self._pull_pool = concurrent.futures.ThreadPoolExecutor(
             num_threads, thread_name_prefix="bps-pull")
+        self._codec_pool = concurrent.futures.ThreadPoolExecutor(
+            num_threads, thread_name_prefix="bps-codec")
         self._prio_mu = threading.Lock()
         self._key_priority: Dict[int, int] = {}  # guarded-by: _prio_mu
         self._round_seq: Dict[int, int] = {}     # guarded-by: _prio_mu
+        self._export_ordinal = 0                 # guarded-by: _prio_mu
         # wire bytes pushed, for the step's accounting
         self._bytes_mu = threading.Lock()
         self.bytes_pushed = 0                    # guarded-by: _bytes_mu
@@ -281,12 +348,27 @@ class PipelineScheduler:
             self._round_seq[ctx.declared_key] = r
             return r
 
+    def production_priority(self, ctx: TensorContext) -> int:
+        """Priority from the measured production order: the n-th distinct
+        key to cross the streamed export gets ordinal n and priority -n,
+        so the gradient the backward produces first is served first
+        (the reference assumes "last layer first" through
+        -declared_key). The priority is pinned for the key."""
+        with self._prio_mu:
+            pr = self._key_priority.get(ctx.declared_key)
+            if pr is None:
+                pr = self._key_priority[ctx.declared_key] = \
+                    -self._export_ordinal
+                self._export_ordinal += 1
+            return pr
+
     def _pin_priority(self, ctx: TensorContext,
                       priority: Optional[int]) -> int:
         """The first submission's priority is pinned per key: two queued
         rounds of one tensor with different priorities would otherwise
         be admitted out of round order, and the server counts pushes per
-        worker and key in order. None = -declared_key."""
+        worker and key in order. None = the pinned value, or
+        -declared_key."""
         with self._prio_mu:
             pinned = self._key_priority.get(ctx.declared_key)
             if pinned is None:
@@ -299,22 +381,56 @@ class PipelineScheduler:
             task = self._queue.get_task()
             if task is None:
                 return
-            try:
-                self._push_pool.submit(self._do_wire, task)
-            except RuntimeError as e:  # pool shut down mid-flight
-                self._finish(task, e)
+            stage = self._do_compress if task.stack is not None \
+                else self._do_wire
+            pool = self._codec_pool if task.stack is not None \
+                else self._push_pool
+            self._submit_stage(pool, stage, task)
+
+    def _submit_stage(self, pool, fn, task: PartitionTask) -> None:
+        try:
+            pool.submit(fn, task)
+        except RuntimeError as e:  # pool shut down mid-flight
+            self._finish(task, e)
+
+    def _do_compress(self, task: PartitionTask) -> None:
+        from ..server.compressed import compress_partition
+        try:
+            task.wire = compress_partition(task.stack, task.in_view,
+                                           task.step)
+        except Exception as e:  # noqa: BLE001 - forwarded to the waiter
+            self._finish(task, e)
+            return
+        self._submit_stage(self._push_pool, self._do_wire, task)
 
     def _do_wire(self, task: PartitionTask) -> None:
         """The fused WIRE stage: one PUSHPULL message; the reactor runs
         the continuation when the round's aggregate has landed."""
-        reply = task.out_view
+        buf = task.wire if task.wire is not None else task.in_view
+        if task.stack is not None:
+            # the compressed reply lands in scratch; DECOMPRESS writes the
+            # result into out_view
+            wb = task.stack.wire_bytes()
+            if self._arena is not None:
+                task.lease = self._arena.checkout(f"pull:{task.key}", wb)
+                reply = task.lease.buf
+            else:
+                reply = np.empty(wb, np.uint8)
+        else:
+            reply = task.out_view
+        # a dense reply is the whole partition, a codec reply its wire
+        want = task.pull_len if task.pull_len is not None else len(reply)
 
         def on_done(got: int, err) -> None:
-            if err is None and got != task.pull_len:
+            if err is None and got != want:
                 err = RuntimeError(
                     f"fused pushpull reply for {task.ctx.name!r} "
-                    f"key={task.key} is {got} bytes, expected "
-                    f"{task.pull_len}")
+                    f"key={task.key} is {got} bytes, expected {want}")
+            if err is None and task.stack is not None:
+                task.wire = reply
+                self._submit_stage(self._codec_pool, self._do_decompress,
+                                   task)
+                return
             try:
                 self._pull_pool.submit(self._finish, task, err)
             except RuntimeError as e:
@@ -323,17 +439,88 @@ class PipelineScheduler:
         # counted before the send: the reply may finish the round before
         # the send call returns
         with self._bytes_mu:
-            self.bytes_pushed += len(task.wire)
+            self.bytes_pushed += len(buf)
         try:
             self._client.zpushpull_async(
-                task.partition.server, task.key, task.wire, reply, task.cmd,
+                task.partition.server, task.key, buf, reply, task.cmd,
                 on_done, epoch=task.epoch)
         except Exception as e:  # noqa: BLE001 - forwarded to the waiter
             self._finish(task, e)
 
+    def _do_decompress(self, task: PartitionTask) -> None:
+        from ..server.compressed import decompress_partition
+        try:
+            decompress_partition(task.stack, task.wire, task.out_view)
+        except Exception as e:  # noqa: BLE001 - forwarded to the waiter
+            self._finish(task, e)
+            return
+        self._finish(task, None)
+
     def _finish(self, task: PartitionTask, err: Optional[Exception]) -> None:
+        if task.lease is not None:
+            # released before the key leaves the in-flight set, so the
+            # key's next round finds the slot free; on error the reply
+            # may still be written: never recycle it
+            if err is None:
+                task.lease.release()
+            else:
+                task.lease.abandon()
+            task.lease = None
         self._queue.report_finish(task)
         task.group.partition_done(err)
+
+    def submit(self, ctx: TensorContext, flat_in: np.ndarray,
+               handle: Handle, average: bool, num_workers: int,
+               version: int = 0, priority: Optional[int] = None,
+               comp=None, out: Optional[np.ndarray] = None) -> None:
+        """Enqueue every partition of one flat host tensor; ``handle``
+        resolves to the flat result (the cross-worker sum, divided by
+        ``num_workers`` when ``average`` and there is more than one)
+        when the last partition lands. ``comp``: a
+        ``server.compressed.CompressedTensor``, whose partition stacks
+        run in the COMPRESS and DECOMPRESS stages (a partition without
+        one travels dense) and whose round counter seeds them. ``out``:
+        the result buffer (an arena slot; it may be ``flat_in`` itself:
+        each partition's push is sent before its reply can land), used
+        if it fits exactly; the caller keeps it until the handle
+        resolves and it is done reading."""
+        if comp is not None:
+            step = comp.begin_round()   # installs the codecs on first use
+            flat_in = np.ascontiguousarray(flat_in, np.float32)
+        else:
+            step = 0
+            self._client.ensure_init(ctx, flat_in.nbytes)
+        dtype = DataType.from_np(flat_in.dtype)
+        cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, dtype)
+        cmd_comp = get_command_type(RequestType.COMPRESSED_PUSH_PULL, dtype)
+        if not usable_staging(out, flat_in.dtype, flat_in.nbytes):
+            out = np.empty_like(flat_in)
+        in_view = flat_in.view(np.uint8)
+        out_view = out.view(np.uint8)
+
+        def on_complete(err: Optional[Exception]) -> None:
+            if err is None and average and num_workers > 1:
+                if np.issubdtype(out.dtype, np.integer):
+                    trunc_divide_inplace(out, num_workers)
+                else:
+                    np.divide(out, num_workers, out=out)
+            handle._finish(out if err is None else None, err)
+
+        group = TaskGroup(ctx, len(ctx.partitions), on_complete)
+        priority = self._pin_priority(ctx, priority)
+        round_no = self._next_round(ctx)
+        for i, p in enumerate(ctx.partitions):
+            stack = comp.stacks[i] if comp is not None else None
+            lo, hi = p.offset, p.offset + p.length
+            task = PartitionTask(
+                ctx, p, priority, version, out_view[lo:hi], group,
+                cmd if stack is None else cmd_comp,
+                in_view=in_view[lo:hi], stack=stack, step=step)
+            task.round_no = round_no
+            try:
+                self._queue.add_task(task)
+            except RuntimeError as e:
+                group.partition_done(e)
 
     def submit_wire(self, ctx: TensorContext, wires: List[np.ndarray],
                     reply_lens: List[int], cmds: List[int], handle: Handle,
@@ -359,7 +546,8 @@ class PipelineScheduler:
         round_no = self._next_round(ctx)
         for i, p in enumerate(ctx.partitions):
             task = PartitionTask(ctx, p, priority, version, replies[i],
-                                 group, cmds[i], wires[i], reply_lens[i])
+                                 group, cmds[i], wire=wires[i],
+                                 pull_len=reply_lens[i])
             task.round_no = round_no
             try:
                 self._queue.add_task(task)
@@ -371,5 +559,5 @@ class PipelineScheduler:
         requests are failed by the client's close."""
         self._queue.stop()
         self._dispatcher.join(timeout=5)
-        for pool in (self._push_pool, self._pull_pool):
+        for pool in (self._codec_pool, self._push_pool, self._pull_pool):
             pool.shutdown(wait=False, cancel_futures=True)

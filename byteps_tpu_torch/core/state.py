@@ -152,13 +152,14 @@ class GlobalState:
         from .arena import StagingArena
         from .registry import TensorRegistry
         from .scheduler import HandleManager, PipelineScheduler
-        self.arena = StagingArena()
+        self.arena = StagingArena(pin=self.device.type == "cuda")
         self.registry = TensorRegistry(cfg)
         self.registry.attach_arena(self.arena)
         self._version = {}
         self.ps_client = connect_from_config(cfg)
         self.scheduler = PipelineScheduler(
-            self.ps_client, credit_bytes=cfg.scheduling_credit)
+            self.ps_client, credit_bytes=cfg.scheduling_credit,
+            arena=self.arena)
         self.handles = HandleManager()
 
     def _stop_ps(self) -> None:

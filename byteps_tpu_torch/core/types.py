@@ -13,6 +13,8 @@ import dataclasses
 import enum
 from typing import List
 
+import numpy as np
+
 
 class DataType(enum.IntEnum):
     """Wire dtypes, in the reference's (mshadow) order (common.h:59-72)."""
@@ -26,6 +28,27 @@ class DataType(enum.IntEnum):
     INT64 = 6
     BFLOAT16 = 7
     UINT16 = 8
+
+    @staticmethod
+    def from_np(dtype) -> "DataType":
+        for dt, npd in _NP_DTYPES.items():
+            # bfloat16 has no numpy dtype and travels as uint16
+            if npd == np.dtype(dtype) and dt != DataType.BFLOAT16:
+                return dt
+        raise ValueError(f"unsupported dtype {dtype}")
+
+
+_NP_DTYPES = {
+    DataType.FLOAT32: np.dtype(np.float32),
+    DataType.FLOAT64: np.dtype(np.float64),
+    DataType.FLOAT16: np.dtype(np.float16),
+    DataType.UINT8: np.dtype(np.uint8),
+    DataType.INT32: np.dtype(np.int32),
+    DataType.INT8: np.dtype(np.int8),
+    DataType.INT64: np.dtype(np.int64),
+    DataType.BFLOAT16: np.dtype(np.uint16),
+    DataType.UINT16: np.dtype(np.uint16),
+}
 
 
 class RequestType(enum.IntEnum):
@@ -65,3 +88,13 @@ class TensorContext:
     nbytes: int = 0
     partitions: List[Partition] = dataclasses.field(default_factory=list)
     initialized: bool = False
+
+
+def trunc_divide_inplace(out: np.ndarray, n: int) -> None:
+    """``out //= n`` truncating toward zero, the reference's ``div_(size)``
+    for integer averaging, exact for every int including the minimum
+    (byteps_tpu/core/types.py). Requires n > 0."""
+    rem = np.remainder(out, n)
+    np.floor_divide(out, n, out=out)
+    # trunc = floor + 1 where the division was inexact and negative
+    np.add(out, (rem != 0) & (out < 0), out=out, casting="unsafe")

@@ -1,10 +1,18 @@
 // Dithering levels and randomk indices for Hopper (sm_90a): the two
 // kernels of the counter-based random stream, each run as one launch over
-// a whole round of partitions.
+// a whole round of partitions; and beside them the dequantization of a
+// dithering round (dither_apply_kernel, below).
 //
 // Replaces the Pallas TPU kernels of byteps_tpu/ops/compression/
 // pallas_kernels.py: _dither_linear_kernel and _dither_natural_kernel
 // (dithering_levels), and _randomk_hash_kernel (randomk_indices).
+// dither_apply_kernel replaces no TPU kernel but the XLA fusion of the
+// JAX DeviceCompressor's dithering decompress and error-feedback
+// residual, whose rounding it reproduces: XLA folds |lv| / s into
+// |lv| * (1/s) and contracts the residual x - dec * norm into one FMA.
+// It reads 1 byte of levels and (residual) reads and writes 4 bytes of
+// f32 per element, bound by bytes; the _rn intrinsics keep nvcc from
+// rounding differently.
 //
 // The stream. Element i of a partition draws from the counter
 // i * 0x9E3779B1 + base in uint32 arithmetic, through the murmur3
@@ -241,6 +249,106 @@ __global__ void __launch_bounds__(kThreads) randomk_round_kernel(
   }
 }
 
+// The dequantized level of a dithering partition, sign(lv) * mag, with
+// mag = |lv| * (1/s) (linear; recip is 1/s rounded to f32 once, the
+// constant XLA folds the JAX codec's |lv| / s into) or 2^-(|lv| - 1)
+// built from its exponent bits (natural; exact, where exp2f may not be).
+template <int kNatural>
+__device__ __forceinline__ float dequant_one(int8_t lv, float recip) {
+  const int a = lv < 0 ? -(int)lv : (int)lv;
+  float mag;
+  if (kNatural == 0)
+    mag = __fmul_rn((float)a, recip);
+  else
+    mag = a == 0 ? 0.0f : __int_as_float((128 - a) << 23);
+  return lv > 0 ? mag : (lv < 0 ? -mag : 0.0f);
+}
+
+// Element i of a partition: kResidual = 1 makes x[i] the error-feedback
+// residual x[i] - dec * norm in one rounding (the FMA XLA contracts the
+// JAX package's residual into); kResidual = 0 writes the aggregate's
+// dequantization dec * norm into x[i].
+template <int kNatural, int kResidual>
+__device__ __forceinline__ float apply_one(int8_t lv, float norm, float recip,
+                                           float xv) {
+  const float dec = dequant_one<kNatural>(lv, recip);
+  return kResidual ? __fmaf_rn(-dec, norm, xv) : __fmul_rn(dec, norm);
+}
+
+// The levels of a dithering round turned back into f32: the rows are
+// B4's (x_off is where the f32 side of a partition lives, out_off where
+// its levels live, norm_idx its norm). A block takes 4096 elements as
+// four passes over 1024 consecutive ones, 4 a thread: one 4-byte load of
+// levels and (residual) one 16-byte load and one 16-byte store of f32
+// where x lies on 16 bytes, else element by element, so a warp's
+// accesses are contiguous; a scalar head (up to the levels' first
+// 16-byte boundary) and tail (the last partial 16) in tile 0.
+template <int kNatural, int kResidual>
+__global__ void __launch_bounds__(kThreads) dither_apply_kernel(
+    const int8_t* __restrict__ levels, const float* __restrict__ norms,
+    const DitherPart* __restrict__ parts,
+    const long long* __restrict__ tile_start, int n_parts, DitherPart one,
+    float recip, float* __restrict__ x) {
+  long long t = blockIdx.x;
+  DitherPart r = one;
+  if (parts != nullptr) {
+    const int p = find_part(tile_start, n_parts, t);
+    r = parts[p];
+    t -= __ldg(tile_start + p);
+  }
+  const float norm = __ldg(norms + r.norm_idx);
+  float* xp = x + r.x_off;
+  const int8_t* lp = levels + r.out_off;
+  const long long head = min_ll(r.n, (16 - ((uintptr_t)lp & 15)) & 15);
+  const long long n_vec = (r.n - head) / kDitherVec * kDitherVec;
+  const bool vec = ((uintptr_t)(xp + head) & 15) == 0;  // per partition
+  const long long e_first = t * kDitherTile + 4 * threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kDitherVec / 4; ++j) {
+    const long long e = head + e_first + j * (4 * kThreads);
+    if (e - head < n_vec) {
+      const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(lp + e));
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (kResidual) {
+        if (vec) {
+          const float4 f = *reinterpret_cast<const float4*>(xp + e);
+          v[0] = f.x;
+          v[1] = f.y;
+          v[2] = f.z;
+          v[3] = f.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[k] = xp[e + k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = apply_one<kNatural, kResidual>(
+            (int8_t)((w >> (8 * k)) & 0xFF), norm, recip, v[k]);
+      if (vec) {
+        *reinterpret_cast<float4*>(xp + e) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) xp[e + k] = v[k];
+      }
+    }
+  }
+  if (t == 0) {
+    // the scalar head (threads 0..15) and tail (threads 16..31)
+    const int tid = threadIdx.x;
+    const long long tail = r.n - head - n_vec;
+    long long e = -1;
+    if (tid < head)
+      e = tid;
+    else if (tid >= 16 && tid - 16 < tail)
+      e = head + n_vec + tid - 16;
+    if (e >= 0)
+      xp[e] = apply_one<kNatural, kResidual>(lp[e], norm, recip,
+                                             kResidual ? xp[e] : 0.0f);
+  }
+}
+
 long long tiles(long long work, long long tile) {
   return (work + tile - 1) / tile;
 }
@@ -279,6 +387,46 @@ int bps_dithering_levels(const void* x, const void* norms, const void* parts,
           (const float*)x, (const float*)norms, pp, ts, n_parts, one, bp,
           (uint32_t)base_v, s, (int8_t*)out);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The dequantization of a dithering round (the rows, tile prefix and
+// one-partition form of bps_dithering_levels): x[x_off + i] =
+// fma(-dec, norm, x[x_off + i]) with residual = 1, dec * norm with
+// residual = 0, dec from the levels at out_off + i.
+int bps_dithering_dequantize(const void* levels, const void* norms,
+                             const void* parts, const void* tile_start,
+                             int n_parts, long long n_tiles, long long one_n,
+                             float recip, int natural, int residual, void* x,
+                             void* stream) {
+  const DitherPart one = {0, one_n, 0, 0};
+  const long long grid =
+      parts != nullptr ? n_tiles : tiles(one_n, kDitherTile);
+  if (grid > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const auto* lv = (const int8_t*)levels;
+    const auto* nm = (const float*)norms;
+    const auto* pp = (const DitherPart*)parts;
+    const auto* ts = (const long long*)tile_start;
+    auto* xp = (float*)x;
+    const unsigned g = (unsigned)grid;
+    if (natural && residual)
+      dither_apply_kernel<1, 1><<<g, kThreads, 0, st>>>(lv, nm, pp, ts,
+                                                        n_parts, one, recip,
+                                                        xp);
+    else if (natural)
+      dither_apply_kernel<1, 0><<<g, kThreads, 0, st>>>(lv, nm, pp, ts,
+                                                        n_parts, one, recip,
+                                                        xp);
+    else if (residual)
+      dither_apply_kernel<0, 1><<<g, kThreads, 0, st>>>(lv, nm, pp, ts,
+                                                        n_parts, one, recip,
+                                                        xp);
+    else
+      dither_apply_kernel<0, 0><<<g, kThreads, 0, st>>>(lv, nm, pp, ts,
+                                                        n_parts, one, recip,
+                                                        xp);
   }
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,8 @@ import torch
 
 from . import rng
 from .kernels import (
-    dithering_levels, n_words, onebit_pack, onebit_unpack, randomk_indices,
+    dithering_dequantize, dithering_levels, n_words, onebit_pack,
+    onebit_unpack, randomk_indices,
 )
 
 
@@ -33,6 +34,12 @@ class Codec:
 
     def decompress(self, payload: Dict[str, Any]) -> torch.Tensor:
         return payload["raw"]
+
+    def residual(self, x: torch.Tensor,
+                 payload: Dict[str, Any]) -> torch.Tensor:
+        """The error-feedback residual x - decompress(payload); ``x`` is
+        the caller's to reuse."""
+        return x - self.decompress(payload)
 
     def wire_bytes(self) -> int:
         return self.size * 4
@@ -113,6 +120,10 @@ class DitheringCodec(Codec):
 
     The norm is a plain torch reduction (the JAX codec leaves it to XLA)
     and reaches the B4 kernel as a device scalar, never read on the host.
+    ``decompress`` and the error-feedback ``residual`` round as the JAX
+    codec does under jit (``kernels.dithering_dequantize``): |lv| * (1/s)
+    for |lv| / s, the residual as one FMA; under the natural partition
+    2^-(|lv| - 1) is exact, where XLA's exp2 is off by a few ulp.
     payload: ``levels`` int8 [n], ``norm`` f32 []."""
 
     s: int = 127                  # levels; <= 127 so a level fits int8
@@ -148,13 +159,14 @@ class DitheringCodec(Codec):
         return {"levels": levels, "norm": norm}
 
     def decompress(self, payload: Dict[str, Any]) -> torch.Tensor:
-        lv = payload["levels"].to(torch.float32)
-        if self.partition == "linear":
-            mag = lv.abs() / float(self.s)
-        else:
-            mag = torch.where(lv == 0, torch.zeros_like(lv),
-                              torch.exp2(-(lv.abs() - 1.0)))
-        return torch.sign(lv) * mag * payload["norm"]
+        return dithering_dequantize(payload["levels"], payload["norm"],
+                                    self.s, self.partition)
+
+    def residual(self, x: torch.Tensor,
+                 payload: Dict[str, Any]) -> torch.Tensor:
+        # x - dec * norm in one rounding, written into x
+        return dithering_dequantize(payload["levels"], payload["norm"],
+                                    self.s, self.partition, residual_of=x)
 
     def wire_bytes(self) -> int:
         return self.size + 4

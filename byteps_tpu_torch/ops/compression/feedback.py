@@ -8,6 +8,7 @@ these decorator-style, Momentum around ErrorFeedback around the codec
     corrected = grad + error
     payload   = codec.compress(corrected)
     error'    = corrected - codec.decompress(payload)
+  (``Codec.residual``: for dithering one FMA, as XLA contracts it)
 - Nesterov momentum (nesterov_momentum.cc:39-50), before compression:
     m'   = mu * m + grad
     out  = grad + mu * m'
@@ -79,7 +80,7 @@ class CompressorStack:
                 new_state["prev_lr"] = torch.where(cur == 0, prev, cur)
             x = x + error
             payload = self.codec.compress(x, step)
-            new_state["error"] = x - self.codec.decompress(payload)
+            new_state["error"] = self.codec.residual(x, payload)
         else:
             payload = self.codec.compress(x, step)
         return payload, new_state

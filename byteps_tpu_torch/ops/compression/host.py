@@ -1,13 +1,18 @@
 """Host-side (numpy) wire codecs: the wire format of the PS path.
 
 Port of byteps_tpu/ops/compression/host.py, trimmed to what the PS train
-step reads: ``make_host_codec`` for onebit, randomk and dithering. The
-device tier
+step reads: ``make_host_codec`` for onebit, randomk and dithering, with
+the error-feedback and Nesterov momentum wrappers
+(``HostErrorFeedback``, ``HostNesterovMomentum``). The host-codec tier
+(``server/compressed.py``, ``device_compress=False``) compresses with
+them in the scheduler's COMPRESS and DECOMPRESS stages. The device tier
 (``training/device_compression.py``) compresses on the card; it reads a
 host codec only for ``kwargs_wire()`` (the codec configuration sent
 in-band to the server, operations.cc:396-408) and ``wire_bytes()`` (the
-size of a reply). ``compress``/``decompress`` are the numpy golden model
-the tests hold the device tier against.
+size of a reply). ``compress``/``decompress`` are also the numpy golden
+model the tests hold the device tier against. They round each f32
+operation as written, as the JAX package's numpy codecs and the C++
+server do.
 
 Wire layouts (little-endian), shared with the JAX package and the C++
 server (native/ps.cc CompressorCfg):
@@ -16,9 +21,8 @@ server (native/ps.cc CompressorCfg):
 - randomk:   int32 idx[k], then f32 val[k] (``rng.np_index_parallel``)
 - dithering: int8 levels[n], then f32 norm
 
-Not yet ported: topk, the lossless tier, dithering's varint index coding,
-the host tier's error feedback and momentum, and the native (C++) codec
-acceleration.
+Not yet ported: topk, the lossless tier, dithering's varint index coding
+and the native (C++) codec acceleration.
 """
 
 from __future__ import annotations
@@ -177,19 +181,67 @@ class HostDithering(HostCodec):
                 f"normalize_type={self.normalize};seed={self.seed}")
 
 
-def make_host_codec(kwargs: Dict[str, str], n: int) -> HostCodec:
-    """kwargs -> base codec, with the parameter names of
-    ``make_compressor``. The device tier runs EF and momentum on the card
-    and asks only for the base codec the server mirrors."""
+class HostErrorFeedback:
+    """Vanilla error feedback (error_feedback.cc:22-43): corrected = grad
+    + error; payload = compress(corrected); error = corrected -
+    decompress(payload). The state persists across steps per partition."""
+
+    def __init__(self, codec: HostCodec):
+        self.codec = codec
+        self.error = np.zeros(codec.n, np.float32)
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        corrected = x.astype(np.float32) + self.error
+        buf = self.codec.compress(corrected, step)
+        self.error = corrected - self.codec.decompress(
+            np.frombuffer(buf, np.uint8))
+        return buf
+
+    def decompress(self, buf) -> np.ndarray:
+        return self.codec.decompress(buf)
+
+    def wire_bytes(self) -> int:
+        return self.codec.wire_bytes()
+
+    def kwargs_wire(self) -> str:
+        return self.codec.kwargs_wire()
+
+
+class HostNesterovMomentum:
+    """Nesterov momentum before error feedback (momentum.h:25-45): m =
+    mu * m + g; compress(g + mu * m). It replaces the framework's
+    momentum."""
+
+    def __init__(self, inner: HostErrorFeedback, mu: float = 0.9):
+        self.inner = inner
+        self.mu = np.float32(mu)
+        self.m = np.zeros(inner.codec.n, np.float32)
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        self.m = self.mu * self.m + x.astype(np.float32)
+        return self.inner.compress(x + self.mu * self.m, step)
+
+    def decompress(self, buf) -> np.ndarray:
+        return self.inner.decompress(buf)
+
+    def wire_bytes(self) -> int:
+        return self.inner.wire_bytes()
+
+    def kwargs_wire(self) -> str:
+        return self.inner.kwargs_wire()
+
+
+def make_host_codec(kwargs: Dict[str, str], n: int):
+    """kwargs -> (momentum ->) (EF ->) base codec, in the reference's
+    stacking order (compressor_registry.cc:39-56) and with the parameter
+    names of ``make_compressor``. The device tier strips ``ef`` and
+    ``momentum`` first: it runs both on the card and asks only for the
+    base codec the server mirrors."""
     from . import (
         NOT_YET_PORTED, parse_bool_kwarg, parse_ef_kwarg,
         parse_momentum_kwarg,
     )
 
-    if parse_ef_kwarg(kwargs) or parse_momentum_kwarg(kwargs):
-        raise NotImplementedError(
-            "host error feedback and momentum are not yet ported to "
-            "byteps_tpu_torch (the device tier runs them on the card)")
     name = kwargs.get("compressor")
     if name == "onebit":
         codec: HostCodec = HostOnebit(
@@ -212,4 +264,13 @@ def make_host_codec(kwargs: Dict[str, str], n: int) -> HostCodec:
             f"host codec {name!r} is not yet ported to byteps_tpu_torch")
     else:
         raise ValueError(f"unknown compressor {name!r}")
-    return codec
+    stack = codec
+    if parse_ef_kwarg(kwargs):
+        stack = HostErrorFeedback(codec)
+    if parse_momentum_kwarg(kwargs):
+        if not isinstance(stack, HostErrorFeedback):
+            raise ValueError("momentum requires ef=vanilla (reference "
+                             "stacking order, compressor.h:28-52)")
+        stack = HostNesterovMomentum(
+            stack, mu=float(kwargs.get("momentum_mu", 0.9)))
+    return stack

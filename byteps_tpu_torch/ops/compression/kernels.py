@@ -16,11 +16,19 @@
   stream base of ``rng.uniform_base``) goes by value, or, as an int64
   tensor of one element, is read by the kernel from device memory, as
   are the norms.
+- ``dithering_dequantize`` and ``dithering_dequantize_round``
+  (``csrc/counter_rng.cu``) turn a dithering round's levels back into f32:
+  the aggregate (dec * norm) and, in place, the error-feedback residual
+  (x - dec * norm as one FMA), rounded as the JAX package's jitted codec
+  rounds them (|lv| * (1/s) for |lv| / s). No TPU kernel stands behind
+  them (XLA fuses that code); their twin's FMA is exact
+  (``fma_f32_plain``).
 
 Each wrapper takes the plain twin for a tensor on the CPU, launches the
 kernel for a CUDA tensor, and raises for anything else; there is no
 fallback from one to the other. ``<wrapper>.launches`` counts kernel
-launches (for B4 and B5, round launches, whichever wrapper made them).
+launches (for B4, B5 and the dequantization, round launches, whichever
+wrapper made them).
 """
 
 from __future__ import annotations
@@ -168,6 +176,10 @@ def _rng_lib():
             _VP, _VP, ctypes.c_int, _LL, _LL, _LL, _VP, ctypes.c_uint, _VP,
             _VP]
         lib.bps_randomk_indices.restype = ctypes.c_int
+        lib.bps_dithering_dequantize.argtypes = [
+            _VP, _VP, _VP, _VP, ctypes.c_int, _LL, _LL, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, _VP, _VP]
+        lib.bps_dithering_dequantize.restype = ctypes.c_int
         lib._bps_typed = True
     return lib
 
@@ -389,6 +401,166 @@ def dithering_levels_round(x: torch.Tensor, norms: torch.Tensor,
                              "different devices")
     _launch_dithering(x, norms, table, base, s, partition, out)
     return out
+
+
+# ------------------------------------------------------------------ #
+# the dequantization of dithering levels: the aggregate, and the EF
+# residual, rounded as the JAX package's jitted codec rounds them
+# ------------------------------------------------------------------ #
+
+def dithering_recip(s: int) -> float:
+    """1/s rounded to f32 once: XLA folds the codec's |lv| / s into
+    |lv| * (1/s). The float is exact in f32, so a product with an f32
+    tensor rounds once."""
+    return float(np.float32(1) / np.float32(s))
+
+
+def dithering_dec_plain(levels: torch.Tensor, s: int,
+                        partition: str) -> torch.Tensor:
+    """int8 levels -> f32 sign(lv) * mag: mag = |lv| * (1/s) (linear) or
+    2^-(|lv| - 1) from its exponent bits (natural, exact), 0 for level 0."""
+    a = levels.to(torch.int32).abs()
+    if partition == "linear":
+        mag = a.to(torch.float32) * dithering_recip(s)
+    else:
+        bits = torch.bitwise_left_shift(128 - a, 23)
+        mag = torch.where(a == 0, torch.zeros((), device=a.device),
+                          bits.view(torch.float32))
+    return torch.sign(levels.to(torch.float32)) * mag
+
+
+def fma_f32_plain(a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in one f32 rounding, as a fused multiply-add gives it,
+    for f32 tensors. The product of two f32 is exact in f64. The f64 sum
+    can round a second time where the exact sum needs more than 53 bits:
+    it is made round-to-odd (an inexact sum with an even last bit moves
+    one f64 ulp towards the exact value, whose side TwoSum's error
+    gives), and a round-to-odd f64 rounds to the nearest f32 exactly,
+    since 53 >= 24 + 2."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where(fix, torch.nextafter(s, toward), s).float()
+
+
+def dithering_dequantize_plain(levels: torch.Tensor, norm: torch.Tensor,
+                               s: int, partition: str,
+                               x: torch.Tensor = None) -> torch.Tensor:
+    """dec * norm, or with ``x`` the residual fma(-dec, norm, x), as a new
+    tensor."""
+    dec = dithering_dec_plain(levels, s, partition)
+    if x is None:
+        return dec * norm
+    return fma_f32_plain(-dec, norm, x)
+
+
+def dithering_dequantize_round_plain(levels: torch.Tensor,
+                                     norms: torch.Tensor, table: RoundTable,
+                                     s: int, partition: str, x: torch.Tensor,
+                                     residual: bool = False) -> torch.Tensor:
+    """The plain twin of a dequantization round, row by row."""
+    for x_off, n, lv_off, ni in table.rows.tolist():
+        xs = x[x_off: x_off + n]
+        xs.copy_(dithering_dequantize_plain(
+            levels[lv_off: lv_off + n], norms[ni], s, partition,
+            xs if residual else None))
+    return x
+
+
+def _launch_dequantize(levels, norms, table, s, partition, x, residual,
+                       one_n: int = 0) -> None:
+    if table is None:
+        parts = tile_start = None
+        n_parts, n_tiles = 1, -(-one_n // DITHER_TILE)
+    else:
+        rows, ts = table.on(x.device)
+        parts, tile_start = rows.data_ptr(), ts.data_ptr()
+        n_parts, n_tiles = len(table), table.n_tiles
+    if n_tiles == 0:
+        return
+    lib = _rng_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dithering_dequantize.launches += 1
+    build.check(lib, lib.bps_dithering_dequantize(
+        levels.data_ptr(), norms.data_ptr(), parts, tile_start, n_parts,
+        n_tiles, one_n, dithering_recip(s), int(partition == "natural"),
+        int(residual), x.data_ptr(), stream), "dithering_dequantize")
+
+
+def _check_dequantize(levels, norms, x, what: str) -> None:
+    for t, name, dt in ((levels, "levels", torch.int8),
+                        (norms, "norms", torch.float32),
+                        (x, "x", torch.float32)):
+        if t.dim() > 1 or t.dtype != dt:
+            raise ValueError(f"{what}: {name} must be a flat {dt} tensor")
+        if t.device != levels.device:
+            raise ValueError(f"{what}: levels, norms and x on different "
+                             f"devices")
+
+
+def dithering_dequantize(levels: torch.Tensor, norm: torch.Tensor, s: int,
+                         partition: str = "linear",
+                         residual_of: torch.Tensor = None) -> torch.Tensor:
+    """Flat int8 ``levels`` [n] and their f32 ``norm`` (one element) ->
+    f32 [n], sign(lv) * mag * norm (the codec's decompress); with
+    ``residual_of=x`` (flat f32 [n]), x - dec * norm in one rounding,
+    written into ``x`` (the error-feedback residual). A round of one
+    partition."""
+    _check_partition(partition)
+    n = levels.shape[0] if levels.dim() == 1 else -1
+    if n < 0 or (residual_of is not None and residual_of.shape != (n,)):
+        raise ValueError("dithering_dequantize: expected flat levels and "
+                         "an x of their length")
+    if not isinstance(norm, torch.Tensor) or norm.numel() != 1:
+        raise ValueError("dithering_dequantize: norm must be a one-element "
+                         "tensor")
+    norm = norm.reshape(()).to(torch.float32)
+    x = residual_of
+    if not _route(levels, "dithering_dequantize"):
+        out = dithering_dequantize_plain(levels, norm, s, partition, x)
+        return out if x is None else x.copy_(out)
+    if x is None:
+        x = torch.empty(n, dtype=torch.float32, device=levels.device)
+    norm = norm.reshape(1)
+    _check_dequantize(levels, norm, x, "dithering_dequantize")
+    for t in (levels, x):
+        _check_cuda(t, "dithering_dequantize", t.dtype)
+    _launch_dequantize(levels, norm, None, s, partition, x,
+                       residual_of is not None, one_n=n)
+    return x
+
+
+dithering_dequantize.launches = 0
+
+
+def dithering_dequantize_round(levels: torch.Tensor, norms: torch.Tensor,
+                               table: RoundTable, s: int, partition: str,
+                               x: torch.Tensor,
+                               residual: bool = False) -> torch.Tensor:
+    """The dequantization over a round in one launch: for every row of
+    ``table`` (see ``dithering_table``), x[x_off:][:n] = dec * norm, or
+    with ``residual`` fma(-dec, norm, x[x_off:][:n]) in place, where dec
+    comes from levels[out_off:][:n] and norm is norms[norm index].
+    Returns ``x``."""
+    _check_partition(partition)
+    _check_dequantize(levels, norms, x, "dithering_dequantize_round")
+    if x.numel() < table.x_extent or levels.numel() < table.out_extent or \
+            norms.numel() < len(table):
+        raise ValueError("dithering_dequantize_round: levels, norms or x "
+                         "is smaller than the table's rows")
+    if not _route(levels, "dithering_dequantize_round"):
+        return dithering_dequantize_round_plain(levels, norms, table, s,
+                                                partition, x, residual)
+    for t in (levels, norms, x):
+        _check_cuda(t, "dithering_dequantize_round", t.dtype)
+    _launch_dequantize(levels, norms, table, s, partition, x, residual)
+    return x
 
 
 def randomk_indices_plain(base, size: int, k: int,

@@ -2,7 +2,9 @@
 
 Port of byteps_tpu/server/client.py (``PSClient``), trimmed to what the
 PS train step calls: the init push of a key, the in-band codec install,
-the fused PUSHPULL with its completion reactor, the barrier and close.
+the fused PUSHPULL with its completion reactor, the barrier and close;
+and ``get_or_init_ctx``/``ps_round_trip``, a host tensor's registry
+entry and its blocking round trip.
 The transport is the native client of ``native/ps.cc`` (the same source
 as the JAX package's), so a worker of either package speaks one wire.
 
@@ -24,7 +26,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from ..config import Config
-from ..core.types import RequestType, TensorContext, get_command_type
+from ..core.types import (
+    DataType, RequestType, TensorContext, get_command_type,
+)
 from ..native.build import build_ps
 from ..utils.logging import log
 
@@ -103,6 +107,36 @@ def server_addresses(config: Config) -> List[str]:
         return addrs
     return [f"{config.scheduler_uri}:{config.scheduler_port + i}"
             for i in range(config.num_servers)]
+
+
+def get_or_init_ctx(state, name: str, host: np.ndarray) -> TensorContext:
+    """The registry entry of a flat host tensor: ``init_tensor`` every
+    time, which is idempotent for an unchanged size and re-partitions on a
+    resize."""
+    return state.registry.init_tensor(name, host.nbytes,
+                                      DataType.from_np(host.dtype))
+
+
+def ps_round_trip(state, name: str, host: np.ndarray, average: bool,
+                  priority: Optional[int] = None,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The blocking round trip of one flat host tensor through the
+    priority-scheduled pipeline: the cross-worker sum (mean when
+    ``average``). ``out``: the result buffer (an arena slot), used if it
+    fits. The JAX package's fallback without a scheduler (a blocking
+    two-op PUSH and PULL) is not ported: a PS-mode ``init`` always
+    starts the scheduler."""
+    if state.scheduler is None:
+        raise RuntimeError("ps_round_trip needs the PS scheduler: call "
+                           "init() with DMLC_NUM_SERVER > 0")
+    host = np.ascontiguousarray(host)
+    ctx = get_or_init_ctx(state, name, host)
+    handle = state.handles.allocate(name)
+    state.scheduler.submit(ctx, host, handle, average,
+                           state.config.num_workers,
+                           version=state.next_version(name),
+                           priority=priority, out=out)
+    return state.handles.wait_and_clear(handle.id)
 
 
 class PSClient:

@@ -222,8 +222,10 @@ class _Round:
     ``push_pull_leaves`` call), compressed and decompressed as a whole.
     Their slices form the round's flat ``x``, in [leaf][partition] order;
     it has one error-feedback buffer, one norm reduction, one B4 or B5
-    launch over a descriptor table, and one residual pass. Every level,
-    index, norm and wire byte is the partition-by-partition codec's.
+    launch over a descriptor table, and one residual pass (for dithering
+    one launch of ``dithering_dequantize_round`` over the same table,
+    which also dequantizes the aggregate). Every level, index, norm and
+    wire byte is the partition-by-partition codec's.
 
     All compressed partitions of a call share one kwargs, so one codec's
     settings (its size and k aside), and their levels (int8) or indices
@@ -258,17 +260,6 @@ class _Round:
             self.table = K.dithering_table(x_offs, ns, x_offs)
             self._host = {"f32_slots": np.array([sl["norm"] for sl in slots],
                                                 np.int64)}
-            # runs of consecutive members of one length (15 on the
-            # training path): the norm broadcast as one [m, n] * [m, 1]
-            # product a run; repeat_interleave's index of the whole round
-            # cost 2.6 ms on the card
-            self.runs = []        # (first element, first member, m, n)
-            for i, (a, n) in enumerate(self.spans):
-                if self.runs and self.runs[-1][3] == n:
-                    a0, i0, m, _ = self.runs[-1]
-                    self.runs[-1] = (a0, i0, m + 1, n)
-                else:
-                    self.runs.append((a, i, 1, n))
         else:
             ks = np.array([m[4].codec.k for m in members], np.int64)
             k_offs = np.concatenate([[0], np.cumsum(ks)[:-1]])
@@ -353,7 +344,9 @@ class _Round:
                 payloads[i][j] = {"levels": levels[a: a + n],
                                   "norm": norms[m]}
             if self.use_ef:
-                x.sub_(self.dequantize(levels, norms))
+                # x - dec * norm in place, one rounding (the JAX residual)
+                K.dithering_dequantize_round(levels, norms, self.table, c.s,
+                                             c.partition, x, residual=True)
             return {"int8": levels}
         idx = torch.empty(self.table.out_extent, dtype=torch.int32,
                           device=device)
@@ -378,30 +371,18 @@ class _Round:
             return norms.clamp_min_(1e-30)
         return torch.stack([self.codec.norm(v) for v in views])
 
-    def dequantize(self, levels: torch.Tensor,
-                   norms: torch.Tensor) -> torch.Tensor:
-        """sign(lv) * mag * norm over the round: the f32 operations of
-        ``DitheringCodec.decompress`` in their order, each partition's
-        norm broadcast to its elements."""
-        c = self.codec
-        lv = levels.to(torch.float32)
-        if c.partition == "linear":
-            mag = lv.abs().div_(float(c.s))
-        else:
-            mag = torch.where(lv == 0, torch.zeros_like(lv),
-                              torch.exp2(-(lv.abs() - 1.0)))
-        out = torch.sign(lv).mul_(mag)
-        for a, i, m, n in self.runs:
-            out[a: a + m * n].view(m, n).mul_(norms[i: i + m, None])
-        return out
-
     def decompress(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The round's part of the uploaded aggregate, f32 [total] in
         round order."""
         f32 = dev["float32"]
         d = self._on(f32.device)
         if self.dithering:
-            return self.dequantize(dev["int8"], f32[d["f32_slots"]])
+            c = self.codec
+            out = torch.empty(self.total, dtype=torch.float32,
+                              device=f32.device)
+            return K.dithering_dequantize_round(
+                dev["int8"], f32[d["f32_slots"]], self.table, c.s,
+                c.partition, out)
         out = torch.zeros(self.total, dtype=torch.float32, device=f32.device)
         # index_put_ without accumulate: a repeated index keeps one of
         # its (equal) values, like RandomkCodec.decompress

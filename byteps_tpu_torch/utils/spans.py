@@ -4,7 +4,9 @@ Off (the default), every mark is a no-op and the step runs as it would
 without it. On, each mark first waits for the device, so a span holds the
 device and host work of its stage, and the sum of the spans is the step.
 The waits serialize what the step would overlap: read the spans as where
-the time goes, not as the step time.
+the time goes, not as the step time. A step whose stages overlap (the PS
+host tier: export under the backward) records intervals it measured
+itself with ``add``; those do not sum to the step.
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ class StepSpans:
     def _sync(self) -> None:
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+
+    def add(self, name: str, ms: float) -> None:
+        """Add ``ms`` to the span ``name`` (an interval measured by the
+        caller)."""
+        if self.enabled:
+            self.ms[name] = self.ms.get(name, 0.0) + ms
 
     def mark(self, name: str) -> None:
         """Close the span ``name`` (added to any earlier one of the name)."""

@@ -15,21 +15,31 @@ result line:
    PyTorch library call for the same function where there is one, and the
    least time the card could take (bound); B4 and B5 over the PS path's
    whole round (one launch for its 125 partitions) and over a ragged
-   round, and timed also as one launch per partition;
+   round, and timed also as one launch per partition; the dequantization
+   of a dithering round (aggregate and error-feedback residual) over the
+   same rounds;
 4. a small fp32 Llama on the card (kernels) against the same model on the
    CPU (plain twins): loss and every gradient;
 5. the collective training path: ``init`` -> ``LlamaConfig.small()`` at
    full width with flash attention -> ``DistributedOptimizer(Adam, onebit
    + EF)`` -> ``make_train_step`` for ``--steps`` steps on seeded tokens;
-6. the parameter-server training path: a loopback server thread
+6. the parameter-server path's device tier: a loopback server thread
    (``run_server``, one worker) -> ``init`` in PS mode -> the same model ->
-   ``make_ps_train_step`` with Adam, under dithering + EF for ``--steps``
-   steps, then under randomk (k = 1%) + EF for 3; gradients are
-   compressed on the card, summed by the C++ server, decompressed on the
-   card, with one B4 or B5 launch a step. One more dithering step records
-   where a step's time goes.
+   ``make_ps_train_step`` with Adam, under dithering + EF, then under
+   randomk (k = 1%) + EF, 3 steps each; gradients are compressed on the
+   card, summed by the C++ server, decompressed on the card, with one B4
+   or B5 launch a step (and two of the dequantization under dithering);
+7. the parameter-server path's host tier, this slice's main path:
+   ``make_ps_train_step(loss, Adam, model.params())`` dense for
+   ``--steps`` steps (streamed export, the fused bucket of the norm
+   leaves, the completion-ordered drain into the per-leaf Adam step),
+   held bit for bit to as many plain local steps from the same weights;
+   then the same step timed with the per-leaf apply on and off
+   (``sharded_apply``, segments on, off, off, on of 4 steps); then the
+   host-codec tier (onebit + EF, ``device_compress=False``) for 3 steps.
 
-Before each path runs, the kernel launch counters are zeroed; they are
+Each PS run takes one more step with its spans on, to show where the time
+goes. Before each path runs, the kernel launch counters are zeroed; they are
 read just after. It prints a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -37,6 +47,7 @@ read just after. It prints a ``{"kernels": [...]}`` line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -59,6 +70,10 @@ FLASH_SHAPE = dict(B=4, S=2048, H=6, Hkv=2, D=128)
 RANDOMK_BIG_K = 1 << 20
 # a PS step, or the server's exit, that takes longer fails the run
 PS_TIMEOUT_S = 300
+# timed steps of the PS runs off this slice's main path (the device tier's
+# dithering and randomk runs, the host-codec run); the collective and the
+# dense PS runs take --steps
+SHORT_RUN_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -394,14 +409,15 @@ def _dither_round_check(x, norms, table, base, partition, what, golden):
     return int(diff.max(initial=0))
 
 
-def phase_dither(dev, gen, seed: int) -> dict:
+def phase_dither(dev, gen, seed: int) -> list:
     """B4 over the PS path's round (the 125 compressed partitions of
     ``LlamaConfig.small()``) and over a ragged round with unaligned slots:
     linear and natural, max and L2, against the plain twin on the card and
     (max norms) against the numpy golden of the host codec. Times the
     round launch (CUDA-graph replay and one eager call), the same round as
     one launch per partition (the form before rounds), the twin and the
-    bound."""
+    bound. Then the dequantization kernel of the same rounds
+    (``_dequantize_check``)."""
     import torch
     from byteps_tpu_torch.ops.compression import kernels as K
     from byteps_tpu_torch.ops.compression import rng
@@ -468,12 +484,91 @@ def phase_dither(dev, gen, seed: int) -> dict:
           f"{bound_ms:.4f} ms ({bound_ms / ms:.3f} of it); plain twin "
           f"{plain_ms:.4f} ms on the device, {plain_call_ms:.4f} ms a call",
           flush=True)
-    return dict(
+    b4 = dict(
         name="dithering_levels", route="cuda",
         source="byteps_tpu_torch/csrc/counter_rng.cu",
         replaces="byteps_tpu/ops/compression/pallas_kernels.py:157",
         max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+    return [b4, _dequantize_check(x, rx, r_x, r_table, rnd, base, seed)]
+
+
+def _dequantize_check(x, rx, r_x, r_table, rnd, base, seed) -> dict:
+    """The dequantization kernel of a dithering round (the aggregate,
+    dec * norm, and the EF residual, one FMA) over the PS path's round
+    and the ragged one, bit for bit against its plain twin (whose FMA is
+    exact), linear and natural, on B4's levels; timed as the two
+    launches of a PS dithering step (residual in the compress, product
+    in the decompress)."""
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+    from byteps_tpu_torch.ops.compression.codecs import DitheringCodec
+
+    views = [x[a: a + n] for a, n in rnd.spans]
+    for partition in ("linear", "natural"):
+        codec = DitheringCodec(size=1, s=127, partition=partition, seed=seed)
+        for what, xx, tab, nrm in (
+                ("path round", x, rnd.table,
+                 torch.stack([codec.norm(v) for v in views])),
+                ("ragged round", rx, r_table,
+                 torch.stack([codec.norm(rx[a: a + n])
+                              for a, n in zip(r_x, RAGGED_ROUND)]))):
+            lv = K.dithering_levels_round(
+                xx, nrm, tab, base, 127, partition,
+                torch.zeros(tab.out_extent, dtype=torch.int8,
+                            device=xx.device))
+            for residual in (False, True):
+                got = K.dithering_dequantize_round(
+                    lv, nrm, tab, 127, partition,
+                    xx.clone() if residual else torch.zeros_like(xx),
+                    residual=residual)
+                want = K.dithering_dequantize_round_plain(
+                    lv, nrm, tab, 127, partition,
+                    xx.clone() if residual else torch.zeros_like(xx),
+                    residual=residual)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"dithering_dequantize {what} {partition} "
+                         f"{'residual' if residual else 'aggregate'}: "
+                         f"{int((got != want).sum())} elements differ from "
+                         f"the twin")
+            print(f"dithering_dequantize {what} {partition}: aggregate and "
+                  f"residual bit-exact with the twin", flush=True)
+    total = rnd.total
+    norms = rnd.norms(views)
+    levels = K.dithering_levels_round(
+        x, norms, rnd.table, base, 127, "linear",
+        torch.empty(total, dtype=torch.int8, device=x.device))
+    err, agg = x.clone(), torch.empty_like(x)
+
+    def both():
+        K.dithering_dequantize_round(levels, norms, rnd.table, 127, "linear",
+                                     err, residual=True)
+        K.dithering_dequantize_round(levels, norms, rnd.table, 127, "linear",
+                                     agg)
+
+    def plain():
+        K.dithering_dequantize_round_plain(levels, norms, rnd.table, 127,
+                                           "linear", err, residual=True)
+        K.dithering_dequantize_round_plain(levels, norms, rnd.table, 127,
+                                           "linear", agg)
+
+    ms, call_ms = cuda_graph_ms(both), cuda_ms(both, 20)
+    plain_ms = cuda_ms(plain, 2)
+    # residual: 1 byte of levels in, 4 bytes of x in and out; aggregate:
+    # 1 byte in, 4 out
+    bound_ms = 14 * total / PEAK_BYTES_PER_S * 1e3
+    print(f"dithering_dequantize round linear, residual + aggregate "
+          f"({len(rnd.members)} partitions, n={total}): {ms:.4f} ms on the "
+          f"device, {call_ms:.4f} ms from Python; bound {bound_ms:.4f} ms "
+          f"({bound_ms / ms:.3f} of it); plain twin {plain_ms:.4f} ms",
+          flush=True)
+    return dict(
+        name="dithering_dequantize", route="cuda",
+        source="byteps_tpu_torch/csrc/counter_rng.cu",
+        replaces="byteps_tpu/ops/compression/codecs.py:278",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=None)
 
 
 def phase_randomk(dev, seed: int) -> dict:
@@ -676,28 +771,121 @@ def bounded(fn, what: str):
     return box.get("out")
 
 
-def phase_ps_train(args, card: str, dev=None, cfg=None, B: int = 4,
-                   S: int = 2048) -> dict:
-    """The PS path: a loopback server, ``init`` in PS mode, Llama small()
-    at full width, ``make_ps_train_step`` under dithering + EF and then
-    randomk + EF. Returns each run's launch counts. ``dev``/``cfg``/``B``/
-    ``S`` exist to rehearse the phase on the CPU at a tiny size."""
-    import torch
+@contextlib.contextmanager
+def loopback_ps(dev, label: str):
+    """A loopback PS server thread (one worker) and ``init`` in PS mode
+    on ``dev``; the server must exit after ``shutdown``."""
     import byteps_tpu_torch as bps
     from byteps_tpu_torch.config import Config
-    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.server import run_server
+
+    port = _free_port()
+    os.environ.update({
+        "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "DMLC_ROLE": "worker"})
+    server = threading.Thread(
+        target=run_server, args=(port, Config(num_workers=1, num_servers=1)),
+        name="ps-server", daemon=True)
+    server.start()
+    bps.init(device=dev)
+    try:
+        yield bps.get_state()
+    finally:
+        bounded(bps.shutdown, f"PS shutdown ({label})")
+    server.join(PS_TIMEOUT_S)
+    if server.is_alive():
+        fail(f"the PS server ({label}) did not exit after shutdown")
+
+
+def run_steps(step, batch, n: int, label: str, on_card: bool,
+              counters: dict) -> dict:
+    """``n`` timed steps (launch counters zeroed first, read after), then
+    one more with the spans on. Returns losses, times (s), launches, the
+    bytes pushed, the spans and, for the host tier, each step's
+    counters."""
+    import torch
+    from byteps_tpu_torch.core.state import get_state
+
+    sched = get_state().scheduler
+    for fn in counters.values():
+        fn.launches = 0
+    pushed0 = sched.bytes_pushed
+    losses, times, per_step = [], [], []
+    for i in range(n):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_v = bounded(lambda: float(step(batch)), f"PS step {i} ({label})")
+        times.append(time.perf_counter() - t0)
+        losses.append(loss_v)
+        extra = getattr(step, "counters", None)
+        if extra is not None:
+            per_step.append(dict(extra))
+        print(f"ps {label} step {i}: loss {loss_v:.6f} "
+              f"({times[-1] * 1e3:.1f} ms)"
+              + (f" {extra}" if extra is not None else ""), flush=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    pushed = sched.bytes_pushed - pushed0
+    step.spans.enabled = True
+    losses.append(bounded(lambda: float(step(batch)),
+                          f"PS timed step ({label})"))
+    step.spans.enabled = False
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite PS loss ({label}): {losses}")
+    return dict(losses=losses, times=times, launches=launches,
+                pushed=pushed, spans=dict(step.spans.ms), per_step=per_step)
+
+
+def report(label: str, card: str, run: dict, B: int, S: int, dev,
+           on_card: bool, note: str = "") -> None:
+    import torch
+    n = len(run["times"])
+    steady = run["times"][1:]
+    tok_s = B * S / (sum(steady) / len(steady))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if on_card else float("nan")
+    per_step = {k: v / n for k, v in run["launches"].items()}
+    print(f"ps {label}: {tok_s:.1f} tokens/s over steps 1..{n - 1} (step 0 "
+          f"has the warm-up and the key installs) on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in steady]} ms; peak memory "
+          f"{peak_gb:.2f} GB; {run['pushed'] / n:.0f} bytes pushed per "
+          f"step{note}; launches per step {per_step}", flush=True)
+    spans = run["spans"]
+    total = sum(spans.values())
+    print(f"ps {label} where the time goes (one more step, host clock, "
+          f"device synced at each border; {total:.1f} ms in all"
+          + ("; the host tier's spans overlap" if run["per_step"] else "")
+          + "): " + ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})"
+                              for k, v in spans.items()), flush=True)
+
+
+def _counters():
     from byteps_tpu_torch.ops import flash_attention as FA
     from byteps_tpu_torch.ops.compression import kernels as K
-    from byteps_tpu_torch.server import run_server
+    return {"flash_attn_fwd": FA.flash_attention_fwd,
+            "onebit_pack": K.onebit_pack,
+            "onebit_unpack": K.onebit_unpack,
+            "dithering_levels": K.dithering_levels,
+            "dithering_dequantize": K.dithering_dequantize,
+            "randomk_indices": K.randomk_indices}
+
+
+def phase_ps_train(args, card: str, dev=None, cfg=None, B: int = 4,
+                   S: int = 2048) -> dict:
+    """The PS path on its device tier: a loopback server, ``init`` in PS
+    mode, Llama small() at full width, ``make_ps_train_step`` under
+    dithering + EF and then randomk + EF. Returns each run's launch
+    counts. ``dev``/``cfg``/``B``/``S`` exist to rehearse the phase on the
+    CPU at a tiny size."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
     from byteps_tpu_torch.training import make_ps_train_step
 
     # the native client waits this long for a round (the default is 600 s)
     os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
-    counters = {"flash_attn_fwd": FA.flash_attention_fwd,
-                "onebit_pack": K.onebit_pack,
-                "onebit_unpack": K.onebit_unpack,
-                "dithering_levels": K.dithering_levels,
-                "randomk_indices": K.randomk_indices}
+    counters = _counters()
     dev = torch.device(dev or "cuda:0")
     on_card = dev.type == "cuda"
     cfg = cfg or llama.LlamaConfig.small()
@@ -720,25 +908,12 @@ def phase_ps_train(args, card: str, dev=None, cfg=None, B: int = 4,
         model.zero_grad(set_to_none=True)
         print(f"ps: forward and backward alone, no server running: "
               f"{['%.1f' % t for t in fb]} ms", flush=True)
-    runs = (("dithering", {"compressor": "dithering", "ef": "vanilla"},
-             args.steps),
+    runs = (("dithering", {"compressor": "dithering", "ef": "vanilla"}),
             ("randomk", {"compressor": "randomk", "k": "0.01",
-                         "ef": "vanilla"}, 3))
+                         "ef": "vanilla"}))
     out = {}
-    for label, kw, n_steps in runs:
-        port = _free_port()
-        os.environ.update({
-            "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
-            "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
-            "DMLC_ROLE": "worker"})
-        server = threading.Thread(
-            target=run_server, args=(port, Config(num_workers=1,
-                                                  num_servers=1)),
-            name="ps-server", daemon=True)
-        server.start()
-        bps.init(device=dev)
-        try:
-            state = bps.get_state()
+    for label, kw in runs:
+        with loopback_ps(dev, label):
             opt = torch.optim.Adam(model.parameters(), lr=1e-3,
                                    betas=(0.9, 0.999), eps=1e-8)
             step = make_ps_train_step(
@@ -746,67 +921,171 @@ def phase_ps_train(args, card: str, dev=None, cfg=None, B: int = 4,
                 model.params(), compression=kw)
             if on_card:
                 torch.cuda.reset_peak_memory_stats(dev)
-            for fn in counters.values():
-                fn.launches = 0
-            pushed0 = state.scheduler.bytes_pushed
-            losses, times = [], []
-            for i in range(n_steps):
-                if on_card:
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                loss_v = bounded(lambda: float(step({"tokens": tokens})),
-                                 f"PS step {i} ({label})")
-                times.append(time.perf_counter() - t0)
-                losses.append(loss_v)
-                print(f"ps {label} step {i}: loss {loss_v:.6f} "
-                      f"({times[-1] * 1e3:.1f} ms)", flush=True)
-            launches = {k: fn.launches for k, fn in counters.items()}
-            pushed = state.scheduler.bytes_pushed - pushed0
-            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 \
-                if on_card else float("nan")
+            run = run_steps(step, {"tokens": tokens}, SHORT_RUN_STEPS,
+                            label, on_card, counters)
             plans = step.device_compressor()._plans.values()
             n_parts = sum(len(p.codecs) for p in plans)
             n_comp = sum(c is not None for p in plans for c in p.codecs)
-            step.spans.enabled = True
-            bounded(lambda: float(step({"tokens": tokens})),
-                    f"PS timed step ({label})")
-            spans = dict(step.spans.ms)
-        finally:
-            bounded(bps.shutdown, f"PS shutdown ({label})")
-        server.join(PS_TIMEOUT_S)
-        if server.is_alive():
-            fail(f"the PS server ({label}) did not exit after shutdown")
-        if not all(math.isfinite(x) for x in losses):
-            fail(f"non-finite PS loss ({label}): {losses}")
-        steady = times[1:]
-        step_ms = [t * 1e3 for t in steady]
-        tok_s = B * S / (sum(steady) / len(steady))
-        per_step = {k: v / n_steps for k, v in launches.items()}
-        print(f"ps {label}: {tok_s:.1f} tokens/s over steps 1.."
-              f"{n_steps - 1} (step 0 has the warm-up and the key "
-              f"installs) on {card}; steps {['%.1f' % t for t in step_ms]} "
-              f"ms; peak memory {peak_gb:.2f} GB; {n_comp} of {n_parts} "
-              f"partitions compressed; {pushed / n_steps / 1e6:.3f} MB "
-              f"pushed per step; launches per step {per_step}", flush=True)
-        total = sum(spans.values())
-        print(f"ps {label} where the time goes (one more step, host clock, "
-              f"device synced at each border; {total:.1f} ms in all): " +
-              ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})"
-                        for k, v in spans.items()), flush=True)
-        out[label] = launches
-    # one B4 or B5 launch per PS round, that is per step
-    for label, name in (("dithering", "dithering_levels"),
-                        ("randomk", "randomk_indices")):
-        n_steps = next(n for lb, _, n in runs if lb == label)
-        if out[label][name] != n_steps:
-            fail(f"{name}: {out[label][name]} launches in {n_steps} PS "
-                 f"{label} steps, not one a step: {out}")
+            step.close()
+        report(label, card, run, B, S, dev, on_card,
+               f"; {n_comp} of {n_parts} partitions compressed")
+        out[label] = run["launches"]
+    # one B4 or B5 launch per PS round, that is per step, and two of the
+    # dequantization (the residual, the aggregate) under dithering
+    for label, name, per in (("dithering", "dithering_levels", 1),
+                             ("dithering", "dithering_dequantize", 2),
+                             ("randomk", "randomk_indices", 1)):
+        if out[label][name] != per * SHORT_RUN_STEPS:
+            fail(f"{name}: {out[label][name]} launches in {SHORT_RUN_STEPS} "
+                 f"PS {label} steps, not {per} a step: {out}")
     return out
 
 
-def profile_step(step, batch, out_dir: str) -> None:
-    """One more train step under torch.profiler: device time by kernel,
-    the device-busy share of the step, and a Chrome trace in out_dir."""
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def phase_ps_host(args, card: str, dev=None, cfg=None, B: int = 4,
+                  S: int = 2048) -> dict:
+    """The PS path on its host tier, this slice's main path: Llama small()
+    at full width, ``make_ps_train_step(loss, Adam, model.params())``
+    with ``compression=None`` (BytePS's dense default: streamed export,
+    the fused bucket of the norm leaves, a fused PUSHPULL per partition,
+    the completion-ordered drain into the per-leaf Adam step), which must
+    push every parameter's bytes each step, launch B1 24 times a step
+    and leave the parameters bit for bit where as many plain
+    ``loss.backward(); optimizer.step()`` steps from the same weights
+    leave them (one worker: the aggregate is the pushed gradient; Adam's
+    foreach on both sides); then the host-codec tier, onebit + EF with
+    ``device_compress=False``. Returns the dense run's launch counts."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    counters = _counters()
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    model = llama.Llama(cfg, device=dev, generator=gen)
+    init = _tree_clone(model.params())
+    attn = FA.make_flash_attn()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999),
+                                eps=1e-8, foreach=True)
+
+    with loopback_ps(dev, "dense") as state:
+        step = make_ps_train_step(
+            lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+            adam(model.parameters()), model.params())
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        dense = run_steps(step, batch, args.steps, "dense", on_card,
+                          counters)
+        if args.profile:
+            dense["losses"].append(bounded(lambda: profile_step(
+                step, batch, args.profile, "ps_dense"), "profiled step"))
+        report("dense", card, dense, B, S, dev, on_card,
+               f" (every parameter: {n_bytes} bytes)")
+        print(f"ps dense arena: {state.arena.stats()}", flush=True)
+        n = args.steps
+        if dense["pushed"] != n * n_bytes:
+            fail(f"dense PS pushed {dense['pushed']} bytes in {n} steps, "
+                 f"not {n_bytes} a step")
+        if on_card and dense["launches"]["flash_attn_fwd"] != 24 * n:
+            fail(f"flash_attn_fwd: {dense['launches']['flash_attn_fwd']} "
+                 f"launches in {n} dense PS steps, not 24 a step")
+        # the same weights, the same number of plain steps
+        ref = llama.Llama(cfg, device=dev, params=init)
+        opt = adam(ref.parameters())
+        losses = []
+        for _ in range(len(dense["losses"])):
+            opt.zero_grad(set_to_none=True)
+            loss = llama.loss_fn(ref.params(), batch, cfg, attn)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        differ = {name: int((a != b).sum()) for (name, a), b in
+                  zip(model.named_parameters(), ref.parameters())
+                  if not torch.equal(a, b)}
+        if differ or losses != dense["losses"]:
+            fail(f"dense PS steps differ from plain local steps: losses "
+                 f"{dense['losses']} vs {losses}; elements differing per "
+                 f"leaf {differ}")
+        print(f"ps dense: parameters after {len(losses)} dense PS steps "
+              f"bit-identical to {len(losses)} plain local Adam steps "
+              f"(foreach on both sides); losses {losses}", flush=True)
+        del ref, opt
+        apply_ab(step, batch, on_card, card)
+        step.close()
+
+    kw = {"compressor": "onebit", "ef": "vanilla"}
+    with loopback_ps(dev, "host-codec"):
+        step = make_ps_train_step(
+            lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+            adam(model.parameters()), model.params(), compression=kw,
+            device_compress=False)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        host = run_steps(step, batch, SHORT_RUN_STEPS, "host-codec onebit",
+                         on_card, counters)
+        step.close()
+    report("host-codec onebit", card, host, B, S, dev, on_card,
+           " (numpy onebit + EF on the host)")
+    return dense["launches"]
+
+
+def apply_ab(step, batch, on_card: bool, card: str, n: int = 4) -> dict:
+    """The dense step with each leaf's optimizer step run as its
+    aggregate lands (``sharded_apply`` on) against one
+    ``optimizer.step()`` after the whole drain (off), in segments of
+    ``n`` timed steps ordered on, off, off, on. Each step's time, and its
+    tail: from the last aggregate's completion to the end of the step's
+    device work (the loss read waits for it), the part the per-leaf
+    apply shortens. Returns {mode: (step ms, tail ms)}."""
+    import statistics
+
+    import torch
+    times = {True: ([], []), False: ([], [])}
+    for on in (True, False, False, True):
+        step.sharded_apply = on
+        for i in range(n):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = bounded(lambda: float(step(batch)),
+                           f"apply A/B step {i}")
+            t1 = time.perf_counter()
+            times[on][0].append((t1 - t0) * 1e3)
+            times[on][1].append((t1 - step.last_completion) * 1e3)
+            if not math.isfinite(loss):
+                fail(f"non-finite loss in the apply A/B: {loss}")
+    step.sharded_apply = None
+    out = {"per-leaf": times[True], "after the drain": times[False]}
+    for k, (st, tail) in out.items():
+        print(f"ps dense apply A/B, {k}, on {card} (segments on, off, off, "
+              f"on; {n} steps each): step median "
+              f"{statistics.median(st):.2f} ms, mean "
+              f"{statistics.fmean(st):.2f} ms; tail after the last "
+              f"completion median {statistics.median(tail):.3f} ms, mean "
+              f"{statistics.fmean(tail):.3f} ms; steps "
+              f"{['%.1f' % t for t in st]}; tails "
+              f"{['%.2f' % t for t in tail]}", flush=True)
+    return out
+
+
+def profile_step(step, batch, out_dir: str, label: str = "train") -> float:
+    """One more train step under torch.profiler: device time by kernel
+    (and copy), the device-busy share of the step, and a Chrome trace in
+    out_dir. Returns the step's loss."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -814,10 +1093,11 @@ def profile_step(step, batch, out_dir: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        float(step(batch))
+        loss = float(step(batch))
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"{label}_step_trace.json"))
 
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -831,7 +1111,8 @@ def profile_step(step, batch, out_dir: str) -> None:
         for table, key in ((by_name, e.name), (by_class, _kernel_class(e.name))):
             t, n = table.get(key, (0.0, 0))
             table[key] = (t + e.time_range.elapsed_us(), n + 1)
-    print(f"profile: step {wall_ms:.1f} ms, device busy {busy_us / 1e3:.1f} "
+    print(f"profile {label}: step {wall_ms:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} "
           f"ms ({busy_us / 1e3 / wall_ms:.3f} of the step), "
           f"{len(kernels)} kernels", flush=True)
     for title, table, rows in (("by class", by_class, 10),
@@ -842,6 +1123,7 @@ def profile_step(step, batch, out_dir: str) -> None:
                                    key=lambda kv: -kv[1][0])[:rows]:
             print(f"  {t / 1e3:9.3f} ms {t / total:6.3f} x{n:<5d} "
                   f"{name[:90]}")
+    return loss
 
 
 def _kernel_class(name: str) -> str:
@@ -851,6 +1133,8 @@ def _kernel_class(name: str) -> str:
         return "onebit (B2, B3)"
     if "nccl" in name.lower():
         return "nccl"
+    if "Memcpy" in name:
+        return "memcpy (D2H, H2D)"
     if "nvjet" in name or ("gemm" in name and "bf16" in name):
         return "gemm bf16"
     if "sgemm" in name or "f32f32" in name:
@@ -887,16 +1171,19 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = phase_onebit(dev, gen)
     kernels.insert(0, phase_flash(dev, gen))
-    kernels.append(phase_dither(dev, gen, args.seed))
+    kernels.extend(phase_dither(dev, gen, args.seed))
     kernels.append(phase_randomk(dev, args.seed))
     phase_small_model(dev)
     launches = phase_train(args, card)
     ps = phase_ps_train(args, card)
-    # each kernel's count from the path that runs it: the PS dithering run
-    # (this slice's main path) for B1 and B4, the PS randomk run for B5,
-    # the collective onebit run for B2 and B3
-    launches["flash_attn_fwd"] = ps["dithering"]["flash_attn_fwd"]
-    launches["dithering_levels"] = ps["dithering"]["dithering_levels"]
+    dense = phase_ps_host(args, card)
+    # each kernel's count from the path that runs it: the dense PS run
+    # (this slice's main path) for B1, the PS dithering run for B4 and its
+    # dequantization, the PS randomk run for B5, the collective onebit
+    # run for B2 and B3
+    launches["flash_attn_fwd"] = dense["flash_attn_fwd"]
+    for name in ("dithering_levels", "dithering_dequantize"):
+        launches[name] = ps["dithering"][name]
     launches["randomk_indices"] = ps["randomk"]["randomk_indices"]
     for e in kernels:
         e["launches"] = launches[e["name"]]

@@ -138,11 +138,10 @@ def errors(dc):
     return out
 
 
-def port_rounds(monkeypatch, kw, device="cpu", seed_errors=None):
+def port_rounds(monkeypatch, kw, device="cpu"):
     """The port's two rounds through a loopback server: wires,
     aggregates (numpy), the residuals after the first round, and the pack
-    spec. ``seed_errors``: residuals written into the round's error
-    buffer after the first round."""
+    spec."""
     wires, outs, errs = [], [], []
     with ps_server() as port:
         _ps_env(monkeypatch, port)
@@ -161,10 +160,6 @@ def port_rounds(monkeypatch, kw, device="cpu", seed_errors=None):
                          for x in leaves(step)], average=False)
                     outs.append([o.cpu().numpy().copy() for o in out])
                     errs.append(errors(dc))
-                    if step == 0 and seed_errors is not None:
-                        for (name, j), e in seed_errors.items():
-                            dc._plans[name].states[j]["error"].copy_(
-                                torch.from_numpy(e))
 
             bounded(run)
             spec = next(iter(dc._specs.values()))

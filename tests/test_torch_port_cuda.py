@@ -297,3 +297,109 @@ def test_ps_round_on_the_card_pushes_the_partition_path_wire_bytes(
     assert counter.launches == before + 2
     assert [m[3] for m in spec.round.members] == ROUND_MEMBERS
     assert wires == partition_path_wires(kw, device=dev)
+
+
+# --------------------------------------------------------------------- #
+# the dithering dequantization (aggregate and EF residual) over a round
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("partition", ["linear", "natural"])
+@pytest.mark.parametrize("case", list(ROUNDS))
+def test_dequantize_round_kernel_matches_twin(dev, case, partition):
+    """The aggregate (dec * norm) and the residual (one FMA) bit for bit
+    with the twin, whose FMA is exact, gaps untouched."""
+    ns, gap = ROUNDS[case]()
+    x_offs, lv_offs, n_x, n_lv = _layout(ns, gap)
+    g = torch.Generator(device=dev).manual_seed(len(ns) + gap)
+    hi = 127 if partition == "linear" else 126
+    levels = torch.randint(-hi, hi + 1, (n_lv,), generator=g, device=dev,
+                           dtype=torch.int8)
+    norms = torch.rand(len(ns), generator=g, device=dev) + 0.5
+    x = _dither_input(dev, max(n_x, 104), len(ns) + gap)[:n_x]
+    table = K.dithering_table(x_offs, ns, lv_offs)
+    before = K.dithering_dequantize.launches
+    out = K.dithering_dequantize_round(
+        levels, norms, table, 127, partition,
+        torch.full((n_x,), 7.0, device=dev))
+    res = K.dithering_dequantize_round(levels, norms, table, 127, partition,
+                                       x.clone(), residual=True)
+    assert K.dithering_dequantize.launches == before + 2
+    want = K.dithering_dequantize_round_plain(
+        levels, norms, table, 127, partition,
+        torch.full((n_x,), 7.0, device=dev))
+    want_res = K.dithering_dequantize_round_plain(
+        levels, norms, table, 127, partition, x.clone(), residual=True)
+    assert torch.equal(out, want), int((out != want).sum())
+    assert torch.equal(res, want_res), int((res != want_res).sum())
+
+
+def test_dequantize_one_partition_is_a_round_of_one(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    levels = torch.randint(-127, 128, (4099,), generator=g, device=dev,
+                           dtype=torch.int8)
+    norm = torch.rand((), generator=g, device=dev) + 0.5
+    x = _dither_input(dev, 4102, 5)
+    for xs, lv in ((x[:4099], levels), (x[3:], levels)):  # off 16 bytes
+        want = K.dithering_dequantize_plain(lv, norm, 127, "linear")
+        assert torch.equal(K.dithering_dequantize(lv, norm, 127, "linear"),
+                           want)
+        res = K.dithering_dequantize(lv, norm, 127, "linear",
+                                     residual_of=xs.clone())
+        assert torch.equal(res, K.dithering_dequantize_plain(
+            lv, norm, 127, "linear", xs))
+
+
+# --------------------------------------------------------------------- #
+# the dense PS step on the card against plain local steps
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("stream", [True, False])
+def test_dense_ps_steps_equal_local_steps(dev, stream, monkeypatch):
+    """Two dense PS steps of a small fp32 Llama through a loopback server
+    (one worker: the aggregate is the pushed gradient) give bit for bit
+    the parameters of two plain steps with the same Adam (foreach on
+    both sides): streamed export through the side stream and the pinned
+    slots, or the post-backward copies, a fused bucket, the H2D copy
+    stream and the per-leaf step."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.native import build
+    from byteps_tpu_torch.training import make_ps_train_step
+    from _torch_port_ps_util import _ps_env, ps_server
+
+    bounded(build.build_ps, timeout=240)
+    cfg = llama.LlamaConfig(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, hidden_dim=256, max_seq_len=64,
+                            dtype=torch.float32, remat=True)
+    models = [llama.Llama(cfg, device=dev, params=llama.init_params(
+        cfg, torch.Generator().manual_seed(2), "cpu")) for _ in range(2)]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65),
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3, foreach=True)
+            for m in models]
+    with ps_server() as port:
+        _ps_env(monkeypatch, port)
+        monkeypatch.setenv("BYTEPS_FUSION_BYTES", "65536")
+        bps.init(device=dev)
+        try:
+            step = make_ps_train_step(
+                lambda b: llama.loss_fn(models[0].params(), b, cfg),
+                opts[0], models[0].params(), stream_export=stream)
+            ps_losses = bounded(lambda: [
+                float(step({"tokens": tokens})) for _ in range(2)])
+            counters = dict(step.counters)
+            step.close()
+        finally:
+            bps.shutdown()
+    assert (counters["leaves_streamed"] > 0) == stream
+    assert counters["fused_buckets"] == 1
+    losses = []
+    for _ in range(2):
+        opts[1].zero_grad(set_to_none=True)
+        loss = llama.loss_fn(models[1].params(), {"tokens": tokens}, cfg)
+        loss.backward()
+        opts[1].step()
+        losses.append(float(loss.detach()))
+    assert ps_losses == losses
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(a, b)

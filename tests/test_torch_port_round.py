@@ -10,8 +10,9 @@ partition form and the JAX package, on numpy-seeded inputs.
   two device-compressed PS rounds under dithering + EF and under randomk
   + EF push the wire bytes of the partition-by-partition path and of the
   JAX ``DeviceCompressor``, and get the JAX aggregate back;
-- where the JAX package's dithering residual differs (XLA's reciprocal
-  and FMA), and by how much.
+- the dithering residual and dequantization round as the JAX package's
+  under XLA (a reciprocal and an FMA), and the FMA twin rounds once on
+  constructed double-rounding cases.
 """
 
 import jax.numpy as jnp
@@ -193,21 +194,15 @@ def test_ps_round_pushes_the_partition_path_wire_bytes(kw, ps_lib,
 @pytest.mark.parametrize("kw", ROUND_KWS, ids=lambda kw: kw["compressor"])
 def test_ps_rounds_push_the_jax_wire_bytes(kw, ps_lib, monkeypatch,
                                            jax_uses_port_lib):
-    """Both rounds push the JAX DeviceCompressor's bytes and get its
-    aggregate. The second round starts from the JAX residual: XLA rounds
-    dithering's residual differently (the test below), and a norm then
-    moves by an ulp."""
+    """Both rounds push the JAX DeviceCompressor's bytes, carry its
+    residuals bit for bit into the second round and get its aggregate
+    bit for bit: the port's dithering residual and dequantization round
+    as XLA's (reciprocal and FMA, the test below)."""
     j_wires, j_outs, j_errors = _jax_rounds(monkeypatch, kw)
-    t_wires, t_outs, t_errors, _ = port_rounds(monkeypatch, kw,
-                                               seed_errors=j_errors)
+    t_wires, t_outs, t_errors, _ = port_rounds(monkeypatch, kw)
     assert t_errors.keys() == j_errors.keys()
     for key, e in t_errors.items():
-        if kw["compressor"] == "randomk":
-            np.testing.assert_array_equal(e, j_errors[key])
-        else:
-            # x - dec cancels: an ulp of dec (|dec| <= norm < 4 for these
-            # normal inputs) is all that may separate the two
-            assert np.abs(e - j_errors[key]).max() <= 2.0 ** -21, key
+        np.testing.assert_array_equal(e, j_errors[key], err_msg=str(key))
     assert len(t_wires) == len(j_wires) == 2 * len(LEAVES)
     for (tn, tw), (jn, jw) in zip(t_wires, j_wires):
         assert tn == jn and len(tw) == len(jw)
@@ -215,22 +210,22 @@ def test_ps_rounds_push_the_jax_wire_bytes(kw, ps_lib, monkeypatch,
             assert a == b, f"{tn} partition {i}: wire bytes differ"
     for t_round, j_round in zip(t_outs, j_outs):
         for name, t, j in zip(LEAVES, t_round, j_round):
-            # XLA's exp2 and products may differ by an ulp from torch's
-            np.testing.assert_allclose(t, j, rtol=2e-6, atol=1e-7,
-                                       err_msg=name)
+            np.testing.assert_array_equal(t, j, err_msg=name)
 
 
-def test_jax_dithering_residual_rounds_by_reciprocal_and_fma():
-    """The difference the test above steps around: XLA on the CPU runs
-    DitheringCodec.decompress's |lv| / s as |lv| * (1/s) and contracts
-    the EF residual x - dec into one FMA, while the port (and the numpy
-    host codec) rounds each f32 operation as written."""
+@pytest.mark.parametrize("normalize", ["max", "l2"])
+def test_jax_dithering_residual_rounds_by_reciprocal_and_fma(normalize):
+    """XLA on the CPU runs DitheringCodec.decompress's |lv| / s as
+    |lv| * (1/s) and contracts the EF residual x - dec * norm into one
+    FMA; the port's residual and decompress equal the JAX ones bit for
+    bit, and differ from the residual rounded as written."""
     import jax
 
     from byteps_tpu.ops.compression import make_compressor as j_make
     from byteps_tpu_torch.ops.compression import make_compressor
 
-    n, kw = 4096, {"compressor": "dithering", "ef": "vanilla", "seed": "4"}
+    n, kw = 4096, {"compressor": "dithering", "ef": "vanilla", "seed": "4",
+                   "normalize_type": normalize}
     x = np.random.RandomState(5).randn(n).astype(np.float32)
     jstack, tstack = j_make(kw, n), make_compressor(kw, n)
     jpl, jst = jax.jit(lambda v, st: jstack.compress(v, st, 0))(
@@ -240,11 +235,97 @@ def test_jax_dithering_residual_rounds_by_reciprocal_and_fma():
     norm = tpl["norm"].numpy()
     np.testing.assert_array_equal(lv, np.asarray(jpl["levels"]))
     assert norm == np.asarray(jpl["norm"])
+    np.testing.assert_array_equal(tst["error"].numpy(),
+                                  np.asarray(jst["error"]))
+    np.testing.assert_array_equal(
+        tstack.codec.decompress(tpl).numpy(),
+        np.asarray(jax.jit(jstack.codec.decompress)(jpl)))
     s = np.float32(127)
-    exact = x - np.sign(lv) * (np.abs(lv) / s) * norm
-    np.testing.assert_array_equal(tst["error"].numpy(), exact)
-    dec = np.sign(lv) * (np.abs(lv) * (np.float32(1) / s))
-    fma = (x.astype(np.float64) - dec.astype(np.float64) *
-           np.float64(norm)).astype(np.float32)
-    np.testing.assert_array_equal(np.asarray(jst["error"]), fma)
-    assert (fma != exact).any()
+    as_written = x - np.sign(lv) * (np.abs(lv) / s) * norm
+    assert (tst["error"].numpy() != as_written).any()
+
+
+def _f32_fma_exact(a, b, c):
+    """The nearest f32 to a * b + c, from exact rational arithmetic (ties
+    to the even significand)."""
+    from fractions import Fraction
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    near = np.float32(float(exact))
+    cands = [near, np.nextafter(near, np.float32(np.inf)),
+             np.nextafter(near, np.float32(-np.inf))]
+    best = min(abs(Fraction(float(v)) - exact) for v in cands)
+    ties = [v for v in cands if abs(Fraction(float(v)) - exact) == best]
+    return min(ties, key=lambda v: int(np.array(v).view(np.uint32)) & 1)
+
+
+def _double_rounding_cases():
+    """f32 (a, b, c) whose exact a * b + c lies 2^-60 of its size away
+    from a point halfway between two f32, at several exponents: the f64
+    sum rounds onto the midpoint, and f64 -> f32 then rounds the tie to
+    even, which is the wrong side for half of them. a * b is the midpoint
+    (an odd 25-bit significand split into two 24-bit factors); c tips
+    it."""
+    rs = np.random.RandomState(0)
+    cases = []
+    while len(cases) < 48:
+        m = (1 << 24) + 2 * int(rs.randint(0, 1 << 23)) + 1
+        f = next((d for d in range(3, 4097, 2) if m % d == 0), None)
+        if f is None or m // f >= 1 << 24:
+            continue
+        e = int(rs.randint(-20, 20))
+        a = np.float32(np.ldexp(f, e - 12))
+        b = np.float32(np.ldexp(m // f, -12 - 24 + 12))
+        tip = np.float32(np.ldexp(1.0, e - 12 - 60))
+        sign = np.float32(1 if len(cases) % 2 else -1)
+        cases.append((a, sign * b, sign * tip))
+        cases.append((a, b, -tip))
+    return [tuple(np.float32(v) for v in c) for c in cases]
+
+
+def test_fma_twin_rounds_once_on_double_rounding_cases():
+    """The plain twin of the residual's FMA against exact arithmetic, on
+    constructed inputs where a sum in f64 rounded again to f32 is wrong,
+    and on random ones."""
+    cases = _double_rounding_cases()
+    rs = np.random.RandomState(1)
+    rand = rs.randn(3, 2000).astype(np.float32)
+    rand[2] *= np.float32(2.0) ** rs.randint(-30, 30, 2000)
+    a, b, c = (np.concatenate([np.array([k[i] for k in cases], np.float32),
+                               rand[i]]) for i in range(3))
+    got = K.fma_f32_plain(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([_f32_fma_exact(*t) for t in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (naive[: len(cases)] != want[: len(cases)]).sum() >= len(cases) // 4
+
+
+@pytest.mark.parametrize("partition", ["linear", "natural"])
+def test_dequantize_round_twin_equals_partitions(partition):
+    """The dequantization round's twin over ragged partitions with
+    unaligned slots: each partition's aggregate and residual equal the
+    one-partition form's, and the gaps stay untouched."""
+    x_offs, lv_offs, n_x, n_lv = _round_layout(SIZES, GAP)
+    rs = np.random.RandomState(len(partition))
+    lv_hi = 127 if partition == "linear" else 126
+    levels = torch.from_numpy(rs.randint(-lv_hi, lv_hi + 1, n_lv)
+                              .astype(np.int8))
+    norms = torch.from_numpy(rs.rand(len(SIZES)).astype(np.float32) + 0.5)
+    x = torch.from_numpy(rs.randn(n_x).astype(np.float32))
+    table = K.dithering_table(x_offs, SIZES, lv_offs)
+    out = K.dithering_dequantize_round(levels, norms, table, 127, partition,
+                                       torch.full((n_x,), 7.0))
+    res = K.dithering_dequantize_round(levels, norms, table, 127, partition,
+                                       x.clone(), residual=True)
+    written = np.zeros(n_x, bool)
+    for a, o, n, norm in zip(x_offs, lv_offs, SIZES, norms):
+        lv = levels[o: o + n]
+        np.testing.assert_array_equal(
+            out[a: a + n].numpy(),
+            K.dithering_dequantize(lv, norm, 127, partition).numpy())
+        np.testing.assert_array_equal(
+            res[a: a + n].numpy(),
+            K.dithering_dequantize(lv, norm, 127, partition,
+                                   residual_of=x[a: a + n].clone()).numpy())
+        written[a: a + n] = True
+    assert (out.numpy()[~written] == 7.0).all()
+    np.testing.assert_array_equal(res.numpy()[~written], x.numpy()[~written])

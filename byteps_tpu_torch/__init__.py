@@ -41,12 +41,17 @@ __all__ = ["init", "shutdown", "rank", "size", "local_rank", "local_size",
 
 
 def init(device=None, store=None, rank: Optional[int] = None,
-         world_size: Optional[int] = None) -> None:
+         world_size: Optional[int] = None,
+         backend: Optional[str] = None) -> None:
     """Set up the device and the ``dp`` group. ``device`` defaults to
     ``cuda:<local_rank>`` and must be given as ``"cpu"`` to run without a
     card. ``store``/``rank``/``world_size`` override the loopback
-    rendezvous and the BYTEPS_LOCAL_* topology (tests pass a FileStore)."""
-    get_state().init(device, store=store, rank=rank, world_size=world_size)
+    rendezvous and the BYTEPS_LOCAL_* topology (tests pass a FileStore).
+    ``backend``: the group's ``torch.distributed`` backend, NCCL on the
+    card and gloo on the CPU by default (gloo on the card carries
+    all_reduce and broadcast, for ranks that share one card)."""
+    get_state().init(device, store=store, rank=rank, world_size=world_size,
+                     backend=backend)
 
 
 def shutdown() -> None:

@@ -9,8 +9,9 @@ The parameter-server knobs keep the reference's names, so launch tooling
 carries over: DMLC_* for the topology (communicator.cc:60-96), and
 BYTEPS_PARTITION_BYTES, BYTEPS_SCHEDULING_CREDIT and the server's engine
 threads (global.cc:134-176, server.cc:412-456). The PS train step's host
-tier reads three knobs of the JAX package's own (byteps_tpu/config.py):
-BYTEPS_FUSION_BYTES, BYTEPS_STREAM_EXPORT and BYTEPS_SHARDED_APPLY.
+tier reads five knobs of the JAX package's own (byteps_tpu/config.py):
+BYTEPS_FUSION_BYTES, BYTEPS_STREAM_EXPORT, BYTEPS_SHARDED_APPLY,
+BYTEPS_LOCAL_SHARD_EXPORT and BYTEPS_SHARD_MIN_BYTES.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ PAGE_SIZE = 4096
 DEFAULT_MIN_COMPRESS_BYTES = 1024000
 # Leaves below this many bytes fuse into one bucket key (byteps_tpu).
 DEFAULT_FUSION_BYTES = 2097152
+# Leaves below this many bytes keep whole-leaf keys on the locality-shard
+# export (byteps_tpu).
+DEFAULT_SHARD_MIN_BYTES = 65536
 
 
 def _env_int(name: str, default: int) -> int:
@@ -75,6 +79,12 @@ class Config:
     stream_export: bool = True            # BYTEPS_STREAM_EXPORT
     # the optimizer step per leaf as its aggregate lands
     sharded_apply: bool = True            # BYTEPS_SHARDED_APPLY
+    # with a dp group of more than one process: each rank pushes its own
+    # 1/local_size shard of the leaves at or above
+    # max(fusion_bytes, shard_min_bytes) under its own key, and the
+    # drain all-gathers them (byteps_tpu/config.py:145-150)
+    local_shard_export: bool = True       # BYTEPS_LOCAL_SHARD_EXPORT
+    shard_min_bytes: int = DEFAULT_SHARD_MIN_BYTES  # BYTEPS_SHARD_MIN_BYTES
 
     # --- server ---
     server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
@@ -102,5 +112,8 @@ class Config:
                                   DEFAULT_FUSION_BYTES),
             stream_export=_env_bool("BYTEPS_STREAM_EXPORT", True),
             sharded_apply=_env_bool("BYTEPS_SHARDED_APPLY", True),
+            local_shard_export=_env_bool("BYTEPS_LOCAL_SHARD_EXPORT", True),
+            shard_min_bytes=_env_int("BYTEPS_SHARD_MIN_BYTES",
+                                     DEFAULT_SHARD_MIN_BYTES),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
         )

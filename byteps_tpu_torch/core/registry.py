@@ -14,8 +14,11 @@ on one server:
 - server choice by the BYTEPS_KEY_HASH_FN hash of the key, or the
   least-loaded server for "mixed" (global.cc:566-677).
 
-Not yet ported: rebalance, live migration, locality shards and the
-colocated mixed mode.
+- locality shards: ``declare_shards`` splits a leaf into equal subrange
+  keys named ``shard_name`` (the JAX names, so a mixed fleet agrees);
+  ``free`` retires a key.
+
+Not yet ported: rebalance, live migration and the colocated mixed mode.
 """
 
 from __future__ import annotations
@@ -163,6 +166,38 @@ class TensorRegistry:
             server = fn(str(key)) % num_servers
         self._server_load[server] += length
         return server
+
+    @staticmethod
+    def shard_name(name: str, k: int, num_shards: int) -> str:
+        """The key name of shard ``k`` of ``num_shards`` of ``name``; part
+        of the wire contract (byteps_tpu/core/registry.py:181)."""
+        return f"{name}@shard{k}of{num_shards}"
+
+    def declare_shards(self, name: str, shard_nbytes: int, num_shards: int,
+                       dtype: Optional[DataType] = None
+                       ) -> List[TensorContext]:
+        """Declare (and partition) the ``num_shards`` subrange keys of
+        ``name``, each of ``shard_nbytes``, in order; idempotent for
+        unchanged sizes (byteps_tpu/core/registry.py:188)."""
+        _check(num_shards >= 1, f"{name}: num_shards must be >= 1")
+        return [self.init_tensor(self.shard_name(name, k, num_shards),
+                                 shard_nbytes, dtype)
+                for k in range(num_shards)]
+
+    def free(self, name: str) -> bool:
+        """Retire a declared tensor: its partitions leave the server load
+        table and its staged slots the arena. A later declaration of the
+        name takes a new key. False for an unknown name."""
+        with self._lock:
+            ctx = self._contexts.pop(name, None)
+            if ctx is None:
+                return False
+            if self._arena is not None:
+                self._arena.invalidate_prefix(name + ":")
+            for p in ctx.partitions:
+                if p.server < len(self._server_load):
+                    self._server_load[p.server] -= p.length
+            return True
 
     def server_loads(self) -> List[int]:
         with self._lock:

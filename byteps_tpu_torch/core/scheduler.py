@@ -335,6 +335,8 @@ class PipelineScheduler:
         self._key_priority: Dict[int, int] = {}  # guarded-by: _prio_mu
         self._round_seq: Dict[int, int] = {}     # guarded-by: _prio_mu
         self._export_ordinal = 0                 # guarded-by: _prio_mu
+        # declared key (a leaf, or the parent of shard keys) -> ordinal
+        self._export_order: Dict[int, int] = {}  # guarded-by: _prio_mu
         # wire bytes pushed, for the step's accounting
         self._bytes_mu = threading.Lock()
         self.bytes_pushed = 0                    # guarded-by: _bytes_mu
@@ -348,18 +350,28 @@ class PipelineScheduler:
             self._round_seq[ctx.declared_key] = r
             return r
 
-    def production_priority(self, ctx: TensorContext) -> int:
+    def production_priority(self, ctx: TensorContext,
+                            parent: Optional[TensorContext] = None) -> int:
         """Priority from the measured production order: the n-th distinct
-        key to cross the streamed export gets ordinal n and priority -n,
+        leaf to cross the streamed export gets ordinal n and priority -n,
         so the gradient the backward produces first is served first
         (the reference assumes "last layer first" through
-        -declared_key). The priority is pinned for the key."""
+        -declared_key). The priority is pinned for the key. ``parent``:
+        the leaf that a shard key belongs to; all shards of one leaf are
+        one production event and share its ordinal (the JAX package's
+        rule, byteps_tpu/core/scheduler.py:613)."""
         with self._prio_mu:
             pr = self._key_priority.get(ctx.declared_key)
             if pr is None:
-                pr = self._key_priority[ctx.declared_key] = \
-                    -self._export_ordinal
-                self._export_ordinal += 1
+                anchor = ctx.declared_key if parent is None \
+                    else parent.declared_key
+                o = self._export_order.get(anchor)
+                if o is None:
+                    o = self._export_order[anchor] = self._export_ordinal
+                    self._export_ordinal += 1
+                if ctx.declared_key != anchor:
+                    self._key_priority.setdefault(anchor, -o)
+                pr = self._key_priority[ctx.declared_key] = -o
             return pr
 
     def _pin_priority(self, ctx: TensorContext,

@@ -16,7 +16,11 @@ and the worker role, ``init`` also connects the parameter-server client
 and builds the tensor registry, the host staging arena, the pipeline
 scheduler and the handle table that ``training.make_ps_train_step``
 reads. The ``dp`` group stays: it is the intra-node reduce before the
-PS round, as NCCL is in BytePS.
+PS round, as NCCL is in BytePS. The group is one PS worker: every rank
+connects under the machine's worker id (``server.client.ps_worker_id``),
+because on the locality-shard export each rank pushes its own shard
+keys; whole-leaf keys are pushed by the local root alone, and only the
+root sends SHUTDOWN, after a barrier of the group.
 """
 
 from __future__ import annotations
@@ -86,7 +90,8 @@ class GlobalState:
 
     def init(self, device=None, store: Optional[dist.Store] = None,
              rank: Optional[int] = None,
-             world_size: Optional[int] = None) -> None:
+             world_size: Optional[int] = None,
+             backend: Optional[str] = None) -> None:
         with self._lock:
             if self.initialized:
                 log.warning("init() called while already initialized; "
@@ -104,18 +109,19 @@ class GlobalState:
             self.config = dataclasses.replace(
                 self.config, local_rank=self.local_rank,
                 local_size=self.local_size)
-            if self._ps_mode() and self.local_size > 1:
-                raise NotImplementedError(
-                    "PS mode with a dp group of more than one process is "
-                    "not yet ported to byteps_tpu_torch (BytePS pushes "
-                    "from the local root only)")
             self.device = resolve_device(device, self.local_rank)
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
-            backend = "nccl" if self.device.type == "cuda" else "gloo"
+            if backend is None:
+                backend = "nccl" if self.device.type == "cuda" else "gloo"
             kw = dict(backend=backend, rank=self.local_rank,
                       world_size=self.local_size,
                       timeout=timedelta(seconds=300))
+            if backend == "nccl":
+                # the group's card: its collectives and barrier use it,
+                # whichever thread calls them and whatever that thread's
+                # current device is
+                kw["device_id"] = self.device
             if store is None and self.local_size == 1:
                 store = dist.HashStore()   # one process: no socket
             if store is not None:
@@ -162,11 +168,17 @@ class GlobalState:
             arena=self.arena)
         self.handles = HandleManager()
 
+    @property
+    def is_root(self) -> bool:
+        """The local root: the rank that pushes whole-leaf keys and
+        sends the PS SHUTDOWN."""
+        return self.local_rank == 0
+
     def _stop_ps(self) -> None:
         if self.scheduler is not None:
             self.scheduler.stop()
         if self.ps_client is not None:
-            self.ps_client.close()
+            self.ps_client.close(shutdown_servers=self.is_root)
         if self.arena is not None:
             self.arena.reset()
         self.ps_client = self.scheduler = self.handles = None
@@ -183,6 +195,9 @@ class GlobalState:
         with self._lock:
             if not self.initialized:
                 return
+            if self.ps_client is not None and self.local_size > 1:
+                # every rank's rounds are done before the root's SHUTDOWN
+                dist.barrier(group=self.group)
             self._stop_ps()
             if dist.is_initialized():
                 dist.destroy_process_group()

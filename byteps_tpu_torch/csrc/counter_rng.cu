@@ -53,6 +53,24 @@
 // vector), so any length and any offset work; the input is read with
 // vector loads only where it too lies on 16 bytes, else element by
 // element.
+//
+// Two more kernels stand for XLA fusions of the JAX compressor stacks, not
+// for TPU kernels, and reproduce how XLA on the CPU rounds them (the
+// reference the tests hold the port to):
+// - fma_scalar_kernel: out = fma(a, b, c) with one scalar a. XLA contracts
+//   the Nesterov momentum (mu * m + x, then x + mu * m') and the error
+//   feedback's LR rescale (x + error * scale) into FMAs; __fmaf_rn rounds
+//   once as they do. It moves 12 bytes per element, bound by bytes.
+// - window_sum_kernel: one level of XLA's tree reduction of a 1-D f32 sum.
+//   XLA's CPU backend rewrites a sum of n > 32 elements into reduce-windows
+//   of 32 with stride 32, padded by (pad / 2, pad - pad / 2) zeros to a
+//   multiple of 32, repeated while more than 32 partial sums remain, then
+//   one reduce of the rest; each window and the last reduce add in order
+//   from 0. A thread sums one window, staged in shared memory by the
+//   block's coalesced loads; a sum takes ceil(log32 n) launches.
+//   With square = 1 (a fused reduce of at most 32 elements, the L2 norm's
+//   sum of squares) each step is fma(v, v, acc), as XLA contracts it. It
+//   reads 4 bytes per element, bound by bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -349,6 +367,45 @@ __global__ void __launch_bounds__(kThreads) dither_apply_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) fma_scalar_kernel(
+    const float* __restrict__ b, const float* __restrict__ c,
+    float* __restrict__ out, long long n, const float* __restrict__ a_p,
+    float a_v) {
+  const float a = a_p != nullptr ? *a_p : a_v;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride)
+    out[i] = __fmaf_rn(a, b[i], c[i]);
+}
+
+// A block sums kThreads windows: its kThreads * 32 inputs are staged in
+// shared memory by coalesced loads (element e of the block at e + e / 32,
+// so that neither the stores nor a thread's reads of its own window
+// conflict on a bank), then each thread adds its window in order. A
+// padding element reads as +0, which leaves a sum that starts at +0 as it
+// was (it never becomes -0 in round-to-nearest).
+__global__ void __launch_bounds__(kThreads) window_sum_kernel(
+    const float* __restrict__ in, long long n, float* __restrict__ out,
+    long long m, long long lo, int square) {
+  __shared__ float tile[kThreads * 33];
+  const long long first = (long long)blockIdx.x * kThreads * 32 - lo;
+#pragma unroll 4
+  for (int k = 0; k < 32; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    const long long i = first + e;
+    tile[e + e / 32] = (i >= 0 && i < n) ? __ldg(in + i) : 0.0f;
+  }
+  __syncthreads();
+  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (w >= m) return;
+  const float* win = tile + threadIdx.x * 33;
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    acc = square ? __fmaf_rn(win[j], win[j], acc) : __fadd_rn(acc, win[j]);
+  out[w] = acc;
+}
+
 long long tiles(long long work, long long tile) {
   return (work + tile - 1) / tile;
 }
@@ -447,6 +504,31 @@ int bps_randomk_indices(const void* parts, const void* tile_start,
         (const RandomkPart*)parts, (const long long*)tile_start, n_parts,
         one, (const long long*)base_p, (uint32_t)base_v, (int32_t*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+// out[i] = fma(a, b[i], c[i]) for i < n; a = *a_p (a device f32
+// scalar), or a_v where a_p is NULL. out may be b or c.
+int bps_fma_scalar(const void* b, const void* c, void* out, long long n,
+                   const void* a_p, float a_v, void* stream) {
+  if (n > 0) {
+    const long long grid = tiles(n, kThreads);
+    fma_scalar_kernel<<<(unsigned)(grid < 65536 ? grid : 65536), kThreads,
+                        0, (cudaStream_t)stream>>>(
+        (const float*)b, (const float*)c, (float*)out, n,
+        (const float*)a_p, a_v);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One level of XLA's tree sum: out[w] = the in-order sum of
+// in[32 w - lo .. 32 w - lo + 31] (indices outside [0, n) skipped), w < m.
+int bps_window_sum(const void* in, long long n, void* out, long long m,
+                   long long lo, int square, void* stream) {
+  if (m > 0)
+    window_sum_kernel<<<(unsigned)tiles(m, kThreads), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+        (const float*)in, n, (float*)out, m, lo, square);
   return (int)cudaGetLastError();
 }
 

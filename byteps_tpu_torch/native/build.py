@@ -19,6 +19,7 @@ byte-identical copy of the JAX package's, so both packages speak one wire.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -139,6 +140,19 @@ def load(name: str) -> ctypes.CDLL:
                 lib.bps_error_string.restype = ctypes.c_char_p
                 _LIBS[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """The raw handle of ``device``'s current stream, with ``device`` the
+    calling thread's current CUDA device for the block. A kernel launches
+    on its thread's current device, whatever its stream's; a thread that
+    never set one is on device 0, so a wrapper called from it (a Python
+    thread of a rank on card 1) would launch for card 1's memory on card
+    0. Inside the block the launch goes to the card of the tensors."""
+    import torch
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -19,7 +19,7 @@ import torch
 from . import rng
 from .kernels import (
     dithering_dequantize, dithering_levels, n_words, onebit_pack,
-    onebit_unpack, randomk_indices,
+    onebit_unpack, randomk_indices, sqrt_f32, xla_mean, xla_sum,
 )
 
 
@@ -57,9 +57,9 @@ class OnebitCodec(Codec):
     scaled: bool = True
 
     def compress(self, x: torch.Tensor, step: int = 0) -> Dict[str, Any]:
-        # the L1-mean stays a plain reduction, as the JAX codec leaves it
-        # to XLA; only the pack is a kernel
-        scale = x.abs().mean() if self.scaled else \
+        # the L1 mean in XLA's summation order (the JAX codec leaves it to
+        # XLA), so the scale is the JAX package's bit for bit
+        scale = xla_mean(x.abs()) if self.scaled else \
             torch.ones((), dtype=torch.float32, device=x.device)
         return {"bits": onebit_pack(x), "scale": scale.to(torch.float32)}
 
@@ -118,8 +118,10 @@ class DitheringCodec(Codec):
     two (natural), round up with the probability of the fractional
     position, ship dense signed int8 levels and the f32 norm.
 
-    The norm is a plain torch reduction (the JAX codec leaves it to XLA)
-    and reaches the B4 kernel as a device scalar, never read on the host.
+    The norm (the JAX codec leaves it to XLA) sums in XLA's order
+    (``kernels.xla_sum``) with a correctly rounded square root, so it is
+    the JAX codec's bit for bit, and reaches the B4 kernel as a device
+    scalar, never read on the host.
     ``decompress`` and the error-feedback ``residual`` round as the JAX
     codec does under jit (``kernels.dithering_dequantize``): |lv| * (1/s)
     for |lv| / s, the residual as one FMA; under the natural partition
@@ -149,7 +151,7 @@ class DitheringCodec(Codec):
         else:
             # scale-invariant two-pass L2: x*x overflows near f32's max
             safe_m = torch.clamp_min(m, 1e-30)
-            norm = safe_m * torch.sqrt(torch.sum(torch.square(absx / safe_m)))
+            norm = safe_m * sqrt_f32(xla_sum(absx / safe_m, square=True))
         return torch.clamp_min(norm, 1e-30).to(torch.float32)
 
     def compress(self, x: torch.Tensor, step: int = 0) -> Dict[str, Any]:

@@ -13,6 +13,11 @@ these decorator-style, Momentum around ErrorFeedback around the codec
     m'   = mu * m + grad
     out  = grad + mu * m'
 
+XLA contracts both momentum lines and the EF's LR rescale
+(grad + error * scale) into FMAs; ``kernels.fma_scalar`` rounds each once
+as they do, so the state and the payload are the jitted JAX stack's bit
+for bit.
+
 State is a dict of tensors that the caller keeps; ``compress`` returns a
 new dict and leaves the old one as it was.
 """
@@ -25,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .codecs import Codec
+from .kernels import fma_scalar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +67,9 @@ class CompressorStack:
         x = grad
         if self.momentum_mu is not None:
             mu = self.momentum_mu
-            m = mu * state["momentum"] + x
+            m = fma_scalar(mu, state["momentum"], x)
             new_state["momentum"] = m
-            x = x + mu * m
+            x = fma_scalar(mu, m, x)
         if self.use_ef:
             error = state["error"]
             if lr is not None:
@@ -76,9 +82,10 @@ class CompressorStack:
                 safe_cur = torch.where(cur == 0, torch.ones_like(cur), cur)
                 scale = torch.where(ok, prev / safe_cur,
                                     torch.ones_like(cur))
-                error = error * scale
                 new_state["prev_lr"] = torch.where(cur == 0, prev, cur)
-            x = x + error
+                x = fma_scalar(scale, error, x)
+            else:
+                x = x + error
             payload = self.codec.compress(x, step)
             new_state["error"] = self.codec.residual(x, payload)
         else:

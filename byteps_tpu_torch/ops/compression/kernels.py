@@ -16,6 +16,10 @@
   stream base of ``rng.uniform_base``) goes by value, or, as an int64
   tensor of one element, is read by the kernel from device memory, as
   are the norms.
+- ``fma_scalar`` and ``xla_sum`` (``csrc/counter_rng.cu``) stand for XLA
+  fusions of the JAX compressor stacks: the momentum's and the EF LR
+  rescale's FMAs, and the tree order of XLA's CPU sum (the onebit scale,
+  the dithering L2 norm), rounded as XLA on the CPU rounds them.
 - ``dithering_dequantize`` and ``dithering_dequantize_round``
   (``csrc/counter_rng.cu``) turn a dithering round's levels back into f32:
   the aggregate (dec * norm) and, in place, the error-feedback residual
@@ -112,11 +116,11 @@ def onebit_pack(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     words = torch.empty(n_words(n), dtype=torch.int32, device=x.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    onebit_pack.launches += 1
-    build.check(lib, lib.bps_onebit_pack(x.data_ptr(), words.data_ptr(), n,
-                                         words.shape[0], stream),
-                "onebit_pack")
+    with build.on_device(x.device) as stream:
+        onebit_pack.launches += 1
+        build.check(lib, lib.bps_onebit_pack(
+            x.data_ptr(), words.data_ptr(), n, words.shape[0], stream),
+            "onebit_pack")
     return words
 
 
@@ -144,11 +148,11 @@ def onebit_unpack(words: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(*words.shape[:-1], n, dtype=torch.float32,
                       device=words.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    onebit_unpack.launches += 1
-    build.check(lib, lib.bps_onebit_unpack(
-        words.data_ptr(), scale.data_ptr(), out.data_ptr(), n,
-        words.shape[-1], rows, stream), "onebit_unpack")
+    with build.on_device(words.device) as stream:
+        onebit_unpack.launches += 1
+        build.check(lib, lib.bps_onebit_unpack(
+            words.data_ptr(), scale.data_ptr(), out.data_ptr(), n,
+            words.shape[-1], rows, stream), "onebit_unpack")
     return out
 
 
@@ -180,6 +184,12 @@ def _rng_lib():
             _VP, _VP, _VP, _VP, ctypes.c_int, _LL, _LL, ctypes.c_float,
             ctypes.c_int, ctypes.c_int, _VP, _VP]
         lib.bps_dithering_dequantize.restype = ctypes.c_int
+        lib.bps_fma_scalar.argtypes = [_VP, _VP, _VP, _LL, _VP,
+                                       ctypes.c_float, _VP]
+        lib.bps_fma_scalar.restype = ctypes.c_int
+        lib.bps_window_sum.argtypes = [_VP, _LL, _VP, _LL, _LL, ctypes.c_int,
+                                       _VP]
+        lib.bps_window_sum.restype = ctypes.c_int
         lib._bps_typed = True
     return lib
 
@@ -269,12 +279,13 @@ def _launch_dithering(x, norms, table, base, s, partition, out,
     base_t, base_v = _base_arg(base, x.device)
     base_p = None if base_t is None else base_t.data_ptr()
     lib = _rng_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    dithering_levels.launches += 1
-    build.check(lib, lib.bps_dithering_levels(
-        x.data_ptr(), norms.data_ptr(), parts, tile_start, n_parts, n_tiles,
-        one_n, base_p, base_v, float(s), int(partition == "natural"),
-        out.data_ptr(), stream), "dithering_levels")
+    with build.on_device(x.device) as stream:
+        dithering_levels.launches += 1
+        build.check(lib, lib.bps_dithering_levels(
+            x.data_ptr(), norms.data_ptr(), parts, tile_start, n_parts,
+            n_tiles, one_n, base_p, base_v, float(s),
+            int(partition == "natural"), out.data_ptr(), stream),
+            "dithering_levels")
 
 
 def _launch_randomk(table, base, out, one_size: int = 0,
@@ -293,11 +304,11 @@ def _launch_randomk(table, base, out, one_size: int = 0,
     base_t, base_v = _base_arg(base, out.device)
     base_p = None if base_t is None else base_t.data_ptr()
     lib = _rng_lib()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    randomk_indices.launches += 1
-    build.check(lib, lib.bps_randomk_indices(
-        parts, tile_start, n_parts, n_tiles, one_size, one_k, base_p, base_v,
-        out.data_ptr(), stream), "randomk_indices")
+    with build.on_device(out.device) as stream:
+        randomk_indices.launches += 1
+        build.check(lib, lib.bps_randomk_indices(
+            parts, tile_start, n_parts, n_tiles, one_size, one_k, base_p,
+            base_v, out.data_ptr(), stream), "randomk_indices")
 
 
 def dithering_levels_plain(x: torch.Tensor, norm, base, s: int,
@@ -485,12 +496,12 @@ def _launch_dequantize(levels, norms, table, s, partition, x, residual,
     if n_tiles == 0:
         return
     lib = _rng_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    dithering_dequantize.launches += 1
-    build.check(lib, lib.bps_dithering_dequantize(
-        levels.data_ptr(), norms.data_ptr(), parts, tile_start, n_parts,
-        n_tiles, one_n, dithering_recip(s), int(partition == "natural"),
-        int(residual), x.data_ptr(), stream), "dithering_dequantize")
+    with build.on_device(x.device) as stream:
+        dithering_dequantize.launches += 1
+        build.check(lib, lib.bps_dithering_dequantize(
+            levels.data_ptr(), norms.data_ptr(), parts, tile_start, n_parts,
+            n_tiles, one_n, dithering_recip(s), int(partition == "natural"),
+            int(residual), x.data_ptr(), stream), "dithering_dequantize")
 
 
 def _check_dequantize(levels, norms, x, what: str) -> None:
@@ -561,6 +572,135 @@ def dithering_dequantize_round(levels: torch.Tensor, norms: torch.Tensor,
         _check_cuda(t, "dithering_dequantize_round", t.dtype)
     _launch_dequantize(levels, norms, table, s, partition, x, residual)
     return x
+
+
+# ------------------------------------------------------------------ #
+# the rounding of the compressor stacks' XLA fusions: one-scalar FMAs
+# (momentum, the EF LR rescale) and XLA's tree order of a 1-D f32 sum
+# ------------------------------------------------------------------ #
+
+def fma_scalar(a, b: torch.Tensor, c: torch.Tensor,
+               out: torch.Tensor = None) -> torch.Tensor:
+    """fma(a, b, c) = a * b + c in one rounding, elementwise over flat f32
+    ``b`` and ``c``; ``a`` a float (rounded to f32) or a one-element f32
+    tensor on their device (read there, never on the host). Written into
+    ``out`` (which may be ``b`` or ``c``) or a new tensor; returned."""
+    if b.dim() != 1 or b.shape != c.shape or b.dtype != torch.float32 or \
+            c.dtype != torch.float32 or b.device != c.device:
+        raise ValueError("fma_scalar: b and c must be flat f32 tensors of "
+                         "one shape on one device")
+    if out is None:
+        out = torch.empty_like(b)
+    a_t = a.reshape(()).to(torch.float32) if isinstance(a, torch.Tensor) \
+        else None
+    if not _route(b, "fma_scalar"):
+        av = a_t if a_t is not None else torch.tensor(float(np.float32(a)))
+        return out.copy_(fma_f32_plain(av, b, c))
+    for t, name in ((b, "b"), (c, "c"), (out, "out")):
+        _check_cuda(t, f"fma_scalar {name}", torch.float32)
+    if out.shape != b.shape or out.device != b.device:
+        raise ValueError("fma_scalar: out must match b")
+    a_p, a_v = None, 0.0
+    if a_t is not None:
+        if a_t.device != b.device:
+            raise ValueError("fma_scalar: a on another device than b")
+        a_t = a_t.contiguous()
+        a_p = a_t.data_ptr()
+    else:
+        a_v = float(a)
+    lib = _rng_lib()
+    with build.on_device(b.device) as stream:
+        fma_scalar.launches += 1
+        build.check(lib, lib.bps_fma_scalar(
+            b.data_ptr(), c.data_ptr(), out.data_ptr(), b.shape[0], a_p, a_v,
+            stream), "fma_scalar")
+    return out
+
+
+fma_scalar.launches = 0
+
+# XLA's CPU backend reduces a 1-D sum of more than this many elements in
+# windows of this many (its tree-reduction rewrite)
+SUM_WINDOW = 32
+
+
+def _sum_levels(n: int):
+    """(elements in, windows out, left padding) of each reduce-window
+    level of a sum of ``n``, then the last reduce as one window."""
+    levels = []
+    while n > SUM_WINDOW:
+        m = -(-n // SUM_WINDOW)
+        levels.append((n, m, (m * SUM_WINDOW - n) // 2))
+        n = m
+    levels.append((n, 1, 0))
+    return levels
+
+
+def xla_sum_plain(x: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """The plain twin of ``xla_sum``: each level's windows summed column by
+    column, every addition its own f32 rounding."""
+    fused = square and x.numel() <= SUM_WINDOW
+    if square and not fused:
+        x = torch.square(x)
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n, m, lo in _sum_levels(x.numel()):
+        xp = torch.nn.functional.pad(x, (lo, m * SUM_WINDOW - n - lo))
+        cols = xp.reshape(m, SUM_WINDOW)
+        acc = torch.zeros(m, dtype=torch.float32, device=x.device)
+        for j in range(SUM_WINDOW):
+            if fused:
+                acc = fma_f32_plain(cols[:, j], cols[:, j], acc)
+            else:
+                acc = acc + cols[:, j]
+        x = acc
+    return acc.reshape(())
+
+
+def xla_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """The sum of flat f32 ``x`` in the order and rounding of XLA's CPU
+    backend (``jnp.sum`` under jit): windows of 32 padded around, level by
+    level, each window added in order from 0 (``window_sum_kernel``, one
+    launch per level). ``square``: the sum of ``x * x``, as the L2 norm
+    takes it (for at most 32 elements XLA fuses the square into the sum's
+    FMAs). A 0-dim f32 tensor on ``x``'s device."""
+    if x.dim() != 1 or x.dtype != torch.float32:
+        raise ValueError("xla_sum: expected a flat f32 tensor")
+    if not _route(x, "xla_sum"):
+        return xla_sum_plain(x, square)
+    x = x.contiguous()
+    fused = square and x.numel() <= SUM_WINDOW
+    if square and not fused:
+        x = torch.square(x)
+    if x.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    lib = _rng_lib()
+    with build.on_device(x.device) as stream:
+        for n, m, lo in _sum_levels(x.numel()):
+            out = torch.empty(m, dtype=torch.float32, device=x.device)
+            xla_sum.launches += 1
+            build.check(lib, lib.bps_window_sum(
+                x.data_ptr(), n, out.data_ptr(), m, lo, int(fused), stream),
+                "xla_sum")
+            x = out
+    return x.reshape(())
+
+
+xla_sum.launches = 0
+
+
+def xla_mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` of flat f32 ``x`` under jit on the CPU: ``xla_sum``
+    times 1/n, which XLA folds to an f32 constant."""
+    # the float is an f32 value, so the product rounds once in f32
+    return xla_sum(x) * float(np.float32(1) / np.float32(x.numel()))
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of f32 ``x``, as XLA and the
+    card give it (the f64 root rounds to the nearest f32 exactly, since
+    53 >= 2 * 24 + 2). PyTorch's vectorized CPU sqrt is not correctly
+    rounded."""
+    return torch.sqrt(x.double()).float()
 
 
 def randomk_indices_plain(base, size: int, k: int,

@@ -136,14 +136,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "16-byte aligned (the kernel's TMA copies need it)")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    flash_attention_fwd.launches += 1
-    build.check(lib, lib.bps_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, S, H, Hkv, D,
-        (ctypes.c_longlong * 9)(*(x for st in strides for x in st)),
-        float(np.float32(1.0 / np.sqrt(D))), int(causal), stream),
-        "flash_attention")
+    with build.on_device(q.device) as stream:
+        flash_attention_fwd.launches += 1
+        build.check(lib, lib.bps_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, S, H, Hkv, D,
+            (ctypes.c_longlong * 9)(*(x for st in strides for x in st)),
+            float(np.float32(1.0 / np.sqrt(D))), int(causal), stream),
+            "flash_attention")
     return out
 
 

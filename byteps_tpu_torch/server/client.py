@@ -93,6 +93,13 @@ def _load_lib() -> ctypes.CDLL:
     return lib
 
 
+def _run_into(fut: concurrent.futures.Future, fn, *args) -> None:
+    try:
+        fut.set_result(fn(*args))
+    except BaseException as e:  # noqa: BLE001 - the waiter raises it
+        fut.set_exception(e)
+
+
 def server_addresses(config: Config) -> List[str]:
     """Server endpoints: BYTEPS_SERVER_HOSTS="h:p,h:p,..." or the
     scheduler URI with consecutive ports (root_port + server_id); one per
@@ -161,6 +168,8 @@ class PSClient:
         self._lock = threading.Lock()
         # key -> store length this client has init-pushed on the server
         self._inited_keys: dict = {}   # guarded-by: _lock
+        # key -> (length, future) of an init push started by init_async
+        self._init_futs: dict = {}     # guarded-by: _lock
         # fused completion reactor: ticket -> (callback, reply buffer).
         # The buffer ref keeps the memory the native recv loop writes
         # through alive until the ticket completes.
@@ -198,16 +207,45 @@ class PSClient:
         with self._lock:
             missing = [p for p in ctx.partitions
                        if self._inited_keys.get(p.key) != p.length]
+            started = {p.key: self._init_futs.get(p.key) for p in missing}
         if not missing:
             return
         cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, ctx.dtype)
-        futures = [self._pool.submit(self.init_key, p.server, p.key,
-                                     np.zeros(p.length, np.uint8), cmd)
-                   for p in missing]
+        futures = []
+        for p in missing:
+            f = started[p.key]
+            if f is None or f[0] != p.length:
+                f = (p.length, self._pool.submit(
+                    self.init_key, p.server, p.key,
+                    np.zeros(p.length, np.uint8), cmd))
+            futures.append(f[1])
         for f in futures:
             f.result()
         with self._lock:
             self._inited_keys.update({p.key: p.length for p in missing})
+            for p in missing:
+                self._init_futs.pop(p.key, None)
+
+    def init_async(self, ctx: TensorContext) -> None:
+        """Start the init push of every partition of ``ctx`` not yet
+        initialized, each on a thread of its own, and return;
+        ``ensure_init`` waits for them. A key's init is the server's
+        barrier of all workers, so a worker whose exports init keys one
+        by one in its own production order would wait forever on a peer
+        that inits them in another order (a JAX worker, whose order is
+        XLA's); keys started here do not wait on each other."""
+        cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, ctx.dtype)
+        with self._lock:
+            for p in ctx.partitions:
+                if self._inited_keys.get(p.key) == p.length or \
+                        self._init_futs.get(p.key, (None,))[0] == p.length:
+                    continue
+                fut: concurrent.futures.Future = concurrent.futures.Future()
+                self._init_futs[p.key] = (p.length, fut)
+                threading.Thread(
+                    target=_run_into, daemon=True, name="bps-init-async",
+                    args=(fut, self.init_key, p.server, p.key,
+                          np.zeros(p.length, np.uint8), cmd)).start()
 
     def comp_init(self, server: int, key: int, kwargs_wire: str) -> None:
         """Install a server-side codec for ``key`` (the reference's
@@ -334,17 +372,34 @@ class PSClient:
                 return
             self._closed = True
         self._pool.shutdown(wait=True)
+        # an init_async thread still uses the native client
+        with self._lock:
+            started = [f for _, f in self._init_futs.values()]
+        concurrent.futures.wait(started)
         self._stop_reactor()
         if shutdown_servers:
             self._lib.bps_client_shutdown(self._handle)
         self._lib.bps_client_destroy(self._handle)
 
 
+def ps_worker_id(config: Config) -> int:
+    """The PS worker id of this process: BYTEPS_GLOBAL_RANK if set, else
+    DMLC_WORKER_ID. Every rank of a ``dp`` group takes the machine's id,
+    because the group is one PS worker, as one JAX process with every
+    local chip in its mesh is: the server sizes its per-worker push
+    counts by ``num_workers`` (native/ps.cc:4484), releases a key's init
+    barrier after ``num_workers`` inits and exits after ``num_workers``
+    SHUTDOWNs. So each key gets one push and one init per machine (from
+    the rank that pushes it) and only the local root sends SHUTDOWN."""
+    return config.global_rank if config.global_rank is not None \
+        else config.worker_id
+
+
 def connect_from_config(config: Config) -> PSClient:
     servers = server_addresses(config)
     if not servers:
         raise RuntimeError("num_servers > 0 but no server addresses")
-    rank = (config.global_rank if config.global_rank is not None
-            else config.worker_id * config.local_size + config.local_rank)
-    log.info("connecting PS client: servers=%s worker=%d", servers, rank)
-    return PSClient(servers, rank)
+    wid = ps_worker_id(config)
+    log.info("connecting PS client: servers=%s worker=%d (local rank %d of "
+             "%d)", servers, wid, config.local_rank, config.local_size)
+    return PSClient(servers, wid)

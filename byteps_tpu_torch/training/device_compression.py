@@ -319,15 +319,19 @@ class _Round:
         [leaf][partition] and returns the packed buffer that the round
         kernel wrote, {dtype: buffer}."""
         device = flats[0].device
-        pieces = []
-        for i, j, off, n, stack in self.members:
-            x = flats[i][off: off + n]
-            if stack.momentum_mu is not None:
-                st, mu = plans[i].states[j], stack.momentum_mu
-                st["momentum"] = mu * st["momentum"] + x
-                x = x + mu * st["momentum"]
-            pieces.append(x)
-        x = torch.cat(pieces)
+        x = torch.cat([flats[i][off: off + n]
+                       for i, _, off, n, _ in self.members])
+        mu = self.members[0][4].momentum_mu
+        if mu is not None:
+            # the momentum of the whole round: m' = fma(mu, m, x), then
+            # x = fma(mu, m', x), as XLA contracts the stack's two lines;
+            # each member's state becomes its view of the new buffer
+            states = [plans[i].states[j] for i, j, *_ in self.members]
+            m = K.fma_scalar(mu, torch.cat([st["momentum"] for st in states]),
+                             x)
+            x = K.fma_scalar(mu, m, x, out=x)
+            for st, (a, n) in zip(states, self.spans):
+                st["momentum"] = m[a: a + n]
         if self.use_ef:
             # grad + error, in place (f32 addition commutes bit for bit)
             x = self._error_buffer(plans, device).add_(x)

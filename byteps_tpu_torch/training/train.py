@@ -11,6 +11,7 @@ over the ``dp`` group, like the JAX step's ``pmean``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import hashlib
 import queue
 import threading
@@ -22,6 +23,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.push_pull import (
+    _average_, gather_leaf, padded_flat, scatter_leaf, shard_layout,
+)
 from ..utils.spans import StepSpans
 from .optim import make_leaf_apply
 
@@ -117,8 +121,18 @@ def make_ps_train_step(loss_fn: Callable, optimizer, params,
     ``min_compress_bytes`` (default BYTEPS_MIN_COMPRESS_BYTES): partitions
     (device tier) or tensors (host tier) under it travel dense.
 
-    ``rowsparse_params`` and ``local_shard_export`` are the JAX step's and
-    not yet ported: asked for, they raise.
+    With a ``dp`` group of more than one process the group is one PS
+    worker: each gradient is first reduced over the group (the mean, the
+    intra-node reduce of BytePS); the local root pushes whole-leaf keys
+    and buckets and broadcasts each aggregate, and every rank applies it.
+    ``local_shard_export`` (default BYTEPS_LOCAL_SHARD_EXPORT) on the
+    dense streamed host tier reduce-scatters each leaf of at least
+    max(fusion, BYTEPS_SHARD_MIN_BYTES) bytes (padding at most 1/8)
+    instead, each rank pushes its own shard under the JAX package's shard
+    key, and the drain all-gathers the shards before the per-leaf apply.
+
+    ``rowsparse_params`` is the JAX step's and not yet ported: asked for,
+    it raises.
 
     Returns ``step(batch) -> loss`` (a detached scalar, the dp mean).
     ``step.close()`` removes what the step holds on the parameters (the
@@ -127,17 +141,13 @@ def make_ps_train_step(loss_fn: Callable, optimizer, params,
     if rowsparse_params:
         raise NotImplementedError("rowsparse_params (the row-sparse wire) "
                                   "is not yet ported to byteps_tpu_torch")
-    if local_shard_export:
-        raise NotImplementedError(
-            "local_shard_export is not yet ported to byteps_tpu_torch (it "
-            "needs a dp group of more than one, which PS mode refuses)")
     named = named_leaves(params)
     names = ["grad/" + n for n, _ in named]
     tensors = [t for _, t in named]
     if compression is None or not device_compress:
         return HostTierStep(loss_fn, optimizer, names, tensors, compression,
                             min_compress_bytes, stream_export,
-                            sharded_apply)
+                            sharded_apply, local_shard_export)
     return _device_tier_step(loss_fn, optimizer, names, tensors,
                              compression, min_compress_bytes)
 
@@ -168,7 +178,10 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
     2. the ``dp`` reduce (mean; nothing to do for a group of one);
     3. one device-compressed PS round over the named gradients: compress
        on the card, fused PUSHPULL through the scheduler to the C++
-       server, decompress the aggregate on the card;
+       server, decompress the aggregate on the card; with a ``dp`` group
+       of more than one, the local root alone runs the round (one EF
+       state per key, as the one JAX process does on the psum'd
+       gradient) and broadcasts each aggregate;
     4. ``optimizer.step()`` on the averaged gradients."""
     from ..core.state import get_state
     from .device_compression import DeviceCompressor
@@ -178,11 +191,22 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
 
     def step(batch):
         state = get_state().require()
+        with on_card(state.device):
+            return _step(state, batch)
+
+    def _step(state, batch):
         spans.start(state.device)
         optimizer.zero_grad(set_to_none=True)
         loss, grads = _dp_mean_grads(loss_fn, batch, tensors, state.group)
         spans.mark("forward_backward")
-        if state.ps_client is not None:
+        if state.ps_client is not None and not state.is_root:
+            # the keys the root's round declares, declared alike here
+            for name, t in zip(names, tensors):
+                if t.numel():
+                    _declare(state, name, t.numel(), torch.float32)
+            for g in grads:
+                dist.broadcast(g, src=0, group=state.group)
+        elif state.ps_client is not None:
             client = state.ps_client
             if comp_state["client"] is not client:
                 mcb = min_compress_bytes
@@ -193,6 +217,10 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
                 comp_state["client"] = client
             grads = comp_state["device"].push_pull_leaves(
                 state, names, grads, spans=spans)
+            if state.local_size > 1:
+                grads = [g.contiguous() for g in grads]
+                for g in grads:
+                    dist.broadcast(g, src=0, group=state.group)
         for t, g in zip(tensors, grads):
             t.grad = g
         optimizer.step()
@@ -223,10 +251,18 @@ class _Export:
     export worker, the submissions, the arena leases and the clocks of
     the step's counters and spans."""
 
-    def __init__(self, state):
+    def __init__(self, state, n_dp: int = 1,
+                 shards: Optional[Dict[int, dict]] = None):
         self.state = state
-        # streamed leaf -> (the worker's future of its handle, its slot)
+        self.n_dp = n_dp                 # the dp group's size
+        self.shards = shards or {}       # leaf -> its shard plan
+        # streamed leaf -> (the worker's future of its handle, its slot);
+        # (None, None) on a rank that pushes nothing for the leaf
         self.futures: Dict[int, tuple] = {}
+        # dp > 1: the hooks' collectives on leaves this rank does not
+        # push, and the tensors every collective of the hooks reads
+        self.works: List = []
+        self.keep: List = []
         self.leases: List = []
         self.handles: List = []
         self.t_backward_end = 0.0
@@ -287,13 +323,34 @@ class HostTierStep:
     - the slots are released at the next step's start, once those copies
       have completed (:800-815).
 
+    With a ``dp`` group of more than one process (one PS worker):
+
+    - each hook first starts the leaf's async all-reduce (the mean) over
+      the group, NCCL on the card, BytePS's intra-node reduce; the
+      root's side stream waits on that one collective before its copy,
+      and the root alone pushes whole-leaf keys and buckets (the
+      post-backward groups reduce the same way, whole);
+    - the locality-shard plan (``_shard_plan``, the JAX gates of
+      :1205-1280): a leaf in it reduce-scatters instead, and every rank
+      copies and pushes its own shard under its shard key (``submit_shard``
+      :1063, at the parent leaf's production priority), streamed or, for
+      a leaf no hook exported, after the backward (``submit_shard_fallback``
+      :1079);
+    - the drain (``_drain``): the root takes its keys in completion
+      order and broadcasts each one's index, so every rank lands the
+      same key next: a whole-leaf key or bucket is broadcast from the
+      root; a shard leaf is copied to the card shard by shard, each rank
+      its own, and all-gathered (``land_shard`` :1632, its branch for an
+      update that is not split by shard: the gradient is gathered and
+      the step is per leaf, so the parameters stay the same on every
+      rank). Per-shard optimizer state is ZeRO's and not ported.
+
     A hook that fails raises out of the backward: there is no quiet
     switch to another path (the JAX package's ``_disable_stream``). The
     hooks hold the step weakly; ``close()`` removes them and stops the
     export worker.
-    Not ported (each raises where asked for): rowsparse, the
-    locality-shard export (it needs a ``dp`` group above one, which PS
-    mode refuses), cross-barrier staleness, the ledger and health planes.
+    Not ported: rowsparse (it raises where asked for), cross-barrier
+    staleness, the ledger and health planes.
 
     ``spans`` (off by default): forward_backward (step start to the
     backward's end on the device), export (the first leaf handed over to
@@ -303,14 +360,16 @@ class HostTierStep:
     ``ttfp_ms`` (the backward's start to the first submission),
     ``bytes_before_backward_end`` (bytes submitted before the backward's
     last kernel ended), ``leaves_streamed``, ``leaves_post_backward``,
-    ``fused_buckets``, ``bytes_pushed``."""
+    ``fused_buckets``, ``shard_leaves``, ``bytes_pushed`` (by this
+    rank)."""
 
     def __init__(self, loss_fn, optimizer, names: List[str],
                  tensors: List[torch.Tensor],
                  compression: Optional[Dict[str, str]],
                  min_compress_bytes: Optional[int],
                  stream_export: Optional[bool],
-                 sharded_apply: Optional[bool]):
+                 sharded_apply: Optional[bool],
+                 local_shard_export: Optional[bool] = None):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.names = names
@@ -319,6 +378,10 @@ class HostTierStep:
         self.min_compress_bytes = min_compress_bytes
         self.stream_export = stream_export
         self.sharded_apply = sharded_apply
+        self.local_shard_export = local_shard_export
+        # the locality-shard plan and what it was made for
+        self._shards: Dict[int, dict] = {}
+        self._shard_key = None
         self.spans = StepSpans()
         self.counters: Dict[str, Any] = {}
         # the host clock (time.perf_counter) at the last step's last
@@ -362,8 +425,7 @@ class HostTierStep:
     def _arm_hooks(self, state, fusion: int) -> None:
         """Hooks on the leaves that stream (at least ``fusion`` bytes),
         re-armed when the setting changes."""
-        on = state.config.stream_export if self.stream_export is None \
-            else self.stream_export
+        on = self._streams_on(state)
         eligible = frozenset(
             i for i, t in enumerate(self.tensors)
             if on and t.numel() and t.numel() * t.element_size() >= fusion)
@@ -380,6 +442,62 @@ class HostTierStep:
                 lambda p, i=i: hook(p, i)) for i in sorted(eligible)]
             self._hook_key = eligible
 
+    def _streams_on(self, state) -> bool:
+        return state.config.stream_export if self.stream_export is None \
+            else self.stream_export
+
+    def _shard_plan(self, state, fusion: int, n: int) -> Dict[int, dict]:
+        """The locality-shard plan (byteps_tpu/jax/train.py:1205-1280):
+        leaf -> {slen, size, ctxs, names, parent} for each leaf that
+        shards.
+        Its gates are the JAX package's, and all are the same on every
+        worker: a dp group above one, the export streamed, no host codec,
+        at least max(fusion, shard_min_bytes) bytes, padding at most 1/8
+        of the leaf. A new plan declares its shard keys first, in flatten
+        order, each leaf's parent name after its shards (the anchor of
+        their production order), and frees the keys of the old one."""
+        cfg = state.config
+        on = cfg.local_shard_export if self.local_shard_export is None \
+            else self.local_shard_export
+        plan_on = (on and n > 1 and self.compression is None
+                   and self._streams_on(state))
+        smin = max(fusion, cfg.shard_min_bytes)
+        chosen = []
+        for i, t in enumerate(self.tensors):
+            nb = t.numel() * t.element_size()
+            if not plan_on or nb == 0 or nb < smin:
+                continue
+            _, pad = shard_layout(t.numel(), n)
+            if pad * 8 <= t.numel():
+                chosen.append(i)
+        key = (n, tuple((i, self.tensors[i].numel(), self.tensors[i].dtype)
+                        for i in chosen))
+        if key == self._shard_key:
+            return self._shards
+        from ..core.types import DataType
+        reg, plan = state.registry, {}
+        for i in chosen:
+            t = self.tensors[i]
+            slen, _ = shard_layout(t.numel(), n)
+            dt = DataType.from_np(_np_dtype(t.dtype))
+            ctxs = reg.declare_shards(self.names[i], slen * t.element_size(),
+                                      n, dt)
+            plan[i] = {"slen": slen, "size": t.numel(), "ctxs": ctxs,
+                       "names": [c.name for c in ctxs],
+                       "parent": reg.declare(self.names[i], dt)}
+        if plan and state.ps_client is not None:
+            # this rank's shard keys init all at once: a peer (another
+            # package's worker) may reach them in another order
+            for info in plan.values():
+                state.ps_client.init_async(info["ctxs"][state.local_rank])
+        live = {nm for info in plan.values() for nm in info["names"]}
+        for info in self._shards.values():
+            for nm in info["names"]:
+                if nm not in live:
+                    reg.free(nm)
+        self._shards, self._shard_key = plan, key
+        return plan
+
     def _remove_hooks(self) -> None:
         for h in self._hooks:
             h.remove()
@@ -395,40 +513,78 @@ class HostTierStep:
             self._worker = None
 
     def _on_grad(self, i: int, p: torch.Tensor) -> None:
-        """The backward's hook for leaf ``i``: start the copy, enqueue."""
+        """The backward's hook for leaf ``i``: start the copy of its
+        gradient (or of this rank's shard of it) to its slot, enqueue its
+        submission. In a dp group the hook first starts the leaf's
+        intra-node reduce, the async mean over the group (a reduce-scatter
+        for a leaf of the shard plan), and the copy waits on that
+        collective alone; a rank other than the root pushes no whole leaf
+        and only starts the reduce."""
         rnd = self._round
         if rnd is None:
             return      # a backward outside the step
         rnd.began()
-        g = p.grad
-        lease = rnd.checkout(self.names[i] + ":out",
-                             g.numel() * g.element_size(), tag="export")
-        dst = lease.tensor.view(g.dtype)
-        flat = g.reshape(-1)
+        state, n = rnd.state, rnd.n_dp
+        info = rnd.shards.get(i)
+        name, parent, work = self.names[i], None, None
+        src = p.grad.reshape(-1)
+        if info is not None:
+            flat = padded_flat(p.grad, n)
+            src = torch.empty(flat.numel() // n, dtype=flat.dtype,
+                              device=flat.device)
+            work = dist.reduce_scatter_tensor(src, flat, group=state.group,
+                                              async_op=True)
+            name, parent = info["names"][state.local_rank], info["parent"]
+            # the collective's input and output stay alive to the step's
+            # end (the padded input is a temporary)
+            rnd.keep += [flat, src]
+        elif n > 1:
+            work = dist.all_reduce(src, group=state.group, async_op=True)
+            rnd.keep.append(src)
+            if not state.is_root:
+                # the root pushes the leaf; its broadcast replaces the
+                # mean. The key is declared here all the same, where the
+                # root's export worker declares it, so that every rank's
+                # registry numbers the keys alike
+                _declare(state, name, src.numel(), src.dtype)
+                rnd.works.append(work)
+                rnd.futures[i] = (None, None)
+                return
+        lease = rnd.checkout(name + ":out", src.numel() * src.element_size(),
+                             tag="export")
+        dst = lease.tensor.view(src.dtype)
         ev = None
-        if g.is_cuda:
-            side = self._stream("d2h", g.device)
-            side.wait_stream(torch.cuda.current_stream(g.device))
+        if src.is_cuda:
+            side = self._stream("d2h", src.device)
+            side.wait_stream(torch.cuda.current_stream(src.device))
             with torch.cuda.stream(side):
-                dst.copy_(flat, non_blocking=True)
-            flat.record_stream(side)
+                if work is not None:
+                    work.wait()         # the side stream waits on the reduce
+                    _average_(src, n)
+                dst.copy_(src, non_blocking=True)
+            src.record_stream(side)
             ev = torch.cuda.Event()
             ev.record(side)
         else:
-            dst.copy_(flat)
-        fut = self._worker.submit(self._ingest, rnd, i, ev, lease, g.dtype)
+            if work is not None:
+                work.wait()
+                _average_(src, n)
+            dst.copy_(src)
+        fut = self._worker.submit(self._ingest, rnd, name, parent, ev, lease,
+                                  src.dtype)
         rnd.futures[i] = (fut, lease)
 
-    def _ingest(self, rnd: _Export, i: int, ev, lease, dtype):
-        """Export worker: wait for leaf ``i``'s copy, submit it at its
-        production-order priority. Returns its handle."""
+    def _ingest(self, rnd: _Export, name: str, parent, ev, lease, dtype):
+        """Export worker: wait for a leaf's (or a shard's) copy, submit it
+        under ``name`` at its production-order priority (the ``parent``
+        leaf's for a shard). Returns its handle."""
         if ev is not None:
             ev.synchronize()
         flat = lease.array(_np_dtype(dtype))
-        return self._submit(rnd, self.names[i], flat, production=True)
+        return self._submit(rnd, name, flat, production=True, parent=parent)
 
     def _submit(self, rnd: _Export, name: str, flat: np.ndarray,
-                production: bool = False):
+                production: bool = False, parent=None):
         """One key's round, pushed from and landing in ``flat`` (its arena
         slot): dense, or through the host codecs. Returns the handle."""
         from ..server.client import get_or_init_ctx
@@ -437,8 +593,8 @@ class HostTierStep:
             ctx = self._registry.get(state, name, flat).ctx
         else:
             ctx = get_or_init_ctx(state, name, flat)
-        pr = state.scheduler.production_priority(ctx) if production \
-            else None
+        pr = state.scheduler.production_priority(ctx, parent) \
+            if production else None
         rnd.pushed(flat.nbytes)
         if self._registry is not None:
             hid = self._registry.push_pull_async(state, name, flat, True,
@@ -466,6 +622,10 @@ class HostTierStep:
     def __call__(self, batch):
         from ..core.state import get_state
         state = get_state().require()
+        with on_card(state.device):
+            return self._step(state, batch)
+
+    def _step(self, state, batch):
         dev = state.device
         cuda = dev.type == "cuda"
         self._release_pending()
@@ -496,8 +656,10 @@ class HostTierStep:
                 1, thread_name_prefix="bps-export")
         fusion, cap = self._fusion(state)
         self._arm_hooks(state, fusion)
+        n_dp = dist.get_world_size(state.group)
+        shards = self._shard_plan(state, fusion, n_dp)
         pushed0 = state.scheduler.bytes_pushed
-        rnd = _Export(state)
+        rnd = _Export(state, n_dp, shards)
         self._round = rnd
         try:
             loss, ready = self._export(state, rnd, batch, fusion, cap, cuda)
@@ -510,6 +672,10 @@ class HostTierStep:
         self._pending = (rnd.leases, events)
         self.counters["bytes_pushed"] = \
             state.scheduler.bytes_pushed - pushed0
+        if n_dp > 1:
+            loss = loss.clone()
+            dist.all_reduce(loss, group=state.group)
+            loss /= n_dp
         return loss
 
     def _export(self, state, rnd: _Export, batch, fusion: int, cap: int,
@@ -529,6 +695,33 @@ class HostTierStep:
         self.spans.mark("forward_backward")
         streamed = sorted(rnd.futures)
         post = [i for i in range(len(self.tensors)) if i not in rnd.futures]
+        # a leaf of the shard plan that no hook exported still rides its
+        # shard keys, so the key set stays every worker's
+        fallback = [i for i in post if i in rnd.shards]
+        groups = self._groups([i for i in post if i not in rnd.shards],
+                              fusion, cap)
+        if groups or fallback:
+            rnd.began()
+        ready = self._post(state, rnd, streamed, fallback, groups, cuda)
+        with rnd._mu:
+            first, last = rnd.first_export, rnd.last_submit
+            first_push = rnd.first_push
+        if first is not None and last is not None:
+            self.spans.add("export", (last - first) * 1e3)
+        self.counters.update(
+            ttfp_ms=None if first_push is None else (first_push - t_bwd) * 1e3,
+            bytes_before_backward_end=before_end,
+            leaves_streamed=len(streamed),
+            leaves_post_backward=sum(len(g) for g in groups) + len(fallback),
+            fused_buckets=sum(len(g) > 1 for g in groups),
+            shard_leaves=len(rnd.shards))
+        rnd.t_backward_end = t_end
+        return loss.detach(), ready
+
+    def _groups(self, post: List[int], fusion: int, cap: int) -> List[list]:
+        """The post-backward keys: each leaf of at least ``fusion`` bytes
+        alone, the smaller ones in buckets of one dtype up to ``cap``
+        bytes (byteps_tpu/jax/train.py:1127-1170)."""
         groups, bucket, bucket_bytes = [], [], 0
         for i in post:
             t = self.tensors[i]
@@ -549,103 +742,168 @@ class HostTierStep:
                 groups.append([i])
         if bucket:
             groups.append(bucket)
-        if groups:
-            rnd.began()
-        staged = []
+        return groups
+
+    def _group_key(self, g: List[int]):
+        """(key name, [(leaf, offset, length)], wire dtype) of a group."""
+        sizes = [self.tensors[i].numel() for i in g]
+        name = self.names[g[0]] if len(g) == 1 else fused_key(
+            [(self.names[i], n) for i, n in zip(g, sizes)])
+        dtype = self.tensors[g[0]].dtype
+        if self._registry is not None:
+            dtype = torch.float32       # the codecs' wire is f32
+        offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+        return name, list(zip(g, offs, sizes)), dtype
+
+    def _grad(self, i: int) -> torch.Tensor:
+        t = self.tensors[i]
+        return t.grad if t.grad is not None else torch.zeros_like(t)
+
+    def _post(self, state, rnd: _Export, streamed: List[int],
+              fallback: List[int], groups: List[list], cuda: bool) -> list:
+        """After the backward: copy the post-backward keys into their
+        slots and submit them. In a dp group each leaf of the shard plan
+        that no hook exported reduce-scatters and every rank pushes its
+        own shard; each group's gradients reduce over the group (the
+        mean) and the root pushes the group's key. Returns the step's
+        (members, handle, lease, shard leaf) in submission order,
+        streamed leaves first: the same list on every rank, the handle
+        and lease None where this rank pushes nothing."""
+        n = rnd.n_dp
+        staged = []     # (name, members, lease, dtype, shard leaf, parent)
+        for i in fallback:
+            info = rnd.shards[i]
+            src = scatter_leaf(self._grad(i), state.group)
+            name = info["names"][state.local_rank]
+            lease = rnd.checkout(name + ":out",
+                                 src.numel() * src.element_size())
+            lease.tensor.view(src.dtype).copy_(src, non_blocking=cuda)
+            staged.append((name, [(i, 0, self.tensors[i].numel())], lease,
+                           src.dtype, i, info["parent"]))
         for g in groups:
-            sizes = [self.tensors[i].numel() for i in g]
-            name = self.names[g[0]] if len(g) == 1 else fused_key(
-                [(self.names[i], n) for i, n in zip(g, sizes)])
-            dtype = self.tensors[g[0]].dtype
-            if self._registry is not None:
-                dtype = torch.float32       # the codecs' wire is f32
+            name, members, dtype = self._group_key(g)
+            if n > 1:
+                flat = torch.cat([self._grad(i).reshape(-1)
+                                  for i in g]).to(dtype)
+                dist.all_reduce(flat, group=state.group)
+                _average_(flat, n)
+                if not state.is_root:
+                    _declare(state, name, flat.numel(), dtype)
+                    staged.append((name, members, None, dtype, None, None))
+                    continue
             esize = torch.empty((), dtype=dtype).element_size()
-            lease = rnd.checkout(name + ":out", sum(sizes) * esize)
+            lease = rnd.checkout(name + ":out",
+                                 sum(m[2] for m in members) * esize)
             dst = lease.tensor.view(dtype)
-            members, off = [], 0
-            for i, n in zip(g, sizes):
-                grad = self.tensors[i].grad
-                if grad is None:
-                    dst[off: off + n].zero_()
-                else:
-                    dst[off: off + n].copy_(grad.reshape(-1),
-                                            non_blocking=cuda)
-                members.append((i, off, n))
-                off += n
-            staged.append((name, members, lease, dtype))
+            if n > 1:
+                dst.copy_(flat, non_blocking=cuda)
+            else:
+                for i, off, m in members:
+                    grad = self.tensors[i].grad
+                    if grad is None:
+                        dst[off: off + m].zero_()
+                    else:
+                        dst[off: off + m].copy_(grad.reshape(-1),
+                                                non_blocking=cuda)
+            staged.append((name, members, lease, dtype, None, None))
         if cuda and staged:
-            torch.cuda.current_stream(dev).synchronize()
+            torch.cuda.current_stream(state.device).synchronize()
         ready = []
         for i in streamed:
             fut, lease = rnd.futures[i]
-            ready.append(([(i, 0, self.tensors[i].numel())], fut.result(),
-                          lease))
-        for name, members, lease, dtype in staged:
-            handle = self._submit(rnd, name, lease.array(_np_dtype(dtype)))
-            ready.append((members, handle, lease))
-        with rnd._mu:
-            first, last = rnd.first_export, rnd.last_submit
-            first_push = rnd.first_push
-        if first is not None and last is not None:
-            self.spans.add("export", (last - first) * 1e3)
-        self.counters.update(
-            ttfp_ms=None if first_push is None else (first_push - t_bwd) * 1e3,
-            bytes_before_backward_end=before_end,
-            leaves_streamed=len(streamed),
-            leaves_post_backward=sum(len(g) for g in groups),
-            fused_buckets=sum(len(g) > 1 for g in groups))
-        rnd.t_backward_end = t_end
-        return loss.detach(), ready
+            ready.append(([(i, 0, self.tensors[i].numel())],
+                          None if fut is None else fut.result(), lease,
+                          i if i in rnd.shards else None))
+        for name, members, lease, dtype, shard, parent in staged:
+            handle = None if lease is None else self._submit(
+                rnd, name, lease.array(_np_dtype(dtype)),
+                production=shard is not None, parent=parent)
+            ready.append((members, handle, lease, shard))
+        return ready
 
     def _drain(self, state, rnd: _Export, ready: list, leaf_apply,
                cuda: bool) -> List:
-        """Land every aggregate in completion order; returns the copy
-        events that the next step waits for before reusing the slots."""
-        dev = state.device
+        """Land every aggregate in completion order and run each leaf's
+        optimizer step; returns the copy events that the next step waits
+        for before reusing the slots. One process copies each aggregate
+        from its slot into ``p.grad``. In a dp group the root takes its
+        keys in completion order and broadcasts each one's index, so every
+        rank lands the same key next: a whole-leaf key or bucket is copied
+        to the card on the root and broadcast from it; a leaf of the shard
+        plan is landed shard by shard, each rank its own, and all-gathered.
+        Every rank then steps the leaf, so the parameters stay the same on
+        every rank."""
+        dev, group, n = state.device, state.group, rnd.n_dp
+        root = state.is_root
+        compute = torch.cuda.current_stream(dev) if cuda else None
+        if n > 1:
+            if cuda:
+                # the hooks' means and copies, and the reduces that the
+                # root's broadcast overwrites, come before any write to
+                # p.grad
+                compute.wait_stream(self._stream("d2h", dev))
+            for w in rnd.works:
+                w.wait()
+            idx = torch.zeros(1, dtype=torch.int64, device=dev if
+                              dist.get_backend(group) == "nccl" else "cpu")
         done: "queue.Queue" = queue.Queue()
-        for wi, (_, handle, _) in enumerate(ready):
-            handle.add_done_callback(
-                lambda wi=wi: done.put((wi, time.perf_counter())))
+        if root:
+            for wi, (_, handle, _, _) in enumerate(ready):
+                handle.add_done_callback(
+                    lambda wi=wi: done.put((wi, time.perf_counter())))
         events, last_done = [], rnd.t_backward_end
         h2d_ms = apply_ms = 0.0
-        compute = torch.cuda.current_stream(dev) if cuda else None
         for _ in range(len(ready)):
-            wi, t_done = done.get()
-            last_done = max(last_done, t_done)
-            members, handle, lease = ready[wi]
-            state.handles.wait_and_clear(handle.id)   # raises its error
-            src = lease.tensor.view(
-                torch.float32 if self._registry is not None
-                else self.tensors[members[0][0]].dtype)
-            for i, off, n in members:
+            if root:
+                wi, t_done = done.get()
+                last_done = max(last_done, t_done)
+            if n > 1:
+                if root:
+                    idx.fill_(wi)
+                dist.broadcast(idx, src=0, group=group)
+                wi = int(idx.item())
+            members, handle, lease, shard = ready[wi]
+            if handle is not None:
+                state.handles.wait_and_clear(handle.id)   # raises its error
+            wire = torch.float32 if self._registry is not None \
+                else self.tensors[members[0][0]].dtype
+            t0 = time.perf_counter()
+            buf = None      # one process: each member straight from the slot
+            if shard is not None:
+                piece = torch.empty(rnd.shards[shard]["slen"], dtype=wire,
+                                    device=dev)
+                self._h2d(lease.tensor.view(wire), piece, compute, events,
+                          fresh=True)
+                buf = gather_leaf(piece, self.tensors[shard], group)
+            elif n > 1:
+                buf = torch.empty(sum(m[2] for m in members), dtype=wire,
+                                  device=dev)
+                if root:
+                    self._h2d(lease.tensor.view(wire), buf, compute, events,
+                              fresh=True)
+                dist.broadcast(buf, src=0, group=group)
+            for i, off, m in members:
                 p = self.tensors[i]
                 if p.grad is None:
                     p.grad = torch.empty_like(p)
-                t0 = time.perf_counter()
-                if cuda:
-                    # p.grad's last writer (the backward) has finished
-                    h2d = self._stream("h2d", dev)
-                    with torch.cuda.stream(h2d):
-                        p.grad.view(-1).copy_(src[off: off + n],
-                                              non_blocking=True)
-                    p.grad.record_stream(h2d)
-                    ev = torch.cuda.Event()
-                    ev.record(h2d)
-                    compute.wait_event(ev)
-                    events.append(ev)
-                    if self.spans.enabled:
-                        ev.synchronize()
+                if buf is None:
+                    self._h2d(lease.tensor.view(wire)[off: off + m],
+                              p.grad.view(-1), compute, events)
                 else:
-                    p.grad.view(-1).copy_(src[off: off + n])
+                    p.grad.view(-1).copy_(buf.reshape(-1)[off: off + m])
+                if self.spans.enabled and cuda:
+                    compute.synchronize()
                 t1 = time.perf_counter()
                 h2d_ms += (t1 - t0) * 1e3
                 if leaf_apply is not None:
                     leaf_apply.step(p)
                     if self.spans.enabled and cuda:
                         compute.synchronize()
-                    apply_ms += (time.perf_counter() - t1) * 1e3
+                t0 = time.perf_counter()
+                apply_ms += (t0 - t1) * 1e3
         self.last_completion = last_done
-        self.spans.add("wire", (last_done - rnd.t_backward_end) * 1e3)
+        if root:
+            self.spans.add("wire", (last_done - rnd.t_backward_end) * 1e3)
         self.spans.add("h2d", h2d_ms)
         if leaf_apply is None:
             t1 = time.perf_counter()
@@ -656,11 +914,34 @@ class HostTierStep:
         self.spans.add("apply", apply_ms)
         return events
 
+    def _h2d(self, src: torch.Tensor, dst: torch.Tensor, compute,
+             events: List, fresh: bool = False) -> None:
+        """Copy host ``src`` into device ``dst`` on the copy stream and make
+        the compute stream wait for it (a plain copy on the CPU). A
+        ``fresh`` ``dst``, just allocated on the compute stream, is
+        written only after the compute stream's work so far; a gradient's
+        last writer, the backward, has finished."""
+        if compute is None:
+            dst.copy_(src)
+            return
+        h2d = self._stream("h2d", dst.device)
+        if fresh:
+            h2d.wait_stream(compute)
+        with torch.cuda.stream(h2d):
+            dst.copy_(src, non_blocking=True)
+        dst.record_stream(h2d)
+        ev = torch.cuda.Event()
+        ev.record(h2d)
+        compute.wait_event(ev)
+        events.append(ev)
+
     def _abandon(self, state, rnd: _Export) -> None:
         """Error path: let the export worker finish what it started, then
         drop the step's handles and never recycle its slots (a reply may
         still be written into them)."""
         for fut, _ in list(rnd.futures.values()):
+            if fut is None:
+                continue
             try:
                 fut.result(timeout=120)
             except Exception:  # noqa: BLE001 - the step's error is raised
@@ -669,6 +950,27 @@ class HostTierStep:
             state.handles.discard(h.id)
         for lease in rnd.leases:
             lease.abandon()
+
+
+def on_card(dev: torch.device):
+    """``dev`` the calling thread's current CUDA device for a block (no-op
+    on the CPU). A step may run on any Python thread, and one that never
+    set its device is on card 0: there a stream context's exit puts the
+    thread back on card 0, which makes a context on card 0 in the
+    process of a rank on another card."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _declare(state, name: str, n: int, dtype: torch.dtype) -> None:
+    """Declare and partition a key that this rank does not push, as the
+    rank that pushes it does (``get_or_init_ctx``): the registry of every
+    rank of a dp group then numbers every key alike, and a later key
+    (a shard plan's) gets one number on every rank."""
+    from ..core.types import DataType
+    state.registry.init_tensor(name, n * torch.empty((), dtype=dtype)
+                               .element_size(),
+                               DataType.from_np(_np_dtype(dtype)))
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:

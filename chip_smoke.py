@@ -29,14 +29,24 @@ result line:
    randomk (k = 1%) + EF, 3 steps each; gradients are compressed on the
    card, summed by the C++ server, decompressed on the card, with one B4
    or B5 launch a step (and two of the dequantization under dithering);
-7. the parameter-server path's host tier, this slice's main path:
+7. the parameter-server path's host tier:
    ``make_ps_train_step(loss, Adam, model.params())`` dense for
    ``--steps`` steps (streamed export, the fused bucket of the norm
    leaves, the completion-ordered drain into the per-leaf Adam step),
    held bit for bit to as many plain local steps from the same weights;
    then the same step timed with the per-leaf apply on and off
    (``sharded_apply``, segments on, off, off, on of 4 steps); then the
-   host-codec tier (onebit + EF, ``device_compress=False``) for 3 steps.
+   host-codec tier (onebit + EF, ``device_compress=False``) for 3 steps;
+8. ``ps_dp2``, this slice's main path: the same dense step with a ``dp``
+   group of two processes (``phase_ps_dp2``): a rank per card over NCCL
+   where the machine has two cards or more, on one card both ranks on it
+   over gloo; the locality-shard export on and off over NCCL, off alone
+   over gloo, with a line that names what did not run and why.
+
+Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
+does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
+XLA's tree sum of the onebit scale and the L2 norm) to their twins; the
+collective path launches both (its optimizer takes an LR schedule).
 
 Each PS run takes one more step with its spans on, to show where the time
 goes. Before each path runs, the kernel launch counters are zeroed; they are
@@ -209,6 +219,71 @@ def phase_onebit(dev, gen) -> list:
               f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms)",
               flush=True)
     return [pack, unpack]
+
+
+def phase_xla_rounding(dev, gen) -> list:
+    """The two kernels that round as XLA on the CPU does, at the collective
+    path's largest compressed leaf (the embedding): ``fma_scalar`` (the
+    EF LR rescale with a device scalar, the Nesterov momentum with mu)
+    and ``xla_sum`` (XLA's tree sum: the onebit L1-mean scale, and the
+    L2 norm's sum of squares), each bit for bit against its plain twin,
+    whose FMA is exact; on the ragged length too."""
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+
+    for n in (EMBED_N, RAGGED_N):
+        x, e, m = (torch.randn(n, generator=gen, device=dev)
+                   for _ in range(3))
+        scale = torch.tensor(0.05, device=dev) / torch.tensor(0.03,
+                                                               device=dev)
+        mu = torch.tensor(0.9, device=dev)
+        for what, got, want in (
+                ("EF rescale", K.fma_scalar(scale, e, x),
+                 K.fma_f32_plain(scale, e, x)),
+                ("momentum", K.fma_scalar(0.9, m, x),
+                 K.fma_f32_plain(mu, m, x))):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"fma_scalar ({what}) differs from its twin at n={n}: "
+                     f"{int((got != want).sum())} elements")
+        for square in (False, True):
+            got, want = K.xla_sum(x, square), K.xla_sum_plain(x, square)
+            if not torch.equal(got, want):
+                fail(f"xla_sum (square={square}) differs from its twin at "
+                     f"n={n}: {got.item()} vs {want.item()}")
+        print(f"fma_scalar and xla_sum n={n}: bit-exact with their twins",
+              flush=True)
+    n = EMBED_N
+    x, e = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    out = torch.empty_like(x)
+    scale = torch.tensor(0.6, device=dev)
+    fma = dict(
+        name="fma_scalar", route="cuda",
+        source="byteps_tpu_torch/csrc/counter_rng.cu",
+        replaces="byteps_tpu/ops/compression/feedback.py:71",
+        max_abs_err=0.0,
+        ms=cuda_graph_ms(lambda: K.fma_scalar(scale, e, x, out=out)),
+        plain_ms=cuda_ms(lambda: K.fma_f32_plain(scale, e, x), 5),
+        # read b and c, write out
+        bound_ms=12 * n / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_graph_ms(lambda: torch.addcmul(x, e, scale,
+                                                       out=out)))
+    tree = dict(
+        name="xla_sum", route="cuda",
+        source="byteps_tpu_torch/csrc/counter_rng.cu",
+        replaces="byteps_tpu/ops/compression/codecs.py:88",
+        max_abs_err=0.0,
+        ms=cuda_graph_ms(lambda: K.xla_sum(x)),
+        plain_ms=cuda_ms(lambda: K.xla_sum_plain(x), 5),
+        # read x once (the upper levels read 1/32 as much again)
+        bound_ms=4 * n * (1 + 1 / 31) / PEAK_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=cuda_graph_ms(lambda: torch.sum(x)))
+    for k in (fma, tree):
+        print(f"{k['name']} n={n}: {k['ms']:.4f} ms (plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms, "
+              f"library {k['library_ms']:.4f} ms)", flush=True)
+    return [fma, tree]
 
 
 def _flash_inputs(gen, dev, D):
@@ -687,7 +762,9 @@ def phase_train(args, card: str) -> dict:
 
     counters = {"flash_attn_fwd": FA.flash_attention_fwd,
                 "onebit_pack": K.onebit_pack,
-                "onebit_unpack": K.onebit_unpack}
+                "onebit_unpack": K.onebit_unpack,
+                "fma_scalar": K.fma_scalar,
+                "xla_sum": K.xla_sum}
     bps.init()
     try:
         dev = bps.get_state().device
@@ -697,7 +774,9 @@ def phase_train(args, card: str) -> dict:
         opt = DistributedOptimizer(
             torch.optim.Adam(model.parameters(), lr=1e-3,
                              betas=(0.9, 0.999), eps=1e-8),
-            compression={"compressor": "onebit", "ef": "vanilla"})
+            compression={"compressor": "onebit", "ef": "vanilla"},
+            # the EF residual's LR rescale (one FMA per compressed leaf)
+            lr_schedule=lambda step: 1e-3)
         attn = FA.make_flash_attn()
         step = make_train_step(
             lambda b: llama.loss_fn(model.params(), b, cfg, attn), opt)
@@ -948,8 +1027,8 @@ def _tree_clone(tree):
 
 
 def phase_ps_host(args, card: str, dev=None, cfg=None, B: int = 4,
-                  S: int = 2048) -> dict:
-    """The PS path on its host tier, this slice's main path: Llama small()
+                  S: int = 2048) -> None:
+    """The PS path on its host tier, slice 5's main path: Llama small()
     at full width, ``make_ps_train_step(loss, Adam, model.params())``
     with ``compression=None`` (BytePS's dense default: streamed export,
     the fused bucket of the norm leaves, a fused PUSHPULL per partition,
@@ -959,7 +1038,7 @@ def phase_ps_host(args, card: str, dev=None, cfg=None, B: int = 4,
     ``loss.backward(); optimizer.step()`` steps from the same weights
     leave them (one worker: the aggregate is the pushed gradient; Adam's
     foreach on both sides); then the host-codec tier, onebit + EF with
-    ``device_compress=False``. Returns the dense run's launch counts."""
+    ``device_compress=False``."""
     import torch
     from byteps_tpu_torch.models import llama
     from byteps_tpu_torch.ops import flash_attention as FA
@@ -1040,7 +1119,306 @@ def phase_ps_host(args, card: str, dev=None, cfg=None, B: int = 4,
         step.close()
     report("host-codec onebit", card, host, B, S, dev, on_card,
            " (numpy onebit + EF on the host)")
-    return dense["launches"]
+
+
+# ---------------------------------------------------------------------- #
+# ps_dp2: the dense host-tier step with a dp group of two processes
+# ---------------------------------------------------------------------- #
+
+DP2_STEPS = 3
+
+
+def _dp2_cfg(name: str):
+    import dataclasses
+
+    import torch
+    from byteps_tpu_torch.models import llama
+    if name == "small":
+        return llama.LlamaConfig.small()
+    # the CPU rehearsal's size
+    return dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=64, seq=64),
+                               dtype=torch.float32)
+
+
+def _dp2_tokens(cfg, rank: int, seed: int, B: int, S: int, dev):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed + 10 + rank)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                    generator=gen, device=dev)}
+
+
+def _dp2_rank(rank: int, world: int, dev: str, backend: str, port: int,
+              coord: int, shard_runs: tuple, seed: int, cfg_name: str,
+              B: int, S: int, q) -> None:
+    """One rank of ``phase_ps_dp2`` (a spawned process): ``init`` the group
+    once from BYTEPS_LOCAL_RANK / BYTEPS_LOCAL_SIZE / BYTEPS_COORD_PORT
+    against the server on ``port``; for each run (shard export off or on)
+    start from the root's weights and take DP2_STEPS dense PS steps of
+    its own batch; then compare the ranks' parameters, the runs'
+    parameters, and (the root) plain local Adam steps on the ranks' mean
+    gradient. Puts (rank, result) on ``q``."""
+    import faulthandler
+    # a rank that hangs prints every thread's stack and exits
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S * len(shard_runs),
+                                      exit=True)
+    try:
+        q.put((rank, _dp2_rank_body(rank, world, dev, backend, port, coord,
+                                    shard_runs, seed, cfg_name, B, S)))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def _dp2_rank_body(rank, world, dev, backend, port, coord, shard_runs,
+                   seed, cfg_name, B, S):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import (broadcast_parameters,
+                                           make_ps_train_step)
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    cfg = _dp2_cfg(cfg_name)
+    model = llama.Llama(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 3))
+    init = _tree_clone(model.params())
+    attn = FA.make_flash_attn()
+    batch = _dp2_tokens(cfg, rank, seed, B, S, dev)
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999),
+                                eps=1e-8, foreach=True)
+
+    out, finals = {"runs": {}}, {}
+    os.environ.update({
+        "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+        "DMLC_WORKER_ID": "0", "DMLC_ROLE": "worker",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "BYTEPS_LOCAL_RANK": str(rank), "BYTEPS_LOCAL_SIZE": str(world),
+        "BYTEPS_COORD_PORT": str(coord)})
+    bps.init(device=dev, backend=backend)
+    try:
+        group = bps.get_state().group
+        for shard in shard_runs:
+            with torch.no_grad():
+                for p, v in zip(model.parameters(),
+                                llama.Llama(cfg, device=dev,
+                                            params=init).parameters()):
+                    p.copy_(v)
+            # every rank starts from the root's weights
+            broadcast_parameters(model.parameters(), root_rank=0)
+            step = make_ps_train_step(
+                lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+                adam(model.parameters()), model.params(),
+                local_shard_export=shard)
+            FA.flash_attention_fwd.launches = 0
+            times, losses, pushed = [], [], []
+            for i in range(DP2_STEPS):
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(bounded(lambda: float(step(batch)),
+                                      f"ps_dp2 step {i} (rank {rank})"))
+                times.append(time.perf_counter() - t0)
+                pushed.append(step.counters["bytes_pushed"])
+            launches = FA.flash_attention_fwd.launches
+            plan = step._shards
+            # the root's parameters against this rank's
+            same = True
+            for p in model.parameters():
+                root_p = p.detach().clone()
+                dist.broadcast(root_p, src=0, group=group)
+                same = same and torch.equal(root_p, p.detach())
+            flag = torch.tensor([int(same)], device=dev if backend == "nccl"
+                                else "cpu")
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+            step.close()
+            finals[shard] = [p.detach().clone() for p in model.parameters()]
+            out["runs"][shard] = dict(
+                times=times, losses=losses, pushed=pushed, launches=launches,
+                same_on_every_rank=bool(flag.item()), shard_leaves=len(plan),
+                shard_bytes=sum(i["slen"] * 4 for i in plan.values()),
+                sharded_leaf_bytes=sum(i["size"] * 4 for i in plan.values()))
+            print(f"ps_dp2 rank {rank} shard export "
+                  f"{'on' if shard else 'off'}: losses {losses}, bytes "
+                  f"pushed per step {pushed}", flush=True)
+    finally:
+        bounded(bps.shutdown, f"ps_dp2 shutdown (rank {rank})")
+    if len(finals) == 2:
+        out["on_equals_off"] = all(torch.equal(a, b) for a, b in
+                                   zip(finals[False], finals[True]))
+    if rank == 0:
+        # plain local Adam steps on the ranks' mean gradient
+        ref = llama.Llama(cfg, device=dev, params=init)
+        opt = adam(ref.parameters())
+        batches = [_dp2_tokens(cfg, r, seed, B, S, dev) for r in range(world)]
+        for _ in range(DP2_STEPS):
+            grads = []
+            for b in batches:
+                opt.zero_grad(set_to_none=True)
+                llama.loss_fn(ref.params(), b, cfg, attn).backward()
+                grads.append([p.grad for p in ref.parameters()])
+            for p, *gs in zip(ref.parameters(), *grads):
+                total = gs[0].clone()
+                for g in gs[1:]:
+                    total += g
+                p.grad = total / world
+            opt.step()
+        out["local_equal"] = {
+            shard: {n: int((a != b).sum()) for (n, b), a in
+                    zip(ref.named_parameters(), f) if not torch.equal(a, b)}
+            for shard, f in finals.items()}
+    out["n_bytes"] = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+    return out
+
+
+def phase_ps_dp2(args, card: str, dev_type: str = "cuda",
+                 cfg_name: str = "small", B: int = 4, S: int = 2048) -> dict:
+    """The dense host-tier PS step (``make_ps_train_step(loss, Adam,
+    model.params())``) with a dp group of two processes: the intra-node
+    reduce before the PS round, the root's pushes, the broadcast of each
+    aggregate, and with ``local_shard_export`` each rank's own shard keys
+    and the drain's all-gather. Llama small() at full width, B per rank,
+    DP2_STEPS steps per run. With two cards or more: a rank per card over
+    NCCL, the shard export off and on. With one card: both ranks on it
+    over gloo (NCCL takes one rank per card), the shard export off (gloo
+    has no reduce-scatter of card tensors). The CPU rehearsal runs it off
+    and on. It fails unless both ranks' parameters are the same bit for
+    bit, equal to plain local Adam steps on the mean gradient and, shard
+    on, to the shard-off run; and unless the root pushes every parameter's
+    bytes each step with the shard export off, and each rank its own
+    shards with it on. Returns the root's launch counts per run.
+    ``dev_type``/``cfg_name``/``B``/``S`` exist to rehearse the phase on
+    the CPU."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import torch
+    from byteps_tpu_torch.config import Config
+    from byteps_tpu_torch.server import run_server
+
+    on_card = dev_type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    two = not on_card or n_cards >= 2
+    if on_card:
+        devs = ["cuda:0", "cuda:1"] if two else ["cuda:0", "cuda:0"]
+        backend = "nccl" if two else "gloo"
+    else:
+        devs, backend = ["cpu", "cpu"], "gloo"
+    # gloo carries no reduce-scatter or all-gather of card tensors
+    shard_runs = (False, True) if two else (False,)
+    if not two:
+        print(f"ps_dp2: NOT RUN on this machine ({n_cards} card): the "
+              f"group over NCCL (NCCL takes one rank per card), so both "
+              f"ranks run on cuda:0 over gloo; and the locality-shard "
+              f"export (gloo has no reduce-scatter or all-gather of card "
+              f"tensors)", flush=True)
+    if not two:
+        torch.cuda.empty_cache()
+    # one server and one group for both runs: the shard run's keys are
+    # new keys of the same registry
+    port = _free_port()
+    server = threading.Thread(target=run_server, args=(
+        port, Config(num_workers=1, num_servers=1)), daemon=True,
+        name="ps-server-dp2")
+    server.start()
+    coord = _free_port()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_dp2_rank, args=(
+        r, 2, devs[r], backend, port, coord, shard_runs, args.seed,
+        cfg_name, B, S, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        deadline = time.time() + PS_TIMEOUT_S * (1 + len(shard_runs))
+        while len(res) < 2:
+            try:
+                rank, r = q.get(timeout=2.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead or time.time() > deadline:
+                    fail(f"ps_dp2: no result from rank(s) "
+                         f"{sorted(set(range(2)) - set(res))}; exit codes "
+                         f"{[p.exitcode for p in procs]}")
+                continue
+            res[rank] = r
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank, r in sorted(res.items()):
+        if "error" in r:
+            fail(f"ps_dp2 rank {rank} raised:\n{r['error']}")
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"ps_dp2: exit codes {[p.exitcode for p in procs]}")
+    server.join(PS_TIMEOUT_S)
+    if server.is_alive():
+        fail("ps_dp2: the PS server did not exit after the root's SHUTDOWN")
+    root, peer = res[0], res[1]
+    n_bytes = root["n_bytes"]
+    out = {}
+    for shard in shard_runs:
+        a, b = root["runs"][shard], peer["runs"][shard]
+        label = f"shard export {'on' if shard else 'off'}"
+        if not (a["same_on_every_rank"] and b["same_on_every_rank"]):
+            fail(f"ps_dp2 {label}: the ranks' parameters differ")
+        if root["local_equal"][shard]:
+            fail(f"ps_dp2 {label}: the parameters differ from plain local "
+                 f"Adam steps on the mean gradient: elements differing "
+                 f"per leaf {root['local_equal'][shard]}")
+        if shard:
+            want = (n_bytes - a["sharded_leaf_bytes"] + a["shard_bytes"],
+                    b["shard_bytes"])
+            if a["shard_leaves"] == 0:
+                fail("ps_dp2: the shard export planned no leaf")
+        else:
+            want = (n_bytes, 0)
+        got = (set(a["pushed"]), set(b["pushed"]))
+        if got != ({want[0]}, {want[1]}):
+            fail(f"ps_dp2 {label}: bytes pushed per step {got}, not "
+                 f"{want} (root, peer)")
+        if on_card and (a["launches"] != 24 * DP2_STEPS
+                        or b["launches"] != 24 * DP2_STEPS):
+            fail(f"ps_dp2 {label}: flash_attn_fwd launches "
+                 f"{a['launches']}, {b['launches']} in {DP2_STEPS} steps, "
+                 f"not 24 a step on each rank")
+        steady = [max(x, y) for x, y in zip(a["times"][1:], b["times"][1:])]
+        tok_s = 2 * B * S / (sum(steady) / len(steady))
+        print(f"ps_dp2 {label} ({backend}, {devs[0]} and {devs[1]}): "
+              f"{tok_s:.1f} tokens/s for the group ({tok_s / 2:.1f} per "
+              f"rank) over steps 1..{DP2_STEPS - 1} on {card}; steps "
+              f"{['%.1f' % (t * 1e3) for t in steady]} ms; bytes pushed "
+              f"per step: root {want[0]}, peer {want[1]} (every parameter: "
+              f"{n_bytes}); {a['shard_leaves']} leaves sharded; B1 "
+              f"launches per step per rank {a['launches'] / DP2_STEPS:.0f}; "
+              f"parameters bit-identical on both ranks and to {DP2_STEPS} "
+              f"plain local Adam steps on the ranks' mean gradient",
+              flush=True)
+        out[shard] = {"flash_attn_fwd": a["launches"]}
+    if len(shard_runs) == 2:
+        if not (root["on_equals_off"] and peer["on_equals_off"]):
+            fail("ps_dp2: the shard export's parameters differ from the "
+                 "shard-off run's")
+        print("ps_dp2: shard export on and off leave bit-identical "
+              "parameters on both ranks", flush=True)
+    return out
 
 
 def apply_ab(step, batch, on_card: bool, card: str, n: int = 4) -> dict:
@@ -1152,6 +1530,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="profile one extra train step; trace into DIR")
+    ap.add_argument("--dp2-only", action="store_true",
+                    help="build, then run only the ps_dp2 phase (for a "
+                         "machine with several cards); no result line")
     args = ap.parse_args()
     if args.steps < 3:
         fail("--steps must be at least 3")
@@ -1167,21 +1548,27 @@ def main() -> int:
 
     card = phase_card()
     phase_build()
+    if args.dp2_only:
+        phase_ps_dp2(args, card)
+        return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = phase_onebit(dev, gen)
     kernels.insert(0, phase_flash(dev, gen))
     kernels.extend(phase_dither(dev, gen, args.seed))
     kernels.append(phase_randomk(dev, args.seed))
+    kernels.extend(phase_xla_rounding(dev, gen))
     phase_small_model(dev)
     launches = phase_train(args, card)
     ps = phase_ps_train(args, card)
-    dense = phase_ps_host(args, card)
-    # each kernel's count from the path that runs it: the dense PS run
-    # (this slice's main path) for B1, the PS dithering run for B4 and its
-    # dequantization, the PS randomk run for B5, the collective onebit
-    # run for B2 and B3
-    launches["flash_attn_fwd"] = dense["flash_attn_fwd"]
+    phase_ps_host(args, card)
+    dp2 = phase_ps_dp2(args, card)
+    # each kernel's count from the path that runs it: the root of the dp
+    # group's dense PS run, shard export off (ps_dp2, this slice's main
+    # path; it runs on every machine) for B1, the PS dithering run for B4
+    # and its dequantization, the PS randomk run for B5, the collective
+    # onebit run for B2 and B3
+    launches["flash_attn_fwd"] = dp2[False]["flash_attn_fwd"]
     for name in ("dithering_levels", "dithering_dequantize"):
         launches[name] = ps["dithering"][name]
     launches["randomk_indices"] = ps["randomk"]["randomk_indices"]

@@ -127,14 +127,17 @@ def record_wires(state, wires):
 
 def errors(dc):
     """{(leaf, partition): EF residual} of a DeviceCompressor's plans
-    (the port's or the JAX package's), as numpy arrays."""
+    (the port's or the JAX package's), and {(leaf, partition,
+    "momentum"): momentum} where the stack has one, as numpy arrays."""
     out = {}
     for name, p in dc._plans.items():
         for j, st in enumerate(p.states):
-            if "error" in st:
-                e = st["error"]
-                out[(name, j)] = e.cpu().numpy().copy() \
-                    if isinstance(e, torch.Tensor) else np.array(e)
+            for key, at in (("error", (name, j)),
+                            ("momentum", (name, j, "momentum"))):
+                if key in st:
+                    e = st[key]
+                    out[at] = e.cpu().numpy().copy() \
+                        if isinstance(e, torch.Tensor) else np.array(e)
     return out
 
 

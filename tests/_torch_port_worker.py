@@ -99,3 +99,200 @@ def run_ps_step_without_servers(rank: int, world: int, store_path: str,
         np.savez(out_path, **out)
     finally:
         bps.shutdown()
+
+
+# --------------------------------------------------------------------- #
+# PS mode with a dp group of two (tests/test_torch_port_dp_ps.py)
+# --------------------------------------------------------------------- #
+
+# the dense runs' knobs: tiny()'s leaves of 16 KB and up stream, the
+# three norms fuse into one bucket; of the streamed ones, the five of
+# 32 KB and up shard (the mixed fleet lowers the floor to 16 KB: all
+# nine shard)
+DP_FUSION, DP_SHARD_MIN = "16384", "32768"
+DP_V, DP_S, DP_STEPS, DP_LR, DP_MU = 64, 32, 2, 0.05, 0.9
+
+
+def dp_tokens():
+    """Four rows of tokens: rows 0 and 1 are the dp group's (rank r takes
+    row r, as device r of the JAX mesh does), rows 2 and 3 the other
+    worker's in the mixed fleet."""
+    return np.random.RandomState(2).randint(
+        0, DP_V, (4, DP_S + 1)).astype(np.int32)
+
+
+def shard_helper_inputs(rank: int):
+    """Odd sizes (padding), a matrix and ints, per rank."""
+    rng = np.random.RandomState(400 + rank)
+    return {"odd": rng.randn(7).astype(np.float32),
+            "mat": rng.randn(5, 3).astype(np.float32),
+            "ints": np.array([-7 - rank, 3, 9 + 2 * rank, -1, 4], np.int32)}
+
+
+def _ps_env_for(port: int, num_workers: int = 1, worker_id: int = 0,
+                **extra) -> None:
+    import os
+    for k in ("BYTEPS_SERVER_HOSTS", "DMLC_ROLE", "BYTEPS_GLOBAL_RANK",
+              "BYTEPS_LOCAL_RANK", "BYTEPS_LOCAL_SIZE",
+              "BYTEPS_PARTITION_BYTES", "BYTEPS_MIN_COMPRESS_BYTES"):
+        os.environ.pop(k, None)
+    os.environ.update({
+        "DMLC_NUM_WORKER": str(num_workers), "DMLC_NUM_SERVER": "1",
+        "DMLC_WORKER_ID": str(worker_id), "DMLC_PS_ROOT_URI": "127.0.0.1",
+        "DMLC_PS_ROOT_PORT": str(port), "BYTEPS_FUSION_BYTES": DP_FUSION,
+        "BYTEPS_SHARD_MIN_BYTES": DP_SHARD_MIN, **extra})
+
+
+def _dp_dense_run(rank, world, store, params, cfg, row, shard, steps,
+                  sgd_momentum=DP_MU):
+    """The dense PS steps of a dp group: losses, parameters, declared
+    names and the step's counters."""
+    import torch
+    import torch.distributed as dist
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama as tl
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    bps.init(device="cpu", store=dist.FileStore(store, world), rank=rank,
+             world_size=world)
+    try:
+        model = tl.Llama(cfg, device="cpu",
+                         params=tl.params_from_jax(params, device="cpu"))
+        opt = torch.optim.SGD(model.parameters(), lr=DP_LR,
+                              momentum=sgd_momentum)
+        step = make_ps_train_step(
+            lambda b: tl.loss_fn(model.params(), b, cfg), opt,
+            model.params(), local_shard_export=shard)
+        batch = {"tokens": torch.from_numpy(dp_tokens()[row: row + 1])}
+        losses = [float(step(batch)) for _ in range(steps)]
+        out = {"losses": np.array(losses),
+               "names": np.array(sorted(bps.get_state().registry._contexts)),
+               "keys": np.array(sorted(
+                   f"{n}={c.declared_key}" for n, c in
+                   bps.get_state().registry._contexts.items())),
+               "bytes_pushed": np.array(step.counters["bytes_pushed"]),
+               "shard_leaves": np.array(step.counters["shard_leaves"]),
+               "streamed": np.array(step.counters["leaves_streamed"])}
+        for n, p in model.named_parameters():
+            out["p/" + n.replace(".", "/")] = p.detach().numpy().copy()
+        step.close()
+    finally:
+        bps.shutdown()
+    return out
+
+
+def run_dp_ps(rank: int, world: int, tmp: str, ports, params_path: str,
+              out_path: str) -> None:
+    """One rank of the dp group's runs: the shard helpers, two dense PS
+    steps of tiny() with the shard export off and on (a server each), and
+    two device-tier steps under dithering + EF."""
+    import dataclasses
+    import os
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama as tl
+    from byteps_tpu_torch.ops import push_pull as pp
+    from byteps_tpu_torch.training import make_ps_train_step
+    import torch.distributed as dist
+
+    params = _load_params(params_path)
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=DP_V, seq=DP_S),
+                              dtype=torch.float32)
+    out = {}
+    os.environ.pop("DMLC_NUM_SERVER", None)
+    bps.init(device="cpu", store=dist.FileStore(f"{tmp}/store0", world),
+             rank=rank, world_size=world)
+    try:
+        tree = {k: torch.from_numpy(v)
+                for k, v in shard_helper_inputs(rank).items()}
+        shards = pp.reduce_scatter_tree(tree)
+        gathered = pp.all_gather_tree(shards, tree)
+        for k in tree:
+            out[f"shard/{k}"] = shards[k].numpy()
+            out[f"gather/{k}"] = gathered[k].numpy()
+    finally:
+        bps.shutdown()
+    for shard, port in zip((False, True), ports[:2]):
+        _ps_env_for(port)
+        run = _dp_dense_run(rank, world, f"{tmp}/store{int(shard) + 1}",
+                            params, cfg, rank, shard, DP_STEPS)
+        out.update({f"{'on' if shard else 'off'}/{k}": v
+                    for k, v in run.items()})
+    _ps_env_for(ports[2], BYTEPS_MIN_COMPRESS_BYTES="16384")
+    bps.init(device="cpu", store=dist.FileStore(f"{tmp}/store3", world),
+             rank=rank, world_size=world)
+    try:
+        model = tl.Llama(cfg, device="cpu",
+                         params=tl.params_from_jax(params, device="cpu"))
+        step = make_ps_train_step(
+            lambda b: tl.loss_fn(model.params(), b, cfg),
+            torch.optim.SGD(model.parameters(), lr=DP_LR), model.params(),
+            compression={"compressor": "dithering", "ef": "vanilla"})
+        batch = {"tokens": torch.from_numpy(dp_tokens()[rank: rank + 1])}
+        out["dev/losses"] = np.array([float(step(batch))
+                                      for _ in range(DP_STEPS)])
+        out["dev/grads"] = np.concatenate(
+            [p.grad.reshape(-1).numpy() for p in model.parameters()])
+        out["dev/params"] = np.concatenate(
+            [p.detach().reshape(-1).numpy() for p in model.parameters()])
+        for n, p in model.named_parameters():
+            out["dev/p/" + n.replace(".", "/")] = p.detach().numpy().copy()
+        plans = {} if step.device_compressor() is None else \
+            step.device_compressor()._plans
+        out["dev/rounds"] = np.array(len(plans))
+        out["dev/compressed"] = np.array(sorted(
+            n[len("grad/"):] for n, pl in plans.items() if any(pl.codecs)))
+    finally:
+        bps.shutdown()
+    np.savez(out_path, **out)
+
+
+def run_dp_mixed(rank: int, world: int, tmp: str, port: int,
+                 params_path: str, out_path: str) -> None:
+    """The torch half of a mixed fleet: worker 1 of two, a dp group of two
+    (rows 2 and 3 of ``dp_tokens``), one dense step with every streamed
+    leaf sharded."""
+    import dataclasses
+
+    import torch
+
+    from byteps_tpu_torch.models import llama as tl
+
+    params = _load_params(params_path)
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=DP_V, seq=DP_S),
+                              dtype=torch.float32)
+    _ps_env_for(port, num_workers=2, worker_id=1,
+                BYTEPS_SHARD_MIN_BYTES=DP_FUSION)
+    run = _dp_dense_run(rank, world, f"{tmp}/mixed", params, cfg, 2 + rank,
+                        True, 1, sgd_momentum=0.0)
+    np.savez(out_path, **run)
+
+
+def save_params(path: str, params) -> None:
+    """A nested dict of arrays as one npz, keys joined by "/"."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(params, "")
+    np.savez(path, **flat)
+
+
+def _load_params(path: str):
+    tree = {}
+    with np.load(path) as z:
+        for k in z.files:
+            *parents, last = k.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[last] = z[k]
+    return tree

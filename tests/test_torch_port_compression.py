@@ -2,7 +2,8 @@
 
 The same gradients give the same onebit payload and EF/momentum state
 (bit-identical words; the L1-mean scale and the float state to a stated
-ulp bound, since XLA and torch may sum the mean in other orders). The
+ulp bound against the eager JAX stack, and bit for bit against the
+jitted one, whose FMAs and summation order the port reproduces). The
 collective paths run over gloo groups of one rank, or of two spawned
 ranks, on a FileStore in the test's temporary directory, so parallel
 workers never share a port.
@@ -19,6 +20,7 @@ from byteps_tpu.ops.compression import make_compressor as j_make
 from byteps_tpu.ops.compression.codecs import OnebitCodec as JOnebit
 from byteps_tpu.ops.compression.feedback import CompressorStack as JStack
 from byteps_tpu_torch.ops import push_pull as tpp
+from byteps_tpu_torch.ops.compression import kernels as K
 from byteps_tpu_torch.ops.compression import (
     CompressionTransform, compressed_psum_tree, default_stacks,
     make_compressor,
@@ -97,6 +99,82 @@ def test_stack_payload_and_state_match_jax(kwargs):
                                    rtol=2e-7)
 
 
+# the jitted JAX stack is the reference (XLA contracts the momentum and
+# the EF rescale into FMAs and sums in its own tree order); LR ratios 2
+# and 0.6, the second not a power of two
+JIT_STACK_KWS = [
+    {"compressor": "randomk", "k": "0.05", "ef": "vanilla",
+     "momentum": "nesterov", "seed": "6"},
+    {"compressor": "dithering", "ef": "vanilla", "momentum": "nesterov",
+     "seed": "4"},
+    {"compressor": "dithering", "ef": "vanilla", "normalize_type": "l2",
+     "seed": "2"},
+    {"compressor": "randomk", "k": "0.05", "ef": "vanilla", "seed": "3"},
+    {"compressor": "onebit", "ef": "vanilla", "momentum": "nesterov"},
+]
+
+
+@pytest.mark.parametrize("kwargs", JIT_STACK_KWS, ids=[
+    "randomk-momentum", "dithering-momentum", "dithering-l2", "randomk",
+    "onebit-momentum"])
+def test_stack_matches_the_jitted_jax_stack_bit_for_bit(kwargs):
+    """Three rounds, mu = 0.9, LRs 0.1 -> 0.05 -> 0.03: payload, momentum,
+    EF residual and prev_lr equal the jitted JAX stack's bit for bit."""
+    import jax
+    n = 4096
+    jst, tst = j_make(kwargs, n), make_compressor(kwargs, n)
+    jstate, tstate = jst.init_state(n), tst.init_state(n)
+    rng = np.random.RandomState(7)
+    for step, lr in enumerate((0.1, 0.05, 0.03)):
+        g = rng.randn(n).astype(np.float32)
+        jp, jstate = jax.jit(
+            lambda v, st, lr, step=step: jst.compress(v, st, step, lr=lr))(
+            jnp.asarray(g), jstate, jnp.float32(lr))
+        tp, tstate = tst.compress(torch.from_numpy(g), tstate, step, lr=lr)
+        assert set(tp) == set(jp) and set(tstate) == set(jstate)
+        for key in jp:
+            want = np.asarray(jp[key])
+            got = tp[key].numpy()
+            if key == "bits":
+                got = got.view(np.uint32)
+            np.testing.assert_array_equal(got, want, err_msg=f"{step} {key}")
+        for key in jstate:
+            np.testing.assert_array_equal(tstate[key].numpy(),
+                                          np.asarray(jstate[key]),
+                                          err_msg=f"{step} {key}")
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_xla_sum_and_mean_follow_the_jitted_jax_order(seed):
+    """``kernels.xla_sum``/``xla_mean`` and the codecs' L2 norm and onebit
+    scale equal jitted ``jnp.sum``/``jnp.mean`` bit for bit, n = 1 to
+    24,576,000 (the Llama-125M embedding), over three seeds."""
+    import jax
+    from byteps_tpu.ops.compression.codecs import DitheringCodec as JDither
+    from byteps_tpu_torch.ops.compression.codecs import (
+        DitheringCodec, OnebitCodec,
+    )
+    jsum = jax.jit(jnp.sum)
+    jmean = jax.jit(lambda v: jnp.mean(jnp.abs(v)))
+    sizes = [1, 5, 31, 32, 33, 257, 1025, 4099, 65537]
+    if seed == 0:
+        sizes += [1_000_003, 24_576_000]
+    for n in sizes:
+        rs = np.random.default_rng(seed * 7919 + n)
+        x = (rs.standard_normal(n) * 10.0 ** (seed - 1)).astype(np.float32)
+        t = torch.from_numpy(x)
+        assert K.xla_sum(t).item() == np.float32(jsum(x)), n
+        assert K.xla_mean(t.abs()).item() == np.float32(jmean(x)), n
+        assert OnebitCodec(size=n).compress(t)["scale"].item() == \
+            np.float32(jmean(x)), n
+        if n > 70_000:
+            continue
+        jn = jax.jit(lambda v, n=n: JDither(
+            size=n, normalize="l2", use_pallas=False).compress(v)["norm"])
+        tn = DitheringCodec(size=n, normalize="l2").norm(t)
+        assert tn.item() == np.float32(jn(x)), n
+
+
 def test_compressed_psum_tree_one_rank(group):
     """Over one rank the reduction returns each leaf's own decompressed
     payload (compressed leaves) or the leaf itself (plain leaves)."""
@@ -109,7 +187,8 @@ def test_compressed_psum_tree_one_rank(group):
               for g, s in zip(grads, stacks)]
     out, new_states = compressed_psum_tree(grads, states, stacks, group)
     flat = grads[0].reshape(-1)
-    want = torch.where(flat >= 0, 1.0, -1.0) * flat.abs().mean()
+    # the scale is the L1 mean in XLA's summation order (the JAX codec's)
+    want = torch.where(flat >= 0, 1.0, -1.0) * K.xla_mean(flat.abs())
     torch.testing.assert_close(out[0].reshape(-1), want, rtol=0, atol=0)
     torch.testing.assert_close(new_states[0]["error"], flat - want,
                                rtol=0, atol=0)

@@ -333,6 +333,77 @@ def test_dequantize_round_kernel_matches_twin(dev, case, partition):
     assert torch.equal(res, want_res), int((res != want_res).sum())
 
 
+# --------------------------------------------------------------------- #
+# the compressor stacks' FMAs (momentum, the EF LR rescale) and XLA's sum
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("case", ["path", "ragged"])
+def test_fma_kernel_bit_exact_with_twin(dev, case):
+    """fma(mu, m, x), then fma(mu, m', x) (the round's momentum) and
+    fma(scale, error, x) with a device scalar (the EF rescale), over the
+    path's round and a ragged one, bit for bit with the twin's exact
+    FMA."""
+    ns, _ = ROUNDS[case]()
+    n = sum(ns)
+    g = torch.Generator(device=dev).manual_seed(n)
+    m, x, e = (torch.randn(n, generator=g, device=dev) for _ in range(3))
+    scale = torch.tensor(0.05, device=dev) / torch.tensor(0.03, device=dev)
+    before = K.fma_scalar.launches
+    m1 = K.fma_scalar(0.9, m, x)
+    x1 = K.fma_scalar(0.9, m1, x)
+    ex = K.fma_scalar(scale, e, x)
+    assert K.fma_scalar.launches == before + 3
+    mu = torch.tensor(0.9, device=dev)
+    for got, want in ((m1, K.fma_f32_plain(mu, m, x)),
+                      (x1, K.fma_f32_plain(mu, m1, x)),
+                      (ex, K.fma_f32_plain(scale, e, x))):
+        assert torch.equal(got, want), int((got != want).sum())
+    # written in place into c, as the round's momentum writes x
+    y = x.clone()
+    assert K.fma_scalar(0.9, m1, y, out=y) is y and torch.equal(y, x1)
+
+
+def test_wrappers_launch_on_their_tensors_card_from_any_thread(dev):
+    """A thread whose current card is 0 (a new Python thread's, until it
+    sets one) calls the wrappers with tensors on card 1: each launches on
+    card 1 and agrees with its twin. A launch on the thread's card with
+    card 1's memory is what faulted on rank 1 of a dp group over NCCL."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    g = torch.Generator(device=d1).manual_seed(11)
+    q, k, v = (torch.randn(2, 192, 4, 64, generator=g, device=d1).bfloat16()
+               for _ in range(3))
+    x = torch.randn(100_003, generator=g, device=d1)
+
+    def run():
+        torch.cuda.set_device(0)
+        with torch.no_grad():
+            out = (FA.flash_attention_fwd(q, k, v), K.onebit_pack(x),
+                   K.xla_sum(x), K.fma_scalar(0.9, x, x))
+        torch.cuda.synchronize(d1)
+        assert torch.cuda.current_device() == 0
+        return out
+
+    flash, words, total, fma = bounded(run)
+    with torch.no_grad():
+        assert _one_bf16_step(flash, FA.blockwise_attention(q, k, v))
+    assert torch.equal(words, K.onebit_pack_plain(x))
+    assert torch.equal(total, K.xla_sum_plain(x))
+    assert torch.equal(fma, K.fma_f32_plain(torch.tensor(0.9, device=d1),
+                                            x, x))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1025, 100_003, 32000 * 768])
+def test_xla_sum_kernel_bit_exact_with_twin(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=g, device=dev)
+    for square in (False, True):
+        got = K.xla_sum(x, square=square)
+        want = K.xla_sum_plain(x, square=square)
+        assert torch.equal(got, want), (n, square, got.item(), want.item())
+
+
 def test_dequantize_one_partition_is_a_round_of_one(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     levels = torch.randint(-127, 128, (4099,), generator=g, device=dev,

@@ -163,10 +163,17 @@ def test_ps_worker_id_follows_the_dp_group(monkeypatch):
 
 
 def test_ps_mode_refuses_a_dp_group_of_more_than_one(monkeypatch):
+    """PS mode takes a dp group of more than one process (the group is one
+    PS worker), but refuses one without a rendezvous, and then leaves
+    nothing set up: no process group, no PS client."""
     _ps_env(monkeypatch, _free_port())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    monkeypatch.delenv("BYTEPS_COORD_PORT", raising=False)
+    with pytest.raises(RuntimeError, match="BYTEPS_COORD_PORT"):
         bps.init(device="cpu", rank=0, world_size=2)
-    assert not bps.get_state().initialized
+    st = bps.get_state()
+    assert not st.initialized and st.ps_client is None
+    import torch.distributed as dist
+    assert not dist.is_initialized()
 
 
 def test_arena_checkout_release_abandon():

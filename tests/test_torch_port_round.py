@@ -191,13 +191,28 @@ def test_ps_round_pushes_the_partition_path_wire_bytes(kw, ps_lib,
     assert wires == partition_path_wires(kw)
 
 
-@pytest.mark.parametrize("kw", ROUND_KWS, ids=lambda kw: kw["compressor"])
+# beside the path's rounds: Nesterov momentum (XLA's two FMAs) with the
+# L2 norm (XLA's summation order), and the onebit tier (its L1-mean scale)
+JAX_WIRE_KWS = ROUND_KWS + [
+    {"compressor": "dithering", "ef": "vanilla", "momentum": "nesterov",
+     "normalize_type": "l2", "seed": "2"},
+    {"compressor": "randomk", "k": "0.05", "ef": "vanilla",
+     "momentum": "nesterov", "seed": "8"},
+    {"compressor": "onebit", "ef": "vanilla"},
+]
+
+
+@pytest.mark.parametrize("kw", JAX_WIRE_KWS, ids=[
+    "dithering", "randomk", "dithering-momentum-l2", "randomk-momentum",
+    "onebit"])
 def test_ps_rounds_push_the_jax_wire_bytes(kw, ps_lib, monkeypatch,
                                            jax_uses_port_lib):
     """Both rounds push the JAX DeviceCompressor's bytes, carry its
-    residuals bit for bit into the second round and get its aggregate
-    bit for bit: the port's dithering residual and dequantization round
-    as XLA's (reciprocal and FMA, the test below)."""
+    residuals and momentum bit for bit into the second round and get its
+    aggregate bit for bit: the port's dithering residual and
+    dequantization round as XLA's (reciprocal and FMA, the test below),
+    its momentum as XLA's FMAs, its L2 norm and onebit scale in XLA's
+    summation order."""
     j_wires, j_outs, j_errors = _jax_rounds(monkeypatch, kw)
     t_wires, t_outs, t_errors, _ = port_rounds(monkeypatch, kw)
     assert t_errors.keys() == j_errors.keys()

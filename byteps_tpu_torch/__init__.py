@@ -2,12 +2,14 @@
 
 It runs the same training steps as the JAX package on an NVIDIA H100:
 the Llama model (``models.llama``), a ``DistributedOptimizer`` that
-push_pulls gradients, with optional onebit compression and error
-feedback, over the ``dp`` process group (``training``), flash attention
-(``ops.flash_attention``), and the parameter-server step
-(``training.make_ps_train_step``), whose gradients are compressed on the
-card (onebit, randomk, dithering) and summed by the C++ server
-(``server``, ``native/ps.cc``). The Pallas kernels of the JAX package are
+push_pulls gradients, with optional compression (onebit, topk, randomk,
+dithering) and error feedback, over the ``dp`` process group
+(``training``), flash attention (``ops.flash_attention``), and the
+parameter-server step (``training.make_ps_train_step``), whose gradients
+travel dense or compressed, on the card or on the host, and are summed by
+the C++ server (``server``, ``native/ps.cc``; ``python -m
+byteps_tpu_torch.server`` runs one), with bounded wire retry and failover
+to the surviving servers. The Pallas kernels of the JAX package are
 CUDA kernels here (``csrc/``), built with nvcc at first use.
 
     import byteps_tpu_torch as bps

@@ -11,7 +11,9 @@ BYTEPS_PARTITION_BYTES, BYTEPS_SCHEDULING_CREDIT and the server's engine
 threads (global.cc:134-176, server.cc:412-456). The PS train step's host
 tier reads five knobs of the JAX package's own (byteps_tpu/config.py):
 BYTEPS_FUSION_BYTES, BYTEPS_STREAM_EXPORT, BYTEPS_SHARDED_APPLY,
-BYTEPS_LOCAL_SHARD_EXPORT and BYTEPS_SHARD_MIN_BYTES.
+BYTEPS_LOCAL_SHARD_EXPORT and BYTEPS_SHARD_MIN_BYTES. The scheduler's
+wire reads three more (byteps_tpu/config.py:171,201-202):
+BYTEPS_FUSED_PUSHPULL, BYTEPS_WIRE_RETRY and BYTEPS_WIRE_BACKOFF_MS.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ DEFAULT_FUSION_BYTES = 2097152
 # Leaves below this many bytes keep whole-leaf keys on the locality-shard
 # export (byteps_tpu).
 DEFAULT_SHARD_MIN_BYTES = 65536
+# The wire retry's backoff doubles per attempt up to this (byteps_tpu).
+WIRE_BACKOFF_CAP_MS = 2000.0
 
 
 def _env_int(name: str, default: int) -> int:
@@ -86,6 +90,17 @@ class Config:
     local_shard_export: bool = True       # BYTEPS_LOCAL_SHARD_EXPORT
     shard_min_bytes: int = DEFAULT_SHARD_MIN_BYTES  # BYTEPS_SHARD_MIN_BYTES
 
+    # --- the wire (byteps_tpu/config.py:171,201-202) ---
+    # one PUSHPULL message per partition and round; off: a PUSH, then a
+    # blocking PULL (the two-op path), numerically the same
+    fused_pushpull: bool = True           # BYTEPS_FUSED_PUSHPULL
+    # retries of a failed wire exchange after the first attempt (0: fail
+    # on the first error), and the first backoff, doubling per attempt
+    # up to WIRE_BACKOFF_CAP_MS; a retry to a dead server first moves
+    # that server's keys to the survivors
+    wire_retry: int = 2                   # BYTEPS_WIRE_RETRY
+    wire_backoff_ms: float = 50.0         # BYTEPS_WIRE_BACKOFF_MS
+
     # --- server ---
     server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
 
@@ -115,5 +130,8 @@ class Config:
             local_shard_export=_env_bool("BYTEPS_LOCAL_SHARD_EXPORT", True),
             shard_min_bytes=_env_int("BYTEPS_SHARD_MIN_BYTES",
                                      DEFAULT_SHARD_MIN_BYTES),
+            fused_pushpull=_env_bool("BYTEPS_FUSED_PUSHPULL", True),
+            wire_retry=_env_int("BYTEPS_WIRE_RETRY", 2),
+            wire_backoff_ms=float(_env_str("BYTEPS_WIRE_BACKOFF_MS", "50")),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
         )

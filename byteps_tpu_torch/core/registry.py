@@ -16,15 +16,20 @@ on one server:
 
 - locality shards: ``declare_shards`` splits a leaf into equal subrange
   keys named ``shard_name`` (the JAX names, so a mixed fleet agrees);
-  ``free`` retires a key.
+  ``free`` retires a key;
+- crash migration (``migrate_server``): a dead server's partitions move
+  to the least-loaded survivors, the same way on every worker, and the
+  dead server takes no new key.
 
-Not yet ported: rebalance, live migration and the colocated mixed mode.
+Not yet ported: the elastic join and drain plans (``plan_join``,
+``plan_drain``, ``rebalance``) and the colocated mixed mode.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Set, Tuple
 
 from ..config import PAGE_SIZE, Config
 from ..utils.logging import log
@@ -77,8 +82,20 @@ def _check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+@dataclasses.dataclass(frozen=True)
+class RebalanceMove:
+    """One partition's move from server ``src`` to ``dst``."""
+
+    key: int
+    src: int
+    dst: int
+    length: int
+
+
 class TensorRegistry:
-    """Thread-safe name -> TensorContext table with stable key assignment."""
+    """Thread-safe name -> TensorContext table with stable key assignment.
+    ``_contexts`` keeps declaration order, the order every migration plan
+    walks."""
 
     def __init__(self, config: Config):
         self._config = config
@@ -91,6 +108,11 @@ class TensorRegistry:
         # staging arena (core/arena.py): re-partitioning a tensor makes
         # its staged slot sizes stale, so the registry drops them
         self._arena = None
+        # servers that migrate_server declared dead, out of every later
+        # assignment, and the routing fence, bumped by each migration
+        # that moved keys
+        self._dead_servers: Set[int] = set()           # guarded-by: _lock
+        self._routing_version = 0                      # guarded-by: _lock
 
     def attach_arena(self, arena) -> None:
         self._arena = arena
@@ -154,16 +176,20 @@ class TensorRegistry:
     def _assign_server_locked(self, key: int, length: int) -> int:
         num_servers = max(1, self._config.num_servers)
         fn_name = self._config.key_hash_fn
+        # dead servers are masked out: the hash maps onto the survivors'
+        # list (all servers while none died, so healthy assignments do
+        # not change); with every server dead the wire fails instead
+        alive = [s for s in range(num_servers)
+                 if s not in self._dead_servers] or list(range(num_servers))
         if num_servers == 1:
             server = 0
         elif fn_name == "mixed":
             # least-loaded; deterministic across workers, which declare in
             # the same order
-            server = min(range(num_servers),
-                         key=lambda s: self._server_load[s])
+            server = min(alive, key=lambda s: self._server_load[s])
         else:
             fn = _HASH_FNS.get(fn_name, _hash_djb2)
-            server = fn(str(key)) % num_servers
+            server = alive[fn(str(key)) % len(alive)]
         self._server_load[server] += length
         return server
 
@@ -203,3 +229,97 @@ class TensorRegistry:
         with self._lock:
             return list(self._server_load)
 
+
+    def contexts_in_order(self) -> List[TensorContext]:
+        with self._lock:
+            return list(self._contexts.values())
+
+    # ---- crash migration (byteps_tpu/core/registry.py:441-530, 631) ---- #
+
+    @property
+    def routing_version(self) -> int:
+        """Bumped once for each migration that moved keys."""
+        with self._lock:
+            return self._routing_version
+
+    def dead_servers(self) -> List[int]:
+        with self._lock:
+            return sorted(self._dead_servers)
+
+    def alive_servers(self) -> List[int]:
+        with self._lock:
+            return [s for s in range(max(1, self._config.num_servers))
+                    if s not in self._dead_servers]
+
+    def _partitions_locked(self) -> Iterator[Tuple[str, Partition]]:
+        """(name, partition) in declaration order: the order in which
+        every worker computes a plan, so that workers with the same
+        declarations get the same plan."""
+        for name, ctx in self._contexts.items():
+            for p in ctx.partitions:
+                yield name, p
+
+    def _moves_off_locked(self, server: int, alive: List[int],
+                          keys: Optional[set] = None
+                          ) -> List[RebalanceMove]:
+        """Each partition of ``server`` (of ``keys`` only, if given) to
+        the least-loaded server of ``alive`` at that point; on a copy of
+        the load table."""
+        loads = list(self._server_load)
+        moves: List[RebalanceMove] = []
+        for _, p in self._partitions_locked():
+            if p.server != server or (keys is not None
+                                      and p.key not in keys):
+                continue
+            dst = min(alive, key=lambda s: loads[s])
+            loads[server] -= p.length
+            loads[dst] += p.length
+            moves.append(RebalanceMove(p.key, server, dst, p.length))
+        return moves
+
+    def _apply_moves_locked(self, moves: List[RebalanceMove]) -> List[int]:
+        """Re-target each moved ``Partition.server`` in place (a task that
+        holds the partition re-routes with it) and move its load."""
+        parts = {p.key: p for _, p in self._partitions_locked()}
+        for m in moves:
+            p = parts.get(m.key)
+            if p is None or p.server != m.src:
+                raise RuntimeError(
+                    f"migration plan does not match the routing table: "
+                    f"key {m.key} expected on server {m.src}, found "
+                    f"{'missing' if p is None else p.server}")
+        for m in moves:
+            p = parts[m.key]
+            self._server_load[m.src] -= p.length
+            self._server_load[m.dst] += p.length
+            p.server = m.dst
+        return [m.key for m in moves]
+
+    def migrate_server(self, dead_server: int,
+                       keys: Optional[set] = None) -> List[int]:
+        """Move every partition of ``dead_server`` (of ``keys`` only, if
+        given) to the least-loaded surviving server and keep the dead one
+        out of every later assignment. Deterministic across workers: each
+        walks the same declarations with the same loads. The adoptive
+        server starts each moved key from a new store (the caller
+        re-inits it and re-pushes the round). Returns the moved keys, for
+        the client's init cache; raises when no server survives."""
+        with self._lock:
+            self._dead_servers.add(dead_server)
+            num = max(1, self._config.num_servers)
+            alive = [s for s in range(num) if s not in self._dead_servers]
+            if not alive:
+                raise RuntimeError(
+                    f"server {dead_server} is dead and no surviving "
+                    f"server remains ({num} declared, all dead): the PS "
+                    f"fleet is gone")
+            migrated = self._apply_moves_locked(
+                self._moves_off_locked(dead_server, alive, keys))
+            if migrated:
+                self._routing_version += 1
+                log.warning(
+                    "registry: migrated %d partition(s) off dead server "
+                    "%d (routing_version=%d, survivors=%s)",
+                    len(migrated), dead_server, self._routing_version,
+                    alive)
+            return migrated

@@ -4,8 +4,10 @@ Port of byteps_tpu/core/scheduler.py, trimmed to what the PS train step
 uses: dense tensors and host-compressed ones (``submit``, with the
 COMPRESS and DECOMPRESS stages around the wire) and prebuilt wire
 payloads of the device tier (``submit_wire``), each through the fused
-WIRE stage, one PUSHPULL message per partition, with the reference's
-worker-side scheduling (scheduled_queue.cc, core_loops.cc):
+WIRE stage, one PUSHPULL message per partition, or with
+BYTEPS_FUSED_PUSHPULL off through the two-op path (a PUSH stage, then a
+blocking PULL stage), with the reference's worker-side scheduling
+(scheduled_queue.cc, core_loops.cc):
 
 - ``ScheduledQueue``: tasks ordered by (priority desc, key asc), admitted
   while the in-flight byte credit lasts (BYTEPS_SCHEDULING_CREDIT), and
@@ -18,14 +20,25 @@ worker-side scheduling (scheduled_queue.cc, core_loops.cc):
 - ``HandleManager``: integer handles (torch/handle_manager.cc), with
   done-callbacks that drive the train step's completion-ordered drain.
 
-Each task carries its key's round number in the epoch stamp. Priority is
+A wire exchange that fails is retried (``_fail_or_retry``): up to
+BYTEPS_WIRE_RETRY times after the first attempt, after a backoff of
+BYTEPS_WIRE_BACKOFF_MS doubling per attempt (capped at 2 s). Each task
+carries its key's round and its attempt in the epoch stamp, so the
+server folds a replayed push once. A retry whose server the client
+reports dead first moves that server's keys to the survivors
+(``registry.migrate_server``), re-inits them there and re-installs a
+host codec's kwargs. When the budget is spent, or no server survives,
+the round fails with an error that names the flight record's dump
+(``core/flight.py``). The plain int counters ``retries``,
+``server_failovers`` and ``key_migrations`` count these events.
+
+Priority is
 -declared_key by default (front-of-model tensors win ties,
 tensorflow/ops.cc:155-158), or the measured production order of the
 streamed export (``production_priority``), pinned per key at its first
 submission.
 
-Not yet ported: the two-op PUSH/PULL fallback, wire retry and server
-failover, rowsparse submission and the codec plane.
+Not yet ported: rowsparse submission and the codec plane.
 """
 
 from __future__ import annotations
@@ -38,7 +51,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..config import WIRE_BACKOFF_CAP_MS, Config
 from ..utils.logging import log
+from . import flight
 from .arena import usable_staging
 from .types import (
     DataType, Partition, RequestType, TensorContext, get_command_type,
@@ -140,7 +155,7 @@ class PartitionTask:
 
     __slots__ = ("ctx", "partition", "priority", "version", "in_view",
                  "out_view", "group", "cmd", "wire", "pull_len", "stack",
-                 "step", "lease", "round_no")
+                 "step", "lease", "round_no", "attempt", "sent_to")
 
     def __init__(self, ctx, partition, priority, version, out_view, group,
                  cmd, wire=None, pull_len=None, in_view=None, stack=None,
@@ -159,12 +174,17 @@ class PartitionTask:
         self.step = step           # compression round of the stack
         self.lease = None          # arena scratch of a compressed reply
         self.round_no = 0          # per-key submission ordinal
+        self.attempt = 0           # wire retries of this round so far
+        self.sent_to = None        # the two-op push's server, which its pull asks
 
     @property
     def epoch(self) -> int:
-        """Replay stamp (round << 16) | attempt; no retries here, so the
-        attempt is 0. The server folds each (key, sender, round) once."""
-        return self.round_no << 16
+        """Replay stamp (round << 16) | attempt: the server folds each
+        (key, sender, round) once, so a replayed push never counts twice.
+        Round 0 (a task built outside ``submit``) sends 0, unstamped."""
+        if not self.round_no:
+            return 0
+        return (self.round_no << 16) | (self.attempt & 0xFFFF)
 
     @property
     def key(self) -> int:
@@ -304,7 +324,7 @@ class HandleManager:
 
 
 class PipelineScheduler:
-    """Priority-scheduled fused PUSHPULL.
+    """Priority-scheduled PUSHPULL, fused or two-op, with bounded retry.
 
     The dispatcher is the only consumer of the queue, so credit and
     priority order are decided in one place. An admitted task goes to the
@@ -312,17 +332,48 @@ class PipelineScheduler:
     the WIRE stage, which sends one fused PUSHPULL and returns its thread;
     the reply lands in the task's buffer from the native recv loop, and
     the client's completion reactor hands the rest to a pool thread: the
-    DECOMPRESS stage, or the finish. Credit is held from admission until
-    the finish."""
+    DECOMPRESS stage, or the finish. On the two-op path (``fused`` off,
+    or a client without the fused op) the PUSH stage sends the push and
+    the PULL stage, on the pull pool, blocks on the reply. Credit is held
+    from admission until the finish, retries included.
+
+    ``registry``: the tensor registry whose routing a failover migrates
+    (None: a dead server's keys cannot move, and its rounds fail).
+    ``config``: the wire knobs (fused_pushpull, wire_retry,
+    wire_backoff_ms); None reads them from the environment."""
 
     def __init__(self, client, num_threads: int = 8, credit_bytes: int = 0,
-                 arena=None):
-        if not getattr(client, "supports_fused", False):
-            raise NotImplementedError(
-                "the two-op PUSH/PULL pipeline is not yet ported to "
-                "byteps_tpu_torch: the client must speak the fused "
-                "PUSHPULL op")
+                 arena=None, registry=None, config: Optional[Config] = None):
+        cfg = config if config is not None else Config.from_env()
         self._client = client
+        self._fused = cfg.fused_pushpull and \
+            getattr(client, "supports_fused", False)
+        self._registry = registry
+        self._retry_max = max(0, int(cfg.wire_retry))
+        self._backoff_ms = max(1.0, float(cfg.wire_backoff_ms))
+        self._stopping = False
+        # backoff timers still to fire: id(task) -> (timer, task); stop()
+        # fails them, so no handle waits on a retry that never runs
+        self._retry_mu = threading.Lock()
+        self._pending_retries: Dict[int, tuple] = {}  # guarded-by: _retry_mu
+        # servers already failed over (one migration per death); held
+        # across a whole migration, so a partition never reads a routing
+        # table half re-targeted
+        self._failover_mu = threading.Lock()
+        self._migrated_servers: set = set()  # guarded-by: _failover_mu
+        # moved keys not yet re-inited on their adoptive server: a task of
+        # one that never failed (queued when its server died) re-inits it
+        # before its first send there, since the server refuses a push to
+        # a key it has no store for, and on the two-op path that refusal
+        # fails the whole connection
+        self._rehomed: set = set()           # guarded-by: _failover_mu
+        self._failovers_done = 0             # guarded-by: _failover_mu
+        # the fault counters (the JAX package's wire/retries,
+        # wire/server_failovers and registry/migrations)
+        self._count_mu = threading.Lock()
+        self.retries = 0                     # guarded-by: _count_mu
+        self.server_failovers = 0            # guarded-by: _count_mu
+        self.key_migrations = 0              # guarded-by: _count_mu
         self._arena = arena        # scratch for compressed replies
         self._queue = ScheduledQueue(credit_bytes)
         self._push_pool = concurrent.futures.ThreadPoolExecutor(
@@ -388,16 +439,33 @@ class PipelineScheduler:
                 self._key_priority[ctx.declared_key] = pinned
             return pinned
 
+    @property
+    def fused(self) -> bool:
+        """True when the wire is one fused PUSHPULL per partition."""
+        return self._fused
+
+    def counters(self) -> Dict[str, int]:
+        """The fault counters and the bytes pushed so far."""
+        with self._count_mu:
+            out = {"retries": self.retries,
+                   "server_failovers": self.server_failovers,
+                   "key_migrations": self.key_migrations}
+        with self._bytes_mu:
+            out["bytes_pushed"] = self.bytes_pushed
+        return out
+
+    def _wire_entry(self):
+        return self._do_wire if self._fused else self._do_push
+
     def _dispatch(self) -> None:
         while True:
             task = self._queue.get_task()
             if task is None:
                 return
-            stage = self._do_compress if task.stack is not None \
-                else self._do_wire
-            pool = self._codec_pool if task.stack is not None \
-                else self._push_pool
-            self._submit_stage(pool, stage, task)
+            if task.stack is not None:
+                self._submit_stage(self._codec_pool, self._do_compress, task)
+            else:
+                self._submit_stage(self._push_pool, self._wire_entry(), task)
 
     def _submit_stage(self, pool, fn, task: PartitionTask) -> None:
         try:
@@ -413,23 +481,211 @@ class PipelineScheduler:
         except Exception as e:  # noqa: BLE001 - forwarded to the waiter
             self._finish(task, e)
             return
-        self._submit_stage(self._push_pool, self._do_wire, task)
+        self._submit_stage(self._push_pool, self._wire_entry(), task)
+
+    # ---- bounded retry and server failover ---------------------------- #
+
+    @staticmethod
+    def _retryable(err: Exception) -> bool:
+        """Wire failures retry (an error reply, a timeout, a lost
+        connection, a failed send); a programming error (ValueError and
+        the like) fails the round at once."""
+        return isinstance(err, (RuntimeError, TimeoutError, OSError))
+
+    def _fail_or_retry(self, task: PartitionTask, err: Exception) -> None:
+        """A wire stage failed: replay the partition's whole exchange
+        after the backoff, from the PUSH (or fused) stage; after the
+        budget, fail the round with an error that names the flight dump
+        (byteps_tpu/core/scheduler.py:778)."""
+        if (self._stopping or task.attempt >= self._retry_max
+                or not self._retryable(err)):
+            if task.attempt > 0 and self._retryable(err):
+                budget_ms = sum(
+                    min(self._backoff_ms * (2 ** a), WIRE_BACKOFF_CAP_MS)
+                    for a in range(task.attempt))
+                err = self._fatal_wire_error(task, RuntimeError(
+                    f"push_pull {task.ctx.name!r} key={task.key} failed "
+                    f"after {task.attempt + 1} attempts over "
+                    f"~{budget_ms:.0f}ms of backoff "
+                    f"(BYTEPS_WIRE_RETRY={self._retry_max}, "
+                    f"BYTEPS_WIRE_BACKOFF_MS={self._backoff_ms:g}): "
+                    f"{err}"))
+            self._finish(task, err)
+            return
+        task.attempt += 1
+        flight.record("wire_retry", key=task.key,
+                      detail=f"{task.ctx.name} attempt={task.attempt} "
+                             f"server={task.partition.server} err={err}")
+        with self._count_mu:
+            self.retries += 1
+        # the reply scratch may be half written: never recycle it
+        if task.lease is not None:
+            task.lease.abandon()
+            task.lease = None
+        delay = min(self._backoff_ms * (2 ** (task.attempt - 1)),
+                    WIRE_BACKOFF_CAP_MS) / 1000.0
+        log.warning("push_pull %r key=%d: wire attempt %d failed (%s); "
+                    "retrying in %.0fms (%d/%d)", task.ctx.name, task.key,
+                    task.attempt, err, delay * 1e3, task.attempt,
+                    self._retry_max)
+
+        def fire():
+            with self._retry_mu:
+                if self._pending_retries.pop(id(task), None) is None:
+                    return      # stop() claimed it and failed the task
+            try:
+                self._prepare_retry(task)
+            except Exception as e:  # noqa: BLE001 - forwarded to the waiter
+                # the dead fleet's fail-fast lands here (migrate_server
+                # finds no survivor): it names the dump too
+                self._finish(task, self._fatal_wire_error(task, e))
+                return
+            self._submit_stage(self._push_pool, self._wire_entry(), task)
+
+        timer = threading.Timer(delay, fire)
+        timer.daemon = True
+        with self._retry_mu:
+            if self._stopping:
+                stopped = True
+            else:
+                stopped = False
+                self._pending_retries[id(task)] = (timer, task)
+        if stopped:
+            self._finish(task, RuntimeError(
+                "scheduler stopped with the retry pending"))
+            return
+        timer.start()
+
+    def _fatal_wire_error(self, task: PartitionTask,
+                          err: Exception) -> Exception:
+        """A round fails for good: record it, dump the flight record and
+        return the error with the dump's path appended."""
+        flight.record("round_failed", key=task.key,
+                      detail=f"{task.ctx.name} "
+                             f"attempts={task.attempt + 1} err={err}")
+        path = flight.dump(reason="wire-fail-fast")
+        if not path:
+            return err
+        return RuntimeError(f"{err} — flight record dumped to {path}")
+
+    def _prepare_retry(self, task: PartitionTask) -> None:
+        """Before a retry: if the client reports the partition's server
+        dead, migrate that server's keys (once per death) so the task's
+        partition points at a survivor; then init any key of the tensor
+        that its (new) server has no store for, and re-install a host
+        codec's kwargs there. Raises when the server is dead and the key
+        cannot move (no registry, or no survivor)."""
+        # a migration re-targets the partitions, drops their init cache
+        # entries and marks them re-homed under the failover lock: read
+        # the route under it, never halfway through
+        with self._failover_mu:
+            srv = task.partition.server
+        probe = getattr(self._client, "server_dead", None)
+        if probe is not None and probe(srv):
+            self._failover_server(srv)
+            if task.partition.server == srv:
+                raise RuntimeError(
+                    f"server {srv} is dead and key migration is "
+                    f"unavailable (no registry) — cannot re-route key "
+                    f"{task.key}")
+        self._reinstall(task)
+
+    def _reinstall(self, task: PartitionTask) -> None:
+        """Init the task's tensor where its server has no store for it (a
+        sibling's failover may have moved its keys): ``ensure_init`` is a
+        lookup for keys already inited, and an init push (the store, the
+        init barrier of all workers) for a moved one. A host codec's
+        server state died with its server: its kwargs go again (a
+        matching COMP_INIT on a store that has it is a no-op)."""
+        with self._failover_mu:
+            gen = self._failovers_done
+        ensure = getattr(self._client, "ensure_init", None)
+        ctx = task.ctx
+        if ensure is not None and ctx.nbytes and \
+                ctx.nbytes == sum(p.length for p in ctx.partitions):
+            ensure(ctx, ctx.nbytes)
+        if task.stack is not None:
+            comp_init = getattr(self._client, "comp_init", None)
+            if comp_init is not None:
+                comp_init(task.partition.server, task.key,
+                          task.stack.kwargs_wire())
+        with self._failover_mu:
+            # a failover since the init read the cache: the key stays
+            # marked, and the send re-inits it
+            if gen == self._failovers_done:
+                self._rehomed.discard(task.key)
+
+    def _route(self, task: PartitionTask) -> Optional[int]:
+        """The server to send the task to, read under the failover lock
+        so that it and the re-init state agree; a key moved since the
+        task was queued is re-inited there first. None when that failed
+        (the task is then retried or failed)."""
+        with self._failover_mu:
+            server = task.partition.server
+            moved = task.key in self._rehomed
+        if not moved:
+            return server
+        try:
+            self._reinstall(task)
+        except Exception as e:  # noqa: BLE001 - retried or forwarded
+            self._fail_or_retry(task, e)
+            return None
+        return task.partition.server
+
+    def _failover_server(self, srv: int) -> None:
+        with self._failover_mu:
+            if srv in self._migrated_servers or self._registry is None:
+                return
+            migrated = self._registry.migrate_server(srv)
+            self._migrated_servers.add(srv)
+            if not migrated:
+                return
+            invalidate = getattr(self._client, "invalidate_init", None)
+            if invalidate is not None:
+                invalidate(migrated)
+            self._rehomed.update(migrated)
+            self._failovers_done += 1
+            flight.record("server_failover", key=srv,
+                          detail=f"server={srv} migrated_keys="
+                                 f"{len(migrated)}")
+            for k in migrated:
+                flight.record("key_migration", key=k,
+                              detail=f"from_server={srv}")
+            with self._count_mu:
+                self.server_failovers += 1
+                self.key_migrations += len(migrated)
+        log.warning("scheduler: server %d declared dead; %d key(s) "
+                    "migrated to survivors, re-routing in-flight retries",
+                    srv, len(migrated))
+
+    def _reply_buffer(self, task: PartitionTask) -> np.ndarray:
+        """Where the reply lands: a compressed reply in (arena) scratch,
+        which DECOMPRESS decodes into ``out_view``; the rest in
+        ``out_view``."""
+        if task.stack is None:
+            return task.out_view
+        wb = task.stack.wire_bytes()
+        if self._arena is not None:
+            task.lease = self._arena.checkout(f"pull:{task.key}", wb)
+            return task.lease.buf
+        return np.empty(wb, np.uint8)
+
+    def _count_push(self, n: int) -> None:
+        with self._bytes_mu:
+            self.bytes_pushed += n
 
     def _do_wire(self, task: PartitionTask) -> None:
         """The fused WIRE stage: one PUSHPULL message; the reactor runs
         the continuation when the round's aggregate has landed."""
+        server = self._route(task)
+        if server is None:
+            return
         buf = task.wire if task.wire is not None else task.in_view
-        if task.stack is not None:
-            # the compressed reply lands in scratch; DECOMPRESS writes the
-            # result into out_view
-            wb = task.stack.wire_bytes()
-            if self._arena is not None:
-                task.lease = self._arena.checkout(f"pull:{task.key}", wb)
-                reply = task.lease.buf
-            else:
-                reply = np.empty(wb, np.uint8)
-        else:
-            reply = task.out_view
+        try:
+            reply = self._reply_buffer(task)
+        except Exception as e:  # noqa: BLE001 - forwarded to the waiter
+            self._finish(task, e)
+            return
         # a dense reply is the whole partition, a codec reply its wire
         want = task.pull_len if task.pull_len is not None else len(reply)
 
@@ -438,26 +694,68 @@ class PipelineScheduler:
                 err = RuntimeError(
                     f"fused pushpull reply for {task.ctx.name!r} "
                     f"key={task.key} is {got} bytes, expected {want}")
-            if err is None and task.stack is not None:
+            if err is not None:
+                self._fail_or_retry(task, err)
+                return
+            if task.stack is not None:
                 task.wire = reply
                 self._submit_stage(self._codec_pool, self._do_decompress,
                                    task)
                 return
             try:
-                self._pull_pool.submit(self._finish, task, err)
+                self._pull_pool.submit(self._finish, task, None)
             except RuntimeError as e:
                 self._finish(task, e)
 
         # counted before the send: the reply may finish the round before
         # the send call returns
-        with self._bytes_mu:
-            self.bytes_pushed += len(buf)
+        self._count_push(len(buf))
         try:
             self._client.zpushpull_async(
-                task.partition.server, task.key, buf, reply, task.cmd,
-                on_done, epoch=task.epoch)
-        except Exception as e:  # noqa: BLE001 - forwarded to the waiter
-            self._finish(task, e)
+                server, task.key, buf, reply, task.cmd, on_done,
+                epoch=task.epoch)
+        except Exception as e:  # noqa: BLE001 - retried or forwarded
+            self._fail_or_retry(task, e)
+
+    def _do_push(self, task: PartitionTask) -> None:
+        """The two-op PUSH stage: send the push (the ACK drains in the
+        background; a reject surfaces on the pull), then queue the PULL
+        (byteps_tpu/core/scheduler.py:1090)."""
+        server = self._route(task)
+        if server is None:
+            return
+        buf = task.wire if task.wire is not None else task.in_view
+        self._count_push(len(buf))
+        task.sent_to = server
+        try:
+            self._client.zpush_async(server, task.key, buf, task.cmd,
+                                     epoch=task.epoch)
+        except Exception as e:  # noqa: BLE001 - retried or forwarded
+            self._fail_or_retry(task, e)
+            return
+        self._submit_stage(self._pull_pool, self._do_pull, task)
+
+    def _do_pull(self, task: PartitionTask) -> None:
+        """The two-op PULL stage: block on the key's aggregate. A failure
+        replays the whole exchange from the push: the epoch stamp dedups
+        the replayed push (byteps_tpu/core/scheduler.py:1136)."""
+        try:
+            reply = self._reply_buffer(task)
+            got = self._client.zpull(
+                task.sent_to, task.key, reply, task.cmd,
+                exact=task.stack is None and task.pull_len is None)
+            if task.pull_len is not None and got != task.pull_len:
+                raise RuntimeError(
+                    f"pull reply for {task.ctx.name!r} key={task.key} is "
+                    f"{got} bytes, expected {task.pull_len}")
+        except Exception as e:  # noqa: BLE001 - retried or forwarded
+            self._fail_or_retry(task, e)
+            return
+        if task.stack is not None:
+            task.wire = reply[:got]
+            self._submit_stage(self._codec_pool, self._do_decompress, task)
+        else:
+            self._finish(task, None)
 
     def _do_decompress(self, task: PartitionTask) -> None:
         from ..server.compressed import decompress_partition
@@ -567,8 +865,17 @@ class PipelineScheduler:
                 group.partition_done(e)
 
     def stop(self) -> None:
-        """Fail queued tasks and stop the stage threads; in-flight fused
-        requests are failed by the client's close."""
+        """Fail the retries still waiting and the queued tasks, and stop
+        the stage threads; in-flight fused requests are failed by the
+        client's close."""
+        with self._retry_mu:
+            self._stopping = True
+            pending = list(self._pending_retries.values())
+            self._pending_retries.clear()
+        for timer, task in pending:
+            timer.cancel()
+            self._finish(task, RuntimeError(
+                "scheduler stopped with the wire retry still pending"))
         self._queue.stop()
         self._dispatcher.join(timeout=5)
         for pool in (self._codec_pool, self._push_pool, self._pull_pool):

@@ -20,7 +20,10 @@ PS round, as NCCL is in BytePS. The group is one PS worker: every rank
 connects under the machine's worker id (``server.client.ps_worker_id``),
 because on the locality-shard export each rank pushes its own shard
 keys; whole-leaf keys are pushed by the local root alone, and only the
-root sends SHUTDOWN, after a barrier of the group.
+root sends SHUTDOWN, after a barrier of the group. The scheduler gets the
+registry, whose routing its failover migrates, and the wire knobs
+(BYTEPS_FUSED_PUSHPULL, BYTEPS_WIRE_RETRY, BYTEPS_WIRE_BACKOFF_MS); the
+flight recorder (``core/flight.py``) is armed afresh for each ``init``.
 """
 
 from __future__ import annotations
@@ -155,6 +158,7 @@ class GlobalState:
         if not self._ps_mode():
             return
         from ..server.client import connect_from_config
+        from . import flight
         from .arena import StagingArena
         from .registry import TensorRegistry
         from .scheduler import HandleManager, PipelineScheduler
@@ -162,10 +166,11 @@ class GlobalState:
         self.registry = TensorRegistry(cfg)
         self.registry.attach_arena(self.arena)
         self._version = {}
+        flight.configure()
         self.ps_client = connect_from_config(cfg)
         self.scheduler = PipelineScheduler(
             self.ps_client, credit_bytes=cfg.scheduling_credit,
-            arena=self.arena)
+            arena=self.arena, registry=self.registry, config=cfg)
         self.handles = HandleManager()
 
     @property

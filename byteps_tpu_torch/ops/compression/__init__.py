@@ -6,15 +6,13 @@ Port of byteps_tpu/ops/compression/__init__.py:
   reference's CompressorRegistry (compressor_registry.cc:39-56), keys as
   in BytePS's python surface (``compressor``, ``ef``, ``momentum``,
   ``scaling``, ``momentum_mu``, and for randomk/dithering ``k``,
-  ``seed``, ``s``, ``partition_type``, ``normalize_type``). Onebit,
-  randomk and dithering are ported; topk raises "not yet ported" and
-  never falls back.
+  ``seed``, ``s``, ``partition_type``, ``normalize_type``, and for topk
+  ``k`` and ``approx``): onebit, topk, randomk and dithering.
 - ``compressed_psum_tree``: each replica compresses its gradient, the
   payloads are all-gathered over the ``dp`` group, and every replica
-  decompresses and sums them (core_loops.cc:498-648 collapsed into one
-  collective, as in the JAX package). Onebit only so far: randomk and
-  dithering reach the wire through the PS path
-  (``training.make_ps_train_step``).
+  decompresses each rank's payload and sums them in rank order
+  (core_loops.cc:498-648 collapsed into one collective, as in the JAX
+  package), for every codec.
 - ``CompressionTransform``: the per-leaf EF/momentum state and step count
   that ``training.DistributedOptimizer`` carries.
 """
@@ -28,20 +26,22 @@ import torch.distributed as dist
 
 from ...config import DEFAULT_MIN_COMPRESS_BYTES
 from ..push_pull import all_reduce_
+from . import kernels as K
 from .codecs import (
-    Codec, DitheringCodec, OnebitCodec, RandomkCodec, resolve_k,
+    Codec, DitheringCodec, OnebitCodec, RandomkCodec, TopkCodec, resolve_k,
 )
 from .feedback import CompressorStack
 
 __all__ = [
-    "Codec", "OnebitCodec", "RandomkCodec", "DitheringCodec",
+    "Codec", "OnebitCodec", "TopkCodec", "RandomkCodec", "DitheringCodec",
     "CompressorStack", "resolve_k",
     "make_compressor", "default_stacks", "compressed_psum_tree",
     "CompressionTransform", "NOT_YET_PORTED",
 ]
 
-# codecs of the JAX package that the port does not have yet
-NOT_YET_PORTED = ("topk",)
+# codecs of the JAX package that the port does not have yet (the host
+# tier's lossless codec; make_compressor has no such name in either)
+NOT_YET_PORTED = ("lossless",)
 
 
 def parse_bool_kwarg(kwargs: Dict[str, str], name: str,
@@ -77,6 +77,10 @@ def _make_codec(name: str, kwargs: Dict[str, str], size: int) -> Codec:
     if name == "onebit":
         return OnebitCodec(size=size,
                            scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
+    if name == "topk":
+        return TopkCodec(size=size,
+                         k=resolve_k(float(kwargs.get("k", 0.01)), size),
+                         approx=parse_bool_kwarg(kwargs, "approx"))
     if name == "randomk":
         return RandomkCodec(size=size,
                             k=resolve_k(float(kwargs.get("k", 0.01)), size),
@@ -90,7 +94,7 @@ def _make_codec(name: str, kwargs: Dict[str, str], size: int) -> Codec:
                           seed=int(kwargs.get("seed", 0)))
 
 
-PORTED = ("onebit", "randomk", "dithering")
+PORTED = ("onebit", "topk", "randomk", "dithering")
 
 
 def make_compressor(kwargs: Dict[str, str], size: int) -> CompressorStack:
@@ -135,14 +139,63 @@ def default_stacks(params: Sequence[torch.Tensor], kwargs: Dict[str, str],
             else None for p in params]
 
 
+def _to_bytes(payload: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A payload as one flat uint8 tensor: its arrays' bytes in key
+    order."""
+    return torch.cat([payload[k].contiguous().reshape(-1).view(torch.uint8)
+                      for k in sorted(payload)])
+
+
+def _from_bytes(raw: torch.Tensor,
+                like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``_to_bytes`` for a payload shaped as ``like``."""
+    out, off = {}, 0
+    for k in sorted(like):
+        t = like[k]
+        nb = t.numel() * t.element_size()
+        piece = raw[off: off + nb]
+        if off % t.element_size():
+            piece = piece.clone()   # a view needs an aligned offset
+        out[k] = piece.view(t.dtype).reshape(t.shape)
+        off += nb
+    return out
+
+
+def rank_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of the ranks' decompressed payloads as jitted ``jnp.sum``
+    over the gathered axis adds them on XLA's CPU backend, element by
+    element: one rank is returned as it is; up to 32 are added from zero
+    in rank order; more go through the window levels of
+    ``kernels.xla_sum`` first. Each addition rounds once."""
+    if len(parts) == 1:
+        return parts[0].clone()
+    rows = parts
+    for n, m, lo in K._sum_levels(len(parts))[:-1]:
+        # a level of windows of 32 (zero padding: adding +0 to a sum
+        # that started from +0 changes no bit)
+        x = torch.stack(list(rows))
+        pad = x.new_zeros((m * K.SUM_WINDOW - n,) + x.shape[1:])
+        x = torch.cat([pad[:lo], x, pad[lo:]]).reshape(
+            (m, K.SUM_WINDOW) + x.shape[1:])
+        acc = torch.zeros_like(x[:, 0])
+        for j in range(K.SUM_WINDOW):
+            acc.add_(x[:, j])
+        rows = list(acc)
+    total = torch.zeros_like(rows[0])
+    for r in rows:
+        total.add_(r)
+    return total
+
+
 def compressed_psum_tree(grads: Sequence[torch.Tensor], states: Sequence,
                          stacks: Sequence[Optional[CompressorStack]],
                          group, step: int = 0, average: bool = True,
                          lr=None):
     """Reduce every gradient over ``group``: compressed leaves through
-    compress -> all_gather -> decompress and sum, the rest through
-    all_reduce. Returns (reduced_grads, new_states); inputs are not
-    modified."""
+    compress -> all_gather of the payload's bytes -> decompress of each
+    rank's payload -> the sum in rank order (``rank_sum``), the rest
+    through all_reduce (byteps_tpu/ops/compression/__init__.py:168-203).
+    Returns (reduced_grads, new_states); inputs are not modified."""
     n = dist.get_world_size(group)
     out, new_states = [], []
     for g, st, stack in zip(grads, states, stacks):
@@ -150,24 +203,13 @@ def compressed_psum_tree(grads: Sequence[torch.Tensor], states: Sequence,
             out.append(all_reduce_(g.clone(), group, average))
             new_states.append(st)
             continue
-        if not isinstance(stack.codec, OnebitCodec):
-            raise NotImplementedError(
-                f"the collective compressed push_pull of "
-                f"{type(stack.codec).__name__} is not yet ported (onebit "
-                f"is); randomk and dithering run on the PS path, "
-                f"training.make_ps_train_step")
         flat = g.reshape(-1).to(torch.float32)
         payload, new_st = stack.compress(flat, st, step, lr=lr)
-        # one gather of the wire payload: the words, then the scale's bits
-        wire = torch.cat([payload["bits"],
-                          payload["scale"].reshape(1).view(torch.int32)])
+        wire = _to_bytes(payload)
         gathered = [torch.empty_like(wire) for _ in range(n)]
         dist.all_gather(gathered, wire, group=group)
-        gathered = torch.stack(gathered)                      # [n, words + 1]
-        dec = stack.decompress({
-            "bits": gathered[:, :-1].contiguous(),
-            "scale": gathered[:, -1].contiguous().view(torch.float32)})
-        total = dec.sum(dim=0)                                # dec [n, size]
+        total = rank_sum([stack.decompress(_from_bytes(w, payload))
+                          for w in gathered])
         if average:
             total = total / n
         out.append(total.reshape(g.shape).to(g.dtype))

@@ -1,8 +1,7 @@
 """Gradient-compression codecs over flat f32 tensors.
 
-Port of byteps_tpu/ops/compression/codecs.py. Onebit, randomk and
-dithering are ported; topk is not yet (ops/compression/__init__.py raises
-for it). A codec implements ``compress(x, step) -> payload`` and
+Port of byteps_tpu/ops/compression/codecs.py: onebit, topk, randomk and
+dithering. A codec implements ``compress(x, step) -> payload`` and
 ``decompress(payload) -> x_hat``; ``wire_bytes`` is the payload size.
 Randomk and dithering draw from the counter stream of ``rng.py`` seeded
 by (seed, step): the step is the compression round, and the server
@@ -78,6 +77,60 @@ def resolve_k(k_param: float, size: int) -> int:
     else:
         k = max(1, int(size * k_param))
     return min(k, size)
+
+
+def topk_select(x: torch.Tensor, k: int) -> torch.Tensor:
+    """int64 [k]: the indices of the ``k`` largest |x|, by (|x|
+    descending, index ascending), in that order: ``lax.top_k``'s order,
+    lower index first among equal values (x and -x tie too).
+    ``torch.topk`` promises no order among ties, so it only finds the
+    k-th largest |x|, t: every |x| > t is taken, then the elements equal
+    to t in index order until there are k, and a stable sort by |x|
+    descending orders them."""
+    a = x.abs()
+    n = a.numel()
+    if k >= n:
+        sel = torch.arange(n, device=x.device)
+    else:
+        t = torch.topk(a, k, sorted=False).values.min()
+        gt = a > t
+        eq = a == t
+        need = k - gt.sum()
+        sel = torch.nonzero(gt | (eq & (torch.cumsum(eq, 0) <= need))
+                            ).reshape(-1)               # ascending index
+    order = torch.sort(a[sel], descending=True, stable=True).indices
+    return sel[order]
+
+
+@dataclasses.dataclass(frozen=True)
+class TopkCodec(Codec):
+    """The k largest |x| as (index, value) pairs (topk.cc:24-43).
+
+    The JAX codec selects with ``lax.top_k``, XLA's sort unit on the TPU;
+    no Pallas kernel backs it, so the port selects with ``topk_select``
+    (a ``torch.topk`` threshold and a stable sort), which gives
+    ``lax.top_k``'s indices and order on ties bit for bit.
+    ``approx=True`` is the TPU's ApproxTopK there (recall about 0.95);
+    the exact selection meets that contract, so the flag is accepted and
+    the selection stays exact.
+    payload: ``indices`` int32 [k] (|x| descending), ``values`` f32 [k]
+    (``x[indices]``); ``decompress`` scatters them into zeros."""
+
+    k: int = 1
+    approx: bool = False
+
+    def compress(self, x: torch.Tensor, step: int = 0) -> Dict[str, Any]:
+        idx = topk_select(x, self.k)
+        return {"indices": idx.to(torch.int32), "values": x[idx]}
+
+    def decompress(self, payload: Dict[str, Any]) -> torch.Tensor:
+        vals = payload["values"]
+        out = torch.zeros(self.size, dtype=torch.float32, device=vals.device)
+        out[payload["indices"].long()] = vals
+        return out
+
+    def wire_bytes(self) -> int:
+        return self.k * 8
 
 
 @dataclasses.dataclass(frozen=True)

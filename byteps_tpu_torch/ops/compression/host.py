@@ -1,7 +1,7 @@
 """Host-side (numpy) wire codecs: the wire format of the PS path.
 
 Port of byteps_tpu/ops/compression/host.py, trimmed to what the PS train
-step reads: ``make_host_codec`` for onebit, randomk and dithering, with
+step reads: ``make_host_codec`` for onebit, topk, randomk and dithering, with
 the error-feedback and Nesterov momentum wrappers
 (``HostErrorFeedback``, ``HostNesterovMomentum``). The host-codec tier
 (``server/compressed.py``, ``device_compress=False``) compresses with
@@ -18,10 +18,11 @@ Wire layouts (little-endian), shared with the JAX package and the C++
 server (native/ps.cc CompressorCfg):
 
 - onebit:    uint32 bits[ceil(n/32)], then f32 scale
+- topk:      int32 idx[k] ascending, then f32 val[k] (``HostTopk.select``)
 - randomk:   int32 idx[k], then f32 val[k] (``rng.np_index_parallel``)
 - dithering: int8 levels[n], then f32 norm
 
-Not yet ported: topk, the lossless tier, dithering's varint index coding
+Not yet ported: the lossless tier, dithering's varint index coding
 and the native (C++) codec acceleration.
 """
 
@@ -83,6 +84,48 @@ class HostOnebit(HostCodec):
     def kwargs_wire(self) -> str:
         return (f"compressor=onebit;n={self.n};"
                 f"scaling={1 if self.scaled else 0}")
+
+
+@dataclasses.dataclass
+class HostTopk(HostCodec):
+    n: int
+    k: int
+
+    @staticmethod
+    def select(x: np.ndarray, k: int) -> np.ndarray:
+        """int32 [k], ascending: the top k by (|x| descending, index
+        ascending), the comparator of the JAX package's ``HostTopk`` and
+        of the C++ server (a NaN ranks below every number). It takes the
+        k-th largest |x| by a partition, every |x| above it, then the
+        elements equal to it in index order: the same set as a full
+        lexsort, in O(n)."""
+        a = np.abs(np.asarray(x, np.float32))
+        a[np.isnan(a)] = -1.0
+        n = a.shape[0]
+        if k >= n:
+            return np.arange(n, dtype=np.int32)
+        t = np.partition(a, n - k)[n - k]
+        above = np.flatnonzero(a > t)
+        ties = np.flatnonzero(a == t)[: k - above.size]
+        return np.sort(np.concatenate([above, ties])).astype(np.int32)
+
+    def compress(self, x: np.ndarray, step: int = 0) -> bytes:
+        x = np.ascontiguousarray(x, np.float32)
+        idx = self.select(x, self.k)
+        return idx.tobytes() + x[idx].astype(np.float32).tobytes()
+
+    def decompress(self, buf) -> np.ndarray:
+        raw = np.frombuffer(buf, np.uint8)
+        out = np.zeros(self.n, np.float32)
+        out[raw[: 4 * self.k].view(np.int32)] = raw[4 * self.k:].view(
+            np.float32)
+        return out
+
+    def wire_bytes(self) -> int:
+        return self.k * 8
+
+    def kwargs_wire(self) -> str:
+        return f"compressor=topk;n={self.n};k={self.k}"
 
 
 @dataclasses.dataclass
@@ -246,6 +289,10 @@ def make_host_codec(kwargs: Dict[str, str], n: int):
     if name == "onebit":
         codec: HostCodec = HostOnebit(
             n=n, scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
+    elif name == "topk":
+        # ``approx`` is the TPU's ApproxTopK in the JAX package; the
+        # host tier selects exactly there too
+        codec = HostTopk(n=n, k=resolve_k(float(kwargs.get("k", 0.01)), n))
     elif name == "randomk":
         codec = HostRandomk(n=n, k=resolve_k(float(kwargs.get("k", 0.01)), n),
                             seed=int(kwargs.get("seed", 0)))
@@ -259,7 +306,7 @@ def make_host_codec(kwargs: Dict[str, str], n: int):
             partition=kwargs.get("partition_type", "linear"),
             normalize=kwargs.get("normalize_type", "max"),
             seed=int(kwargs.get("seed", 0)))
-    elif name in NOT_YET_PORTED or name == "lossless":
+    elif name in NOT_YET_PORTED:
         raise NotImplementedError(
             f"host codec {name!r} is not yet ported to byteps_tpu_torch")
     else:

@@ -1,8 +1,10 @@
 """Parameter-server worker client.
 
 Port of byteps_tpu/server/client.py (``PSClient``), trimmed to what the
-PS train step calls: the init push of a key, the in-band codec install,
-the fused PUSHPULL with its completion reactor, the barrier and close;
+PS train step calls: the init push of a key and its init cache, the
+in-band codec install, the fused PUSHPULL with its completion reactor,
+the two-op path's asynchronous PUSH and blocking PULL, the per-server
+death probe that the scheduler's failover reads, the barrier and close;
 and ``get_or_init_ctx``/``ps_round_trip``, a host tensor's registry
 entry and its blocking round trip.
 The transport is the native client of ``native/ps.cc`` (the same source
@@ -70,6 +72,15 @@ def _load_lib() -> ctypes.CDLL:
     lib.bps_client_create.argtypes = [ctypes.c_char_p, i32]
     lib.bps_client_init_key.restype = i32
     lib.bps_client_init_key.argtypes = [vp, i32, u64, vp, u32, u32]
+    # the two-op path: a push carries the (round << 16 | attempt) epoch
+    # stamp and the codec tag; a pull returns the reply's length
+    lib.bps_client_push_async.restype = i32
+    lib.bps_client_push_async.argtypes = [vp, i32, u64, vp, u32, u32, u64,
+                                          u32]
+    lib.bps_client_pull.restype = i32
+    lib.bps_client_pull.argtypes = [vp, i32, u64, vp, u32, u32]
+    lib.bps_client_server_dead.restype = i32
+    lib.bps_client_server_dead.argtypes = [vp, i32]
     # fused op: data, cmd, reply buffer, ticket, epoch stamp, codec tag,
     # and the wire rid reported back
     lib.bps_client_pushpull_async2.restype = i32
@@ -150,7 +161,8 @@ class PSClient:
     """Thread-safe PS client: one native connection group per server,
     requests multiplexed by id."""
 
-    # the scheduler takes the fused WIRE stage with this client
+    # the native library has the fused PUSHPULL op: the scheduler takes
+    # the fused WIRE stage unless BYTEPS_FUSED_PUSHPULL turns it off
     supports_fused = True
 
     def __init__(self, servers: Sequence[str], worker_id: int,
@@ -184,6 +196,29 @@ class PSClient:
         if not 0 <= server < len(self._servers):
             raise ValueError(f"server index {server} out of range "
                              f"[0, {len(self._servers)})")
+
+    # ---- per-server health (the failover's probe) --------------------- #
+
+    def server_dead(self, server: int) -> bool:
+        """True when every native connection to ``server`` is dead (the
+        TCP EOF of a crashed or killed server, seen by the recv loops
+        within milliseconds), or the client is closed; the scheduler then
+        migrates that server's keys (byteps_tpu/server/client.py:601)."""
+        if self._closed or not 0 <= server < len(self._servers):
+            return True
+        return bool(self._lib.bps_client_server_dead(self._handle, server))
+
+    def dead_servers(self) -> List[int]:
+        return [s for s in range(len(self._servers)) if self.server_dead(s)]
+
+    def invalidate_init(self, keys) -> None:
+        """Forget that ``keys`` were init-pushed: a migrated key has no
+        store on its adoptive server yet, so the next ``ensure_init``
+        pushes its init there."""
+        with self._lock:
+            for k in keys:
+                self._inited_keys.pop(k, None)
+                self._init_futs.pop(k, None)
 
     def init_key(self, server: int, key: int, data: np.ndarray,
                  cmd: int) -> None:
@@ -256,6 +291,43 @@ class PSClient:
         if rc != 0:
             raise RuntimeError(
                 f"comp_init failed key={key} kwargs={kwargs_wire!r}")
+
+    # ---- the two-op path: PUSH, then a blocking PULL ------------------ #
+
+    def zpush_async(self, server: int, key: int, data: np.ndarray,
+                    cmd: int, epoch: int = 0, codec: int = 0) -> None:
+        """Send a push and return once it is on the wire (the native send
+        copies ``data``); the ACK drains in the background, and a server
+        reject or a dead connection surfaces on the paired ``zpull``.
+        ``epoch``: the (round << 16 | attempt) replay stamp; ``codec``:
+        the adaptive codec tag (0 = none)."""
+        self._check_server(server)
+        data = np.ascontiguousarray(data)
+        rc = self._lib.bps_client_push_async(
+            self._handle, server, key, data.ctypes.data, data.nbytes, cmd,
+            epoch, codec)
+        if rc != 0:
+            raise RuntimeError(f"async push failed key={key}")
+
+    def zpull(self, server: int, key: int, out: np.ndarray, cmd: int,
+              exact: bool = False) -> int:
+        """Pull the key's aggregate into ``out``, blocking until its round
+        completes; returns the reply's length. ``exact``: ``out`` is the
+        whole reply (a dense pull), and a shorter reply raises. A reply
+        longer than ``out`` always fails."""
+        self._check_server(server)
+        if not out.flags["C_CONTIGUOUS"]:
+            raise ValueError("zpull requires a C-contiguous output array")
+        rc = self._lib.bps_client_pull(
+            self._handle, server, key, out.ctypes.data, out.nbytes, cmd)
+        if rc < 0:
+            raise RuntimeError(
+                f"pull failed key={key} (server error, reply larger than "
+                f"the {out.nbytes}-byte output, or connection lost)")
+        if exact and rc != out.nbytes:
+            raise RuntimeError(f"pull reply for key={key} is {rc} bytes, "
+                               f"expected exactly {out.nbytes}")
+        return rc
 
     # ---- fused PUSHPULL + completion reactor ------------------------- #
 
@@ -378,6 +450,8 @@ class PSClient:
         concurrent.futures.wait(started)
         self._stop_reactor()
         if shutdown_servers:
+            # a dead server's connections fail at once; the survivors
+            # get their SHUTDOWN
             self._lib.bps_client_shutdown(self._handle)
         self._lib.bps_client_destroy(self._handle)
 

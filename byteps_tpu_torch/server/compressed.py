@@ -3,7 +3,8 @@
 Port of byteps_tpu/server/compressed.py: the worker side of the
 reference's COMPRESS -> PUSH -> server decompress/sum/recompress -> PULL
 -> DECOMPRESS dataflow (core_loops.cc:498-648, server.cc:92-118), with
-the numpy codecs of ``ops/compression/host.py``:
+the numpy codecs of ``ops/compression/host.py`` (onebit, topk, randomk,
+dithering; the server mirrors each, ``native/ps.cc`` CompressorCfg):
 
 - a tensor is partitioned as the dense path partitions it, and every
   partition has its own codec stack (operations.cc:283-414); partitions
@@ -15,8 +16,11 @@ the numpy codecs of ``ops/compression/host.py``:
   the server's completed rounds.
 
 The partitions go through the scheduler's COMPRESS and DECOMPRESS stages
-(``PipelineScheduler.submit(comp=...)``); the JAX package's blocking
-two-op round trip (``CompressedRegistry.push_pull``) is not ported.
+(``PipelineScheduler.submit(comp=...)``), fused or two-op; a retry sends
+the compressed bytes again, and after a failover the scheduler installs
+the codec's kwargs on the adoptive server. The JAX package's blocking
+round trip without the scheduler (``CompressedRegistry.push_pull``) is
+not ported.
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ class DistributedOptimizer:
     ``dp`` group before each update (BytePS torch/__init__.py:37-216).
 
     ``compression``: string kwargs for the codec registry, e.g.
-    ``{"compressor": "onebit", "ef": "vanilla"}``; EF and momentum state
+    ``{"compressor": "onebit", "ef": "vanilla"}``, with onebit, topk,
+    randomk or dithering (``compressed_psum_tree``); EF and momentum state
     live in ``self.compression`` (one entry per parameter, in the order of
     the optimizer's param groups). Leaves under ``min_compress_bytes``
     (default BYTEPS_MIN_COMPRESS_BYTES) take the plain all-reduce.

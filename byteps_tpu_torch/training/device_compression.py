@@ -8,7 +8,8 @@ is decompressed on the card. One round of the whole gradient tree:
 1. compress on the device: the dithering or randomk partitions of every
    leaf as one round (``_Round``: one error-feedback buffer, one norm
    reduction, one B4 or B5 launch that writes straight into the packed
-   buffer, one residual pass), onebit partition by partition (B2);
+   buffer, one residual pass), onebit (B2) and topk partition by
+   partition (topk has no round kernel, as in the JAX package);
 2. pack the payloads into one buffer per dtype and copy each into pinned
    host memory; the round waits on the copy's event before any byte is
    read (the D2H);
@@ -39,7 +40,7 @@ from ..core.types import DataType, RequestType, TensorContext, \
     get_command_type
 from ..ops.compression import make_compressor
 from ..ops.compression.codecs import (
-    Codec, DitheringCodec, OnebitCodec, RandomkCodec,
+    Codec, DitheringCodec, OnebitCodec, RandomkCodec, TopkCodec,
 )
 from ..ops.compression import kernels as K
 from ..ops.compression import rng
@@ -65,10 +66,15 @@ def payload_to_wire(codec: Optional[Codec],
         bits = np.ascontiguousarray(payload["bits"]).view(np.uint32)
         scale = np.float32(payload["scale"])
         return np.frombuffer(bits.tobytes() + scale.tobytes(), np.uint8)
-    if isinstance(codec, RandomkCodec):
-        # indices stay in stream order: the server re-draws the stream
+    if isinstance(codec, (TopkCodec, RandomkCodec)):
         idx = np.ascontiguousarray(payload["indices"], np.int32)
         val = np.ascontiguousarray(payload["values"], np.float32)
+        if isinstance(codec, TopkCodec):
+            # the host wire's topk indices ascend (``HostTopk.select``);
+            # the codec's follow |x| descending. Randomk's stay in stream
+            # order: the server re-draws the stream
+            order = np.argsort(idx, kind="stable")
+            idx, val = idx[order], val[order]
         return np.frombuffer(idx.tobytes() + val.tobytes(), np.uint8)
     if isinstance(codec, DitheringCodec):
         lv = np.ascontiguousarray(payload["levels"], np.int8)
@@ -86,7 +92,7 @@ def wire_to_payload(codec: Optional[Codec], n: int,
     if isinstance(codec, OnebitCodec):
         return {"bits": raw[:-4].view(np.int32),
                 "scale": raw[-4:].view(np.float32).reshape(())}
-    if isinstance(codec, RandomkCodec):
+    if isinstance(codec, (TopkCodec, RandomkCodec)):
         k = codec.k
         return {"indices": raw[: 4 * k].view(np.int32),
                 "values": raw[4 * k:].view(np.float32)}
@@ -104,7 +110,7 @@ def _payload_meta(codec: Optional[Codec], pn: int) -> List[tuple]:
     if isinstance(codec, OnebitCodec):
         return [("bits", "int32", ((pn + 31) // 32,)),
                 ("scale", "float32", ())]
-    if isinstance(codec, RandomkCodec):
+    if isinstance(codec, (TopkCodec, RandomkCodec)):
         return [("indices", "int32", (codec.k,)),
                 ("values", "float32", (codec.k,))]
     if isinstance(codec, DitheringCodec):
@@ -480,7 +486,7 @@ class DeviceCompressor:
         payloads = [[None] * len(p.codecs) for p in plans]
         written = {} if spec.round is None else \
             spec.round.compress(plans, flats, step0, payloads)
-        # the rest partition by partition: dense, and onebit (B2)
+        # the rest partition by partition: dense, onebit (B2) and topk
         for plan, flat, pl in zip(plans, flats, payloads):
             for j, (q, stack) in enumerate(zip(plan.ctx.partitions,
                                                plan.stacks)):

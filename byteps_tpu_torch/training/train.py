@@ -361,7 +361,15 @@ class HostTierStep:
     ``bytes_before_backward_end`` (bytes submitted before the backward's
     last kernel ended), ``leaves_streamed``, ``leaves_post_backward``,
     ``fused_buckets``, ``shard_leaves``, ``bytes_pushed`` (by this
-    rank)."""
+    rank, retries included), and the scheduler's ``retries``,
+    ``server_failovers`` and ``key_migrations`` in the step.
+
+    A wire exchange that fails retries inside the scheduler, and a key
+    whose server died moves to a survivor there (``core/scheduler.py``):
+    the step sees only a later completion. Its slots stay leased until
+    the next step's start, so a retried push re-sends the slot's bytes;
+    a round that fails for good raises out of the drain, and the step's
+    handles are dropped and its slots abandoned (``_abandon``)."""
 
     def __init__(self, loss_fn, optimizer, names: List[str],
                  tensors: List[torch.Tensor],
@@ -658,7 +666,7 @@ class HostTierStep:
         self._arm_hooks(state, fusion)
         n_dp = dist.get_world_size(state.group)
         shards = self._shard_plan(state, fusion, n_dp)
-        pushed0 = state.scheduler.bytes_pushed
+        before = state.scheduler.counters()
         rnd = _Export(state, n_dp, shards)
         self._round = rnd
         try:
@@ -670,8 +678,10 @@ class HostTierStep:
         finally:
             self._round = None
         self._pending = (rnd.leases, events)
-        self.counters["bytes_pushed"] = \
-            state.scheduler.bytes_pushed - pushed0
+        # bytes_pushed, and the wire's retries, server failovers and
+        # migrated keys, of this step
+        after = state.scheduler.counters()
+        self.counters.update({k: after[k] - before[k] for k in after})
         if n_dp > 1:
             loss = loss.clone()
             dist.all_reduce(loss, group=state.group)

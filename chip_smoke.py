@@ -37,11 +37,23 @@ result line:
    then the same step timed with the per-leaf apply on and off
    (``sharded_apply``, segments on, off, off, on of 4 steps); then the
    host-codec tier (onebit + EF, ``device_compress=False``) for 3 steps;
-8. ``ps_dp2``, this slice's main path: the same dense step with a ``dp``
-   group of two processes (``phase_ps_dp2``): a rank per card over NCCL
-   where the machine has two cards or more, on one card both ranks on it
-   over gloo; the locality-shard export on and off over NCCL, off alone
-   over gloo, with a line that names what did not run and why.
+8. ``ps_dp2``: the same dense step with a ``dp`` group of two processes
+   (``phase_ps_dp2``): a rank per card over NCCL where the machine has two
+   cards or more, on one card both ranks on it over gloo; the
+   locality-shard export on and off over NCCL, off alone over gloo, with
+   a line that names what did not run and why;
+9. ``collective_codecs``: the collective path of phase 5 under topk 1% +
+   EF, randomk 1% + EF and dithering + EF (s = 127), 3 steps each: B5 and
+   B4 (and the dequantization) launch on the collective path;
+10. ``ps_topk``: the PS step under topk 1% + EF on the device tier and on
+    the host tier, 3 steps each;
+11. ``ps_failover``, the main path: the dense host-tier step
+    against two ``python -m byteps_tpu_torch.server`` processes, fused and
+    two-op, 4 steps each; server 1 exits inside step 2 by its chaos knob,
+    its keys move to server 0 and the step's rounds replay there; the
+    parameters end bit for bit where 4 plain local Adam steps leave them;
+    then with server 0 killed too the next step raises within 30 s,
+    naming the flight record's dump.
 
 Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
 does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
@@ -64,6 +76,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1122,6 +1135,401 @@ def phase_ps_host(args, card: str, dev=None, cfg=None, B: int = 4,
 
 
 # ---------------------------------------------------------------------- #
+# the collective codecs, topk on the PS tiers, the server failover
+# ---------------------------------------------------------------------- #
+
+def _collective_counters():
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.ops.compression import kernels as K
+    return {"flash_attn_fwd": FA.flash_attention_fwd,
+            "dithering_levels": K.dithering_levels,
+            "dithering_dequantize": K.dithering_dequantize,
+            "randomk_indices": K.randomk_indices,
+            "fma_scalar": K.fma_scalar,
+            "xla_sum": K.xla_sum}
+
+
+COLLECTIVE_RUNS = (
+    ("topk", {"compressor": "topk", "k": "0.01", "ef": "vanilla"}),
+    ("randomk", {"compressor": "randomk", "k": "0.01", "ef": "vanilla"}),
+    ("dithering", {"compressor": "dithering", "ef": "vanilla", "s": "127",
+                   "partition_type": "linear", "normalize_type": "max"}),
+)
+
+
+def phase_collective_codecs(args, card: str, dev=None, cfg=None, B: int = 4,
+                            S: int = 2048) -> dict:
+    """``collective_codecs``: ``make_train_step`` of Llama small() at
+    full width through ``DistributedOptimizer(Adam)`` under topk 1% + EF,
+    randomk 1% + EF and dithering + EF (s = 127, linear, max), each for
+    SHORT_RUN_STEPS steps: the collective compressed push_pull
+    (``compressed_psum_tree``) of the three codecs. Each compressed leaf
+    launches B5 (randomk) or B4 and two dequantizations (dithering: the
+    residual, the gathered payload) once a step, and every step 24 B1.
+    Returns each run's launches. ``dev``/``cfg``/``B``/``S`` rehearse it
+    on the CPU."""
+    import torch
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import (DistributedOptimizer,
+                                           make_train_step)
+
+    counters = _collective_counters()
+    os.environ["DMLC_NUM_SERVER"] = "0"     # no PS: the collective path
+    bps.init(device=dev)
+    out = {}
+    try:
+        dev = bps.get_state().device
+        on_card = dev.type == "cuda"
+        cfg = cfg or llama.LlamaConfig.small()
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+        init = llama.Llama(cfg, device=dev, generator=gen).params()
+        attn = FA.make_flash_attn()
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                               device=dev)
+        for label, kw in COLLECTIVE_RUNS:
+            # each codec from the same weights
+            model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+            opt = DistributedOptimizer(
+                torch.optim.Adam(model.parameters(), lr=1e-3,
+                                 betas=(0.9, 0.999), eps=1e-8),
+                compression=kw, lr_schedule=lambda step: 1e-3)
+            n_comp = sum(st is not None for st in opt.compression.stacks)
+            step = make_train_step(
+                lambda b: llama.loss_fn(model.params(), b, cfg, attn), opt)
+            for fn in counters.values():
+                fn.launches = 0
+            losses, times = [], []
+            for i in range(SHORT_RUN_STEPS):
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step({"tokens": tokens})))
+                times.append(time.perf_counter() - t0)
+                print(f"collective {label} step {i}: loss {losses[-1]:.6f} "
+                      f"({times[-1] * 1e3:.1f} ms)", flush=True)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"non-finite collective {label} loss: {losses}")
+            steady = times[1:]
+            print(f"collective {label}: {B * S / (sum(steady) / len(steady)):.1f} "
+                  f"tokens/s over steps 1..{len(times) - 1} on {card}; "
+                  f"{n_comp} of {len(opt.params)} leaves compressed; "
+                  f"launches in {SHORT_RUN_STEPS} steps {launches}",
+                  flush=True)
+            # the kernels launch on the card (the CPU takes the twins)
+            per = {"randomk": {"randomk_indices": n_comp},
+                   "dithering": {"dithering_levels": n_comp,
+                                 "dithering_dequantize": 2 * n_comp},
+                   "topk": {}}[label] if on_card else {}
+            if on_card:
+                per["flash_attn_fwd"] = 24
+            for name, n in per.items():
+                if launches[name] != n * SHORT_RUN_STEPS:
+                    fail(f"{name}: {launches[name]} launches in "
+                         f"{SHORT_RUN_STEPS} collective {label} steps, not "
+                         f"{n} a step")
+            out[label] = launches
+            del opt, step, model
+    finally:
+        bps.shutdown()
+    return out
+
+
+def phase_ps_topk(args, card: str, dev=None, cfg=None, B: int = 4,
+                  S: int = 2048) -> dict:
+    """``ps_topk``: ``make_ps_train_step`` of Llama small() at full width
+    under topk 1% + EF, on the device tier (selection on the card,
+    partition by partition, the wire's indices ascending) and on the host
+    tier (numpy ``HostTopk`` in the scheduler's COMPRESS stage), each
+    SHORT_RUN_STEPS steps through a loopback server whose topk
+    re-compresses the sum. Returns each tier's launches."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    counters = _counters()
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    model = llama.Llama(cfg, device=dev, generator=gen)
+    attn = FA.make_flash_attn()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    kw = {"compressor": "topk", "k": "0.01", "ef": "vanilla"}
+    out = {}
+    for label, device_compress in (("topk device tier", True),
+                                   ("topk host tier", False)):
+        with loopback_ps(dev, label):
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3,
+                                   betas=(0.9, 0.999), eps=1e-8)
+            step = make_ps_train_step(
+                lambda b: llama.loss_fn(model.params(), b, cfg, attn), opt,
+                model.params(), compression=kw,
+                device_compress=device_compress)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            run = run_steps(step, batch, SHORT_RUN_STEPS, label, on_card,
+                            counters)
+            step.close()
+        report(label, card, run, B, S, dev, on_card)
+        if on_card and run["launches"]["flash_attn_fwd"] != \
+                24 * SHORT_RUN_STEPS:
+            fail(f"flash_attn_fwd: {run['launches']['flash_attn_fwd']} "
+                 f"launches in {SHORT_RUN_STEPS} PS {label} steps")
+        out[label] = run["launches"]
+    return out
+
+
+def _spawn_ps_server(port: int, extra_env=None):
+    """``python -m byteps_tpu_torch.server`` on ``port``, one worker."""
+    env = {**os.environ,
+           "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "DMLC_ROLE": "server", "DMLC_NUM_WORKER": "1",
+           "DMLC_PS_ROOT_PORT": str(port), "BYTEPS_SERVER_ID": "0",
+           **(extra_env or {})}
+    return subprocess.Popen([sys.executable, "-m", "byteps_tpu_torch.server"],
+                            env=env, cwd=ROOT)
+
+
+def _wait_port(port: int, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return
+        except OSError:
+            if time.monotonic() > deadline:
+                fail(f"the PS server on port {port} never came up")
+            time.sleep(0.05)
+
+
+FAILOVER_STEPS = 4
+
+
+def _fleet_env(ports, fused: bool, flight_dir: str) -> None:
+    os.environ.update({
+        "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": str(len(ports)),
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(ports[0]),
+        "DMLC_ROLE": "worker",
+        "BYTEPS_SERVER_HOSTS": ",".join(f"127.0.0.1:{p}" for p in ports),
+        "BYTEPS_WIRE_BACKOFF_MS": "25",
+        "BYTEPS_FUSED_PUSHPULL": "1" if fused else "0",
+        "BYTEPS_FLIGHT_DIR": flight_dir})
+
+
+def _server1_keys(make_step, batch, dev) -> int:
+    """The partitions that server 1 of two holds: one dense step through
+    two loopback server threads, and the registry's assignment after it
+    (the same declarations as the failover run's)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.config import Config
+    from byteps_tpu_torch.server import run_server
+
+    ports = [_free_port(), _free_port()]
+    _fleet_env(ports, True, tempfile.gettempdir())
+    threads = [threading.Thread(target=run_server, args=(
+        p, Config(num_workers=1, num_servers=2)), daemon=True)
+        for p in ports]
+    for t in threads:
+        t.start()
+    bps.init(device=dev)
+    try:
+        step = make_step()
+        bounded(lambda: float(step(batch)), "the failover probe step")
+        step.close()
+        parts = [p for ctx in bps.get_state().registry.contexts_in_order()
+                 for p in ctx.partitions]
+    finally:
+        bounded(bps.shutdown, "PS shutdown (failover probe)")
+    for t in threads:
+        t.join(PS_TIMEOUT_S)
+    k1 = sum(p.server == 1 for p in parts)
+    if not 0 < k1 < len(parts):
+        fail(f"the registry puts {k1} of {len(parts)} partitions on server "
+             f"1 of 2: no failover to test")
+    return k1
+
+
+def phase_ps_failover(args, card: str, dev=None, cfg=None, B: int = 4,
+                      S: int = 2048) -> dict:
+    """``ps_failover``, the main path: the dense host-tier step of
+    Llama small() at full width against two ``python -m
+    byteps_tpu_torch.server`` processes for FAILOVER_STEPS steps, fused
+    and then with BYTEPS_FUSED_PUSHPULL=0 (the two-op path). Server 1
+    runs with BYTEPS_CHAOS_KILL_AFTER_ROUNDS = K + ceil(K/2), K its
+    partitions a step by the registry's assignment (``_server1_keys``),
+    so it exits (``_exit(137)``, no teardown) inside the second step; the
+    scheduler retries, migrates its keys to server 0 and replays the
+    round there (BYTEPS_WIRE_BACKOFF_MS=25). The parameters must end bit
+    for bit where FAILOVER_STEPS plain local Adam steps leave them, with
+    at least one failover, in the second step. Then server 0 is killed
+    and the next step must raise within 30 s, its error naming the
+    flight record's dump. Returns the fused run's launches."""
+    import torch
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    counters = _counters()
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    init = _tree_clone(llama.Llama(cfg, device=dev, generator=gen).params())
+    attn = FA.make_flash_attn()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999),
+                                eps=1e-8, foreach=True)
+
+    # FAILOVER_STEPS plain local steps from the same weights
+    ref = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    opt = adam(ref.parameters())
+    ref_losses = []
+    for _ in range(FAILOVER_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = llama.loss_fn(ref.params(), batch, cfg, attn)
+        loss.backward()
+        opt.step()
+        ref_losses.append(float(loss.detach()))
+    ref_params = [p.detach().clone() for p in ref.parameters()]
+    del ref, opt
+
+    holder = {}
+
+    def make_step():
+        model = holder["model"] = llama.Llama(cfg, device=dev,
+                                              params=_tree_clone(init))
+        return make_ps_train_step(
+            lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+            adam(model.parameters()), model.params())
+
+    k1 = _server1_keys(make_step, batch, dev)
+    kill_after = k1 + (k1 + 1) // 2
+    print(f"ps_failover: server 1 holds {k1} partitions a step; it exits "
+          f"after {kill_after} rounds, inside step 2 of {FAILOVER_STEPS}",
+          flush=True)
+    flight_dir = tempfile.mkdtemp(prefix="bps-flight-")
+    out = {}
+    for fused in (True, False):
+        label = "fused" if fused else "two-op"
+        ports = [_free_port(), _free_port()]
+        while ports[1] == ports[0]:
+            ports[1] = _free_port()
+        _fleet_env(ports, fused, flight_dir)
+        procs = [_spawn_ps_server(ports[0]), _spawn_ps_server(
+            ports[1], {"BYTEPS_CHAOS_KILL_AFTER_ROUNDS": str(kill_after)})]
+        try:
+            for p in ports:
+                _wait_port(p)
+            bps.init(device=dev)
+            state = bps.get_state()
+            try:
+                if state.scheduler.fused != fused:
+                    fail(f"ps_failover {label}: the scheduler's wire is "
+                         f"{'fused' if state.scheduler.fused else 'two-op'}")
+                step = make_step()
+                model = holder["model"]
+                for fn in counters.values():
+                    fn.launches = 0
+                losses, times, per_step = [], [], []
+                for i in range(FAILOVER_STEPS):
+                    if on_card:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses.append(bounded(lambda: float(step(batch)),
+                                          f"failover step {i} ({label})"))
+                    times.append(time.perf_counter() - t0)
+                    per_step.append({k: step.counters[k] for k in (
+                        "retries", "server_failovers", "key_migrations")})
+                    print(f"ps_failover {label} step {i + 1}: loss "
+                          f"{losses[-1]:.6f} ({times[-1] * 1e3:.1f} ms) "
+                          f"{per_step[-1]}", flush=True)
+                launches = {k: fn.launches for k, fn in counters.items()}
+                c = state.scheduler.counters()
+                if procs[1].wait(timeout=30) != 137:
+                    fail(f"ps_failover {label}: server 1 did not exit by "
+                         f"its chaos kill (rc {procs[1].returncode})")
+                fo = [s["server_failovers"] for s in per_step]
+                if fo != [0, 1] + [0] * (FAILOVER_STEPS - 2):
+                    fail(f"ps_failover {label}: failovers per step {fo}, "
+                         f"not one in step 2")
+                if c["key_migrations"] != k1:
+                    fail(f"ps_failover {label}: {c['key_migrations']} keys "
+                         f"migrated, server 1 held {k1}")
+                differ = {n: int((a != b).sum()) for (n, a), b in zip(
+                    model.named_parameters(), ref_params)
+                    if not torch.equal(a, b)}
+                if differ or losses != ref_losses:
+                    fail(f"ps_failover {label}: parameters or losses differ "
+                         f"from {FAILOVER_STEPS} plain local Adam steps: "
+                         f"losses {losses} vs {ref_losses}; elements "
+                         f"differing per leaf {differ}")
+                if on_card and launches["flash_attn_fwd"] != \
+                        24 * FAILOVER_STEPS:
+                    fail(f"flash_attn_fwd: {launches['flash_attn_fwd']} "
+                         f"launches in {FAILOVER_STEPS} failover steps")
+                others = [t for i, t in enumerate(times) if i not in (0, 1)]
+                print(f"ps_failover {label}: parameters after "
+                      f"{FAILOVER_STEPS} steps bit-identical to "
+                      f"{FAILOVER_STEPS} plain local Adam steps; retries "
+                      f"{c['retries']}, server failovers "
+                      f"{c['server_failovers']}, migrated keys "
+                      f"{c['key_migrations']}; the failover step (2) "
+                      f"{times[1] * 1e3:.1f} ms, steps 3..{FAILOVER_STEPS} "
+                      f"{['%.1f' % (t * 1e3) for t in others]} ms, "
+                      f"{B * S / (sum(others) / len(others)):.1f} tokens/s "
+                      f"over them on {card}; launches in {FAILOVER_STEPS} "
+                      f"steps {launches}", flush=True)
+                # the fleet dies: the next round fails within the budget
+                procs[0].kill()
+                procs[0].wait(timeout=30)
+                t0 = time.perf_counter()
+                try:
+                    bounded(lambda: float(step(batch)),
+                            f"the dead fleet's step ({label})")
+                except RuntimeError as e:
+                    err = str(e)
+                else:
+                    fail(f"ps_failover {label}: a step with every server "
+                         f"dead did not raise")
+                dt = time.perf_counter() - t0
+                if dt >= 30 or "flight record dumped to" not in err:
+                    fail(f"ps_failover {label}: the dead fleet's step took "
+                         f"{dt:.1f} s or named no flight dump: {err}")
+                path = err.rsplit("flight record dumped to ", 1)[1].strip()
+                with open(path) as f:
+                    kinds = {e["kind"] for e in
+                             json.load(f)["worker"]["events"]}
+                if not {"wire_retry", "server_failover", "key_migration",
+                        "round_failed"} <= kinds:
+                    fail(f"ps_failover {label}: the flight dump {path} "
+                         f"holds {sorted(kinds)}")
+                print(f"ps_failover {label}: with every server dead the "
+                      f"next step raised after {dt * 1e3:.1f} ms, naming "
+                      f"{path}", flush=True)
+                step.close()
+                out[label] = launches
+            finally:
+                bounded(bps.shutdown, f"PS shutdown (failover {label})")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=30)
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # ps_dp2: the dense host-tier step with a dp group of two processes
 # ---------------------------------------------------------------------- #
 
@@ -1560,18 +1968,28 @@ def main() -> int:
     kernels.extend(phase_xla_rounding(dev, gen))
     phase_small_model(dev)
     launches = phase_train(args, card)
+    onebit_run = dict(launches)
+    coll = phase_collective_codecs(args, card)
     ps = phase_ps_train(args, card)
     phase_ps_host(args, card)
     dp2 = phase_ps_dp2(args, card)
-    # each kernel's count from the path that runs it: the root of the dp
-    # group's dense PS run, shard export off (ps_dp2, this slice's main
-    # path; it runs on every machine) for B1, the PS dithering run for B4
-    # and its dequantization, the PS randomk run for B5, the collective
-    # onebit run for B2 and B3
-    launches["flash_attn_fwd"] = dp2[False]["flash_attn_fwd"]
+    ps_topk = phase_ps_topk(args, card)
+    failover = phase_ps_failover(args, card)
+    # each kernel's count from a path that runs it, each path's counters
+    # zeroed just before it and read just after: B1 from the fused run of
+    # ps_failover (the main path; every path launches it, 24 a
+    # step), B4 and the dequantization from the collective dithering run
+    # and B5 from the collective randomk run (collective_codecs), B2, B3,
+    # fma_scalar and xla_sum from the collective onebit run
+    launches["flash_attn_fwd"] = failover["fused"]["flash_attn_fwd"]
     for name in ("dithering_levels", "dithering_dequantize"):
-        launches[name] = ps["dithering"][name]
-    launches["randomk_indices"] = ps["randomk"]["randomk_indices"]
+        launches[name] = coll["dithering"][name]
+    launches["randomk_indices"] = coll["randomk"]["randomk_indices"]
+    print("launches by path: " + json.dumps({
+        "collective onebit": onebit_run,
+        "ps device tier": ps, "ps dp2 (root, shard off)": dp2[False],
+        "collective codecs": coll, "ps topk": ps_topk,
+        "ps failover": failover}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

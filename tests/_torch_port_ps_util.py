@@ -108,6 +108,20 @@ ROUND_KWS = [{"compressor": "dithering", "ef": "vanilla", "seed": "4"},
               "seed": "6"}]
 
 
+def tie_input(kind: str, n: int, seed: int) -> np.ndarray:
+    """f32 [n] with many equal |x| at any k-th boundary, for topk:
+    ``levels`` draws from {-2, -1, 0, 1, 2} * c, ``pairs`` holds x and -x
+    for each of n/2 draws, shuffled."""
+    rs = np.random.RandomState(seed)
+    if kind == "levels":
+        c = np.float32(rs.choice([0.25, 1.0, 3.0]))
+        return (rs.randint(-2, 3, n) * c).astype(np.float32)
+    base = rs.randn(n // 2 + 1).astype(np.float32)
+    x = np.concatenate([base, -base])[:n]
+    rs.shuffle(x)
+    return x
+
+
 def leaves(step):
     rs = np.random.RandomState(10 + step)
     return [rs.randn(n).astype(np.float32) for n in LEAVES.values()]

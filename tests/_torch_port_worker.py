@@ -15,7 +15,11 @@ def grads_for(rank: int):
             np.array([-3 - rank, 3 + rank, 5], np.int32))
 
 
-def run_rank(rank: int, world: int, store_path: str, out_path: str) -> None:
+ONEBIT_EF = {"compressor": "onebit", "ef": "vanilla"}
+
+
+def run_rank(rank: int, world: int, store_path: str, out_path: str,
+             kw=None) -> None:
     import torch
     import torch.distributed as dist
 
@@ -29,10 +33,12 @@ def run_rank(rank: int, world: int, store_path: str, out_path: str) -> None:
              rank=rank, world_size=world)
     try:
         a, b, ints = (torch.from_numpy(x) for x in grads_for(rank))
-        kw = {"compressor": "onebit", "ef": "vanilla"}
-        stacks = default_stacks([a, b], kw, min_compress_bytes=1024)
+        stacks = default_stacks([a, b], kw or ONEBIT_EF,
+                                min_compress_bytes=1024)
         states = [s.init_state(g.numel()) if s else {}
                   for g, s in zip((a, b), stacks)]
+        # this rank's payload, for the comparison with the JAX codec's
+        payload, _ = stacks[0].compress(a.reshape(-1), states[0], 0)
         out, new_states = compressed_psum_tree(
             [a, b], states, stacks, bps.get_state().group)
         summed = psum_tree({"ints": ints}, average=True)
@@ -42,7 +48,8 @@ def run_rank(rank: int, world: int, store_path: str, out_path: str) -> None:
         np.savez(out_path, a=out[0].numpy(), b=out[1].numpy(),
                  error=new_states[0]["error"].numpy(),
                  ints=summed["ints"].numpy(), mean=mean.numpy(),
-                 bcast=params[0].numpy())
+                 bcast=params[0].numpy(),
+                 **{"payload_" + k: v.numpy() for k, v in payload.items()})
     finally:
         bps.shutdown()
 

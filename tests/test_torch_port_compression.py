@@ -42,7 +42,7 @@ def test_registry_onebit_and_not_yet_ported():
                           "momentum": "nesterov"}, 100)
     assert st.use_ef and st.momentum_mu == 0.9 and st.codec.scaled
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_compressor({"compressor": "topk"}, 100)
+        make_compressor({"compressor": "lossless"}, 100)
     rk = make_compressor({"compressor": "randomk", "k": "0.1",
                           "seed": "3"}, 100).codec
     assert (rk.k, rk.seed) == (10, 3)
@@ -111,12 +111,15 @@ JIT_STACK_KWS = [
      "seed": "2"},
     {"compressor": "randomk", "k": "0.05", "ef": "vanilla", "seed": "3"},
     {"compressor": "onebit", "ef": "vanilla", "momentum": "nesterov"},
+    {"compressor": "topk", "k": "0.05", "ef": "vanilla"},
+    {"compressor": "topk", "k": "0.05", "ef": "vanilla",
+     "momentum": "nesterov"},
 ]
 
 
 @pytest.mark.parametrize("kwargs", JIT_STACK_KWS, ids=[
     "randomk-momentum", "dithering-momentum", "dithering-l2", "randomk",
-    "onebit-momentum"])
+    "onebit-momentum", "topk", "topk-momentum"])
 def test_stack_matches_the_jitted_jax_stack_bit_for_bit(kwargs):
     """Three rounds, mu = 0.9, LRs 0.1 -> 0.05 -> 0.03: payload, momentum,
     EF residual and prev_lr equal the jitted JAX stack's bit for bit."""
@@ -175,22 +178,55 @@ def test_xla_sum_and_mean_follow_the_jitted_jax_order(seed):
         assert tn.item() == np.float32(jn(x)), n
 
 
-def test_compressed_psum_tree_one_rank(group):
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 32, 33, 100])
+def test_rank_sum_follows_the_jitted_jax_order(n):
+    """``rank_sum`` of n ranks' vectors equals jitted ``jnp.sum`` over
+    the gathered axis bit for bit, signed zeros included (XLA's CPU
+    backend folds up to 32 in order, and goes through windows of 32
+    above)."""
+    import jax
+    from byteps_tpu_torch.ops.compression import rank_sum
+    rs = np.random.RandomState(n)
+    d = (rs.randn(n, 301) * 10.0 ** rs.randint(-3, 3, (n, 1))
+         ).astype(np.float32)
+    d[:, :5] = -0.0
+    want = np.asarray(jax.jit(lambda v: jnp.sum(v, axis=0))(d))
+    got = rank_sum(list(torch.from_numpy(d))).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# the collective compressed push_pull of every ported codec
+COLLECTIVE_KWS = [
+    {"compressor": "onebit", "ef": "vanilla"},
+    {"compressor": "randomk", "k": "0.05", "ef": "vanilla", "seed": "5"},
+    {"compressor": "dithering", "ef": "vanilla", "seed": "3"},
+    {"compressor": "topk", "k": "0.05", "ef": "vanilla"},
+]
+COLLECTIVE_IDS = ["onebit", "randomk", "dithering", "topk"]
+
+
+@pytest.mark.parametrize("kw", COLLECTIVE_KWS, ids=COLLECTIVE_IDS)
+def test_compressed_psum_tree_one_rank(group, kw):
     """Over one rank the reduction returns each leaf's own decompressed
     payload (compressed leaves) or the leaf itself (plain leaves)."""
     rng = np.random.RandomState(1)
     grads = [torch.from_numpy(rng.randn(40, 30).astype(np.float32)),
              torch.from_numpy(rng.randn(7).astype(np.float32))]
-    kw = {"compressor": "onebit", "ef": "vanilla"}
     stacks = default_stacks(grads, kw, min_compress_bytes=1024)
     states = [s.init_state(g.numel()) if s else {}
               for g, s in zip(grads, stacks)]
     out, new_states = compressed_psum_tree(grads, states, stacks, group)
     flat = grads[0].reshape(-1)
-    # the scale is the L1 mean in XLA's summation order (the JAX codec's)
-    want = torch.where(flat >= 0, 1.0, -1.0) * K.xla_mean(flat.abs())
+    if kw["compressor"] == "onebit":
+        # the scale is the L1 mean in XLA's summation order (the JAX
+        # codec's)
+        want = torch.where(flat >= 0, 1.0, -1.0) * K.xla_mean(flat.abs())
+        want_error = flat - want
+    else:
+        payload, st = stacks[0].compress(flat, states[0], 0)
+        want, want_error = stacks[0].decompress(payload), st["error"]
     torch.testing.assert_close(out[0].reshape(-1), want, rtol=0, atol=0)
-    torch.testing.assert_close(new_states[0]["error"], flat - want,
+    torch.testing.assert_close(new_states[0]["error"], want_error,
                                rtol=0, atol=0)
     torch.testing.assert_close(out[1], grads[1], rtol=0, atol=0)
 
@@ -201,12 +237,13 @@ def test_compressed_psum_tree_one_rank(group):
     assert r1[0].shape == grads[0].shape and r2[1].shape == grads[1].shape
 
 
-def test_two_ranks_match_jax_two_device_mesh(tmp_path):
+@pytest.mark.parametrize("kw", COLLECTIVE_KWS, ids=COLLECTIVE_IDS)
+def test_two_ranks_match_jax_two_device_mesh(tmp_path, kw):
     """Two gloo ranks (spawned processes) against the JAX
-    compressed_psum_tree on a two-device dp mesh: the same mean of the
-    decompressed payloads, the same per-rank EF residual, and the
-    truncating integer mean; plus eager push_pull and
-    broadcast_parameters from rank 1."""
+    compressed_psum_tree on a two-device dp mesh: each rank's payload bit
+    for bit, the same mean of the decompressed payloads, the same
+    per-rank EF residual, and the truncating integer mean; plus eager
+    push_pull and broadcast_parameters from rank 1."""
     import multiprocessing as mp
 
     import jax
@@ -226,7 +263,7 @@ def test_two_ranks_match_jax_two_device_mesh(tmp_path):
     for r in range(2):
         outs.append(str(tmp_path / f"rank{r}.npz"))
         procs.append(ctx.Process(target=W.run_rank,
-                                 args=(r, 2, store, outs[r])))
+                                 args=(r, 2, store, outs[r], kw)))
     try:
         for p in procs:
             p.start()
@@ -242,7 +279,6 @@ def test_two_ranks_match_jax_two_device_mesh(tmp_path):
 
     per_rank = [W.grads_for(r) for r in range(2)]
     stacked = [np.stack([g[i] for g in per_rank]) for i in range(3)]
-    kw = {"compressor": "onebit", "ef": "vanilla"}
     stacks = j_stacks({"a": stacked[0][0], "b": stacked[1][0]}, kw,
                       min_compress_bytes=1024)
 
@@ -257,10 +293,18 @@ def test_two_ranks_match_jax_two_device_mesh(tmp_path):
     fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(P("dp"),) * 3,
                                out_specs=(P("dp"),) * 4, check_vma=False))
     want = [np.asarray(x) for x in fn(*stacked)]
+    jst = stacks["a"]
     for r in range(2):
-        # the mean of two +-scale vectors, scales equal to an ulp; where
-        # the ranks' signs differ the mean is a difference of scales, so
-        # the bound is absolute: 4 ulps of the largest value
+        jp, _ = jax.jit(lambda v: jst.compress(
+            v, jst.init_state(v.size), 0))(per_rank[r][0].reshape(-1))
+        for key, v in jp.items():
+            tv = got[r]["payload_" + key]
+            np.testing.assert_array_equal(
+                tv.view(np.uint32) if key == "bits" else tv.reshape(
+                    np.shape(v)), np.asarray(v), err_msg=f"rank {r} {key}")
+        # the mean of two decompressed payloads; where the ranks differ
+        # in sign the mean is a difference, so the bound is absolute: 4
+        # ulps of the largest value
         for key, w in (("a", want[0][r]), ("error", want[2][r])):
             ulp4 = 4 * np.spacing(np.float32(np.abs(w).max()))
             np.testing.assert_allclose(got[r][key], w, rtol=0, atol=ulp4,

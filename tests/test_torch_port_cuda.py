@@ -12,7 +12,7 @@ import torch
 
 from _torch_port_ps_util import (
     ROUND_KWS, ROUND_MEMBERS, bounded, partition_path_wires,
-    path_round_lengths, port_rounds,
+    path_round_lengths, port_rounds, tie_input,
 )
 from byteps_tpu_torch.ops import flash_attention as FA
 from byteps_tpu_torch.ops.compression import kernels as K
@@ -474,3 +474,69 @@ def test_dense_ps_steps_equal_local_steps(dev, stream, monkeypatch):
     assert ps_losses == losses
     for a, b in zip(models[0].parameters(), models[1].parameters()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["levels", "pairs"])
+@pytest.mark.parametrize("n,k", [(7, 3), (4099, 400), (1_024_000, 10_240),
+                                 (32000 * 768, 245_760)])
+def test_topk_selection_on_the_card_equals_the_cpu_path(dev, kind, n, k):
+    """``torch.topk`` on the card promises no order among ties either: the
+    selection (threshold, ties in index order, stable sort) gives the
+    CPU's indices and values on inputs full of ties."""
+    from byteps_tpu_torch.ops.compression.codecs import TopkCodec
+    x = torch.from_numpy(tie_input(kind, n, seed=n + k))
+    codec = TopkCodec(size=n, k=k)
+    got = codec.compress(x.to(dev))
+    want = codec.compress(x)
+    for key in ("indices", "values"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert torch.equal(codec.decompress(got).cpu(), codec.decompress(want))
+
+
+@pytest.mark.parametrize("kw", [
+    {"compressor": "dithering", "ef": "vanilla", "seed": "3"},
+    {"compressor": "randomk", "k": "0.01", "ef": "vanilla", "seed": "5"},
+], ids=["dithering", "randomk"])
+def test_collective_step_on_the_card_equals_its_cpu_twin(dev, kw):
+    """Two steps of the collective compressed push_pull
+    (``compressed_psum_tree``, a group of one) on the card, through B4
+    and the dequantization or B5, equal the same steps on the CPU, where
+    every wrapper takes its plain twin: outputs and EF residuals bit for
+    bit."""
+    import torch.distributed as dist
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.ops.compression import (
+        compressed_psum_tree, default_stacks,
+    )
+
+    g = torch.Generator().manual_seed(7)
+    grads = [torch.randn(1024, 768, generator=g), torch.randn(768,
+                                                              generator=g)]
+    stacks = default_stacks(grads, kw, min_compress_bytes=4096)
+    assert stacks[0] is not None and stacks[1] is None
+    bps.init(device=dev)
+    try:
+        cpu_group = dist.new_group(backend="gloo")
+        launches = (K.dithering_levels.launches + K.randomk_indices.launches
+                    + K.dithering_dequantize.launches)
+        out = {}
+        for where, group in ((dev, bps.get_state().group),
+                             (torch.device("cpu"), cpu_group)):
+            states = [s.init_state(x.numel(), where) if s else {}
+                      for x, s in zip(grads, stacks)]
+            res = []
+            for step in range(2):
+                xs = [(x * (step + 1)).to(where) for x in grads]
+                red, states = compressed_psum_tree(xs, states, stacks, group,
+                                                   step, lr=1e-3)
+                res.append([r.cpu() for r in red]
+                           + [states[0]["error"].cpu()])
+            out[where.type] = res
+        assert K.dithering_levels.launches + K.randomk_indices.launches + \
+            K.dithering_dequantize.launches > launches
+    finally:
+        bps.shutdown()
+    for a_step, b_step in zip(out["cuda"], out["cpu"]):
+        for a, b in zip(a_step, b_step):
+            assert torch.equal(a, b)

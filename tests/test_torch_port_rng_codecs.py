@@ -284,7 +284,7 @@ def test_port_host_codecs_write_the_jax_wire(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"compressor": "topk"}, {"compressor": "lossless"},
+    {"compressor": "lossless", "ef": "vanilla"}, {"compressor": "lossless"},
     {"compressor": "dithering", "index_coding": "varint"},
 ], ids=lambda kw: "-".join(kw.values()))
 def test_host_codecs_not_yet_ported_raise(kw):

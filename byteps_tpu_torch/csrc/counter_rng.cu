@@ -56,23 +56,74 @@
 //
 // Two more kernels stand for XLA fusions of the JAX compressor stacks, not
 // for TPU kernels, and reproduce how XLA on the CPU rounds them (the
-// reference the tests hold the port to):
+// reference the tests hold the port to). Their first forms, a loop of
+// 4-byte accesses and one launch per tree level, lost to the PyTorch call
+// for the same function; these are their redesigns:
 // - fma_scalar_kernel: out = fma(a, b, c) with one scalar a. XLA contracts
 //   the Nesterov momentum (mu * m + x, then x + mu * m') and the error
 //   feedback's LR rescale (x + error * scale) into FMAs; __fmaf_rn rounds
-//   once as they do. It moves 12 bytes per element, bound by bytes.
-// - window_sum_kernel: one level of XLA's tree reduction of a 1-D f32 sum.
+//   once as they do. It moves 12 bytes per element, bound by bytes: the
+//   embedding's 24,576,000 elements (295 MB, six times the 50 MB L2) take
+//   at least 0.0880 ms at 3.35 TB/s. The body moves 16-byte vectors,
+//   kFmaVecs of b and of c in flight per thread before any store, over
+//   kFmaBlocksPerSm blocks per SM in a grid-stride loop, with the
+//   streaming cache hints (ld.global.cs, st.global.cs) for data touched
+//   once. A scalar head (up to out's first 16-byte boundary) and tail (the
+//   last partial vector) take any offset and length; where b or c lies on
+//   another 16-byte phase than out, every element goes scalar.
+//   Aliasing: out may be b or c (the round's momentum writes x in place),
+//   so no pointer is __restrict__ and no load is the read-only (.nc) kind;
+//   every element (or vector) is read and then written by one thread only.
+// - xla_sum_kernel: XLA's tree reduction of a 1-D f32 sum, in one launch.
 //   XLA's CPU backend rewrites a sum of n > 32 elements into reduce-windows
 //   of 32 with stride 32, padded by (pad / 2, pad - pad / 2) zeros to a
 //   multiple of 32, repeated while more than 32 partial sums remain, then
 //   one reduce of the rest; each window and the last reduce add in order
-//   from 0. A thread sums one window, staged in shared memory by the
-//   block's coalesced loads; a sum takes ceil(log32 n) launches.
-//   With square = 1 (a fused reduce of at most 32 elements, the L2 norm's
-//   sum of squares) each step is fma(v, v, acc), as XLA contracts it. It
-//   reads 4 bytes per element, bound by bytes.
+//   from +0, each addition rounded once. It reads 4 bytes per element,
+//   bound by bytes (the embedding: 0.0293 ms).
+//   . Levels 1 and 2 in one pass: a stage is 8 whole level-2 windows,
+//     1,024 inputs each (8 warps: a thread sums one level-1 window, lane 0
+//     of each warp then adds its warp's 32 sums in lane order, from shared
+//     memory, which costs the load pipe less than 32 shuffles). Block b of
+//     G takes stages b, b + G, ..., so that the grid reads one front of x
+//     (faster on the H100 than a contiguous run per block). The cover is
+//     shifted by the left pads of both levels; inputs outside [0, n) read
+//     as +0 (a sum from +0 never becomes -0, so a padding zero changes no
+//     bit).
+//   . The inputs stream through a shared-memory ring of kSumStages stages
+//     by 16-byte cp.async (L2 only), the next stages in flight while one is
+//     added, one barrier a stage. A stage lays each level-1 window out as a
+//     row of 36 floats (32 and a 16-byte pad), so a thread reads its window
+//     as 16-byte vectors with no bank conflict (a 33-float row would do
+//     that for 4-byte reads, but a 16-byte copy needs a 16-byte aligned
+//     target). The copy starts at the 16-byte boundary at or below the
+//     first input: delta (0..3) floats in, the same for every window of
+//     the sum, and a window then spans 9 vectors instead of 8. A vector
+//     that crosses 0 or n (any base address, any length) is read element
+//     by element. TMA's bulk copies (one a stage into a plain layout read
+//     rotated, or one a row) and a producer warp feeding the ring through
+//     mbarriers measured slower.
+//   . |x| (absolute) and x * x (square, __fmul_rn and then the add, as
+//     XLA rounds a separate square) are taken as the window adds its
+//     inputs; a square of at most 32 elements is XLA's fused reduce, one
+//     fma(v, v, acc) per element.
+//   . Only level-2 sums leave the block, into a workspace. The block that
+//     takes the last ticket (each block: __threadfence, then atomicAdd)
+//     sums the upper levels with the same stage code over the workspace
+//     while more than 32 sums remain, then the last reduce in one warp, in
+//     the windows' order, so the result never depends on which block ends
+//     first, and writes the 0-dim result (times 1/n for a mean). It then
+//     zeroes the ticket, so that the next call on the stream, or the next
+//     replay of a captured graph, starts from 0.
+//   . The workspace (the ticket and the level sums) is the wrapper's: one
+//     per (card, stream, graph capture), made with the ticket zeroed.
+//     Calls on one stream are ordered by the stream, so they share it;
+//     two streams (the PS steps' threads) never do. 16 bytes and 1/1024 of
+//     the input (96 KB at the embedding), kept for the process.
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -83,6 +134,23 @@ constexpr long long kDitherTile = (long long)kThreads * kDitherVec;
 constexpr int kIndexVec = 4;                                   // indices
 constexpr long long kIndexTile = (long long)kThreads * kIndexVec;
 constexpr uint32_t kGolden = 0x9E3779B1u;
+
+// fma_scalar: vectors of b and of c in flight per thread, blocks per SM
+constexpr int kFmaVecs = 4;
+constexpr int kFmaBlocksPerSm = 8;
+
+// xla_sum: kSumWarps warps, a stage of as many level-2 windows (1,024
+// inputs each) in a row of 36 floats per thread plus the next row's first
+// vector; the ring's stages
+constexpr int kSumWarps = 8;
+constexpr int kSumThreads = 32 * kSumWarps;
+constexpr int kSumRow = 36;
+constexpr int kSumStageFloats = kSumThreads * kSumRow + 4;
+constexpr int kSumStages = 3;
+// the ring, then the level-1 sums of a stage
+constexpr int kSumSmemBytes = (kSumStages * kSumStageFloats + kSumThreads) * 4;
+// xla_sum's elementwise op at load (kSumSquareFma: a square of <= 32)
+constexpr int kSumPlain = 0, kSumAbs = 1, kSumSquare = 2, kSumSquareFma = 3;
 
 // One row of a dithering round (four int64, as the host writes them).
 struct DitherPart {
@@ -113,7 +181,8 @@ __device__ __forceinline__ uint32_t counter_hash(long long i, uint32_t base) {
   return mm3_finalize((uint32_t)i * kGolden + base);
 }
 
-__device__ __forceinline__ long long min_ll(long long a, long long b) {
+__host__ __device__ __forceinline__ long long min_ll(long long a,
+                                                    long long b) {
   return a < b ? a : b;
 }
 
@@ -367,43 +436,306 @@ __global__ void __launch_bounds__(kThreads) dither_apply_kernel(
   }
 }
 
+// The vector body: vector i of out, b and c is elements head + 4i ..
+// head + 4i + 3. A thread loads kFmaVecs vectors of b and of c (a block's
+// loads are kThreads vectors apart, so a warp reads 512 contiguous bytes)
+// before it stores any. Block 0 also takes the scalar head and tail.
 __global__ void __launch_bounds__(kThreads) fma_scalar_kernel(
-    const float* __restrict__ b, const float* __restrict__ c,
-    float* __restrict__ out, long long n, const float* __restrict__ a_p,
-    float a_v) {
+    const float* b, const float* c, float* out, long long n, long long head,
+    int vec, const float* a_p, float a_v) {
   const float a = a_p != nullptr ? *a_p : a_v;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride)
-    out[i] = __fmaf_rn(a, b[i], c[i]);
+  if (!vec) {
+    const long long stride = (long long)gridDim.x * kThreads;
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+         i += stride)
+      __stcs(out + i, __fmaf_rn(a, __ldcs(b + i), __ldcs(c + i)));
+    return;
+  }
+  const long long nv = (n - head) >> 2;
+  const float4* b4 = reinterpret_cast<const float4*>(b + head);
+  const float4* c4 = reinterpret_cast<const float4*>(c + head);
+  float4* o4 = reinterpret_cast<float4*>(out + head);
+  const long long step = (long long)gridDim.x * kThreads * kFmaVecs;
+  for (long long i0 = (long long)blockIdx.x * kThreads * kFmaVecs +
+                      threadIdx.x;
+       i0 < nv; i0 += step) {
+    float4 bv[kFmaVecs], cv[kFmaVecs];
+#pragma unroll
+    for (int u = 0; u < kFmaVecs; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i < nv) {
+        bv[u] = __ldcs(b4 + i);
+        cv[u] = __ldcs(c4 + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFmaVecs; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i < nv)
+        __stcs(o4 + i, make_float4(__fmaf_rn(a, bv[u].x, cv[u].x),
+                                   __fmaf_rn(a, bv[u].y, cv[u].y),
+                                   __fmaf_rn(a, bv[u].z, cv[u].z),
+                                   __fmaf_rn(a, bv[u].w, cv[u].w)));
+    }
+  }
+  if (blockIdx.x == 0) {
+    // the scalar head (threads 0..3) and tail (threads 4..7)
+    const int tid = threadIdx.x;
+    const long long tail = n - head - 4 * nv;
+    long long e = -1;
+    if (tid < head)
+      e = tid;
+    else if (tid >= 4 && tid - 4 < tail)
+      e = head + 4 * nv + tid - 4;
+    if (e >= 0) out[e] = __fmaf_rn(a, __ldcs(b + e), __ldcs(c + e));
+  }
 }
 
-// A block sums kThreads windows: its kThreads * 32 inputs are staged in
-// shared memory by coalesced loads (element e of the block at e + e / 32,
-// so that neither the stores nor a thread's reads of its own window
-// conflict on a bank), then each thread adds its window in order. A
-// padding element reads as +0, which leaves a sum that starts at +0 as it
-// was (it never becomes -0 in round-to-nearest).
-__global__ void __launch_bounds__(kThreads) window_sum_kernel(
-    const float* __restrict__ in, long long n, float* __restrict__ out,
-    long long m, long long lo, int square) {
-  __shared__ float tile[kThreads * 33];
-  const long long first = (long long)blockIdx.x * kThreads * 32 - lo;
-#pragma unroll 4
-  for (int k = 0; k < 32; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    const long long i = first + e;
-    tile[e + e / 32] = (i >= 0 && i < n) ? __ldg(in + i) : 0.0f;
+// ---- xla_sum: levels 1 and 2 of the windows of 32 per stage ----------
+
+// The first two levels of XLA's tree over n elements: level 1 (A) makes
+// mA window sums of the input with left pad loA, level 2 (B) mB sums of
+// those with left pad loB. A sum of at most 32 is one window (mA = 1); a
+// level of at most 32 sums is the last reduce, one window (mB = 1), whose
+// pad only moves zeros. Level-B window v covers the inputs from
+// 1024 v - shift, shift = 32 loB + loA, on.
+struct SumPlan {
+  long long mA, loA, mB, loB;
+};
+
+__host__ __device__ inline SumPlan sum_plan(long long n) {
+  SumPlan p;
+  p.mA = n <= 32 ? 1 : (n + 31) / 32;
+  p.loA = n <= 32 ? 0 : (p.mA * 32 - n) / 2;
+  p.mB = p.mA <= 32 ? 1 : (p.mA + 31) / 32;
+  p.loB = p.mA <= 32 ? 0 : (p.mB * 32 - p.mA) / 2;
+  return p;
+}
+
+__host__ __device__ inline long long round4(long long v) {
+  return (v + 3) & ~3LL;
+}
+
+// floats of the workspace of a sum of n: the ticket's 4, the level-B sums
+// of the input, and (past 32 of them) the next level-B sums: the upper
+// levels ping-pong between the two
+__host__ __device__ inline long long sum_workspace(long long n) {
+  const SumPlan p = sum_plan(n);
+  return 4 + round4(p.mB) + (p.mB > 32 ? round4(sum_plan(p.mB).mB) : 0);
+}
+
+// a 16-byte copy to shared memory through L2 only, L2 fetching the whole
+// 128-byte line
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Copy `chunks` 16-byte vectors of src, from element `first` (on a 16-byte
+// boundary; it may be negative) on, into a stage: vector q at row q / 8,
+// column q % 8 of 36-float rows. A vector inside [0, n) goes by cp.async;
+// one that crosses 0 or n is read element by element, +0 outside.
+__device__ __forceinline__ void sum_issue(float* stage, const float* src,
+                                          long long n, long long first,
+                                          int chunks) {
+  for (int q = threadIdx.x; q < chunks; q += kSumThreads) {
+    float* d = stage + kSumRow * (q >> 3) + 4 * (q & 7);
+    const long long g = first + 4LL * q;
+    if (g >= 0 && g + 4 <= n) {
+      cp_async16(d, src + g);
+    } else {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (g + e >= 0 && g + e < n) ? __ldcg(src + g + e) : 0.0f;
+      *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+    }
   }
-  __syncthreads();
-  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (w >= m) return;
-  const float* win = tile + threadIdx.x * 33;
+}
+
+template <int kMode>
+__device__ __forceinline__ float sum_step(float acc, float v) {
+  if (kMode == kSumAbs) return __fadd_rn(acc, fabsf(v));
+  if (kMode == kSumSquare) return __fadd_rn(acc, __fmul_rn(v, v));
+  if (kMode == kSumSquareFma) return __fmaf_rn(v, v, acc);
+  return __fadd_rn(acc, v);
+}
+
+// A level-1 window: v[kDelta .. kDelta + 31], in order from +0.
+template <int kMode, int kDelta>
+__device__ __forceinline__ float window_sum(const float (&v)[36]) {
   float acc = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
-    acc = square ? __fmaf_rn(win[j], win[j], acc) : __fadd_rn(acc, win[j]);
-  out[w] = acc;
+  for (int j = 0; j < 32; ++j) acc = sum_step<kMode>(acc, v[kDelta + j]);
+  return acc;
+}
+
+// Add a landed stage: thread t sums level-1 window t (row t from column
+// delta, into row t + 1 where delta > 0) into sums[t], then lane 0 of warp
+// w adds its warp's 32 sums in lane order into level-2 window w, out[w].
+// Warps at or past nw have no window.
+template <int kMode>
+__device__ __forceinline__ void sum_stage(const float* stage, int delta,
+                                          int nw, float* sums, float* out) {
+  const int warp = threadIdx.x >> 5;
+  if (warp >= nw) return;
+  const float* row = stage + kSumRow * threadIdx.x;
+  float v[36];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (k < 8)
+      q = *reinterpret_cast<const float4*>(row + 4 * k);
+    else if (delta != 0)
+      q = *reinterpret_cast<const float4*>(row + kSumRow);
+    v[4 * k] = q.x;
+    v[4 * k + 1] = q.y;
+    v[4 * k + 2] = q.z;
+    v[4 * k + 3] = q.w;
+  }
+  float a;
+  switch (delta) {
+    case 0: a = window_sum<kMode, 0>(v); break;
+    case 1: a = window_sum<kMode, 1>(v); break;
+    case 2: a = window_sum<kMode, 2>(v); break;
+    default: a = window_sum<kMode, 3>(v); break;
+  }
+  sums[threadIdx.x] = a;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    const float4* w4 = reinterpret_cast<const float4*>(sums + threadIdx.x);
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4 q = w4[k];
+      s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, q.x), q.y), q.z), q.w);
+    }
+    out[warp] = s;
+  }
+}
+
+// Stages st0, st0 + step, ... (n_st of them) of a sum of src[0, n) under
+// plan p, stage k being level-B windows [8k, 8k + 8) clipped to mB, into
+// out at the same windows, through the ring of kSumStages stages.
+template <int kMode>
+__device__ void sum_windows(float* smem, const float* src, long long n,
+                            const SumPlan& p, long long st0, long long step,
+                            long long n_st, float* out) {
+  const long long shift = 32 * p.loB + p.loA;
+  const int delta =
+      (int)(((long long)((uintptr_t)src >> 2) - shift) & 3);
+  auto issue = [&](long long k) {
+    if (k < n_st) {
+      const long long v0 = kSumWarps * (st0 + k * step);
+      const int nw = (int)min_ll(kSumWarps, p.mB - v0);
+      sum_issue(smem + (k % kSumStages) * kSumStageFloats, src, n,
+                1024 * v0 - shift - delta, 256 * nw + (delta != 0));
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int k = 0; k < kSumStages - 1; ++k) issue(k);
+  for (long long k = 0; k < n_st; ++k) {
+    cp_async_wait<kSumStages - 2>();  // this thread's part of stage k
+    // every part of stage k has landed, and every thread is done with
+    // stage k - 1, whose slot the next issue fills
+    __syncthreads();
+    issue(k + kSumStages - 1);
+    const long long v0 = kSumWarps * (st0 + k * step);
+    sum_stage<kMode>(smem + (k % kSumStages) * kSumStageFloats, delta,
+                     (int)min_ll(kSumWarps, p.mB - v0),
+                     smem + kSumStages * kSumStageFloats, out + v0);
+  }
+  __syncthreads();  // the ring is free for the next call
+}
+
+// One launch for the whole sum: block b takes stages of x (8 level-B
+// windows each) into ws_a; the last block to arrive sums the upper levels,
+// from ws_a through ws_b and back while more than 32 sums remain, then the
+// last reduce in one warp, and writes out[0] (times scale where
+// has_scale).
+template <int kMode>
+__global__ void __launch_bounds__(kSumThreads, 2) xla_sum_kernel(
+    const float* __restrict__ x, long long n, float* ws_a, float* ws_b,
+    unsigned int* ticket, int has_scale, float scale, float* out) {
+  extern __shared__ float4 sum_smem[];
+  float* smem = reinterpret_cast<float*>(sum_smem);
+  __shared__ int last;
+  const SumPlan p = sum_plan(n);
+  const long long G = gridDim.x, b = blockIdx.x;
+  const long long n_st = (p.mB + kSumWarps - 1) / kSumWarps;
+  // block b takes stages b, b + G, ...: the grid reads one front of x
+  sum_windows<kMode>(smem, x, n, p, b, G, (n_st - b + G - 1) / G, ws_a);
+  __threadfence();  // this block's level-B sums, before its ticket
+  __syncthreads();
+  if (G > 1) {
+    if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == (unsigned)(G - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (threadIdx.x == 0) atomicExch(ticket, 0u);
+  }
+  const float* src = ws_a;
+  float* dst = ws_b;
+  long long m = p.mB;
+  while (m > 32) {
+    const SumPlan q = sum_plan(m);
+    sum_windows<kSumPlain>(smem, src, m, q, 0, 1,
+                           (q.mB + kSumWarps - 1) / kSumWarps, dst);
+    __threadfence();
+    __syncthreads();
+    src = dst;
+    dst = dst == ws_b ? ws_a : ws_b;
+    m = q.mB;
+  }
+  // the last reduce, of at most 32 sums: warp 0, lane order from +0
+  if (threadIdx.x < 32) {
+    const float v = threadIdx.x < m ? __ldcg(src + threadIdx.x) : 0.0f;
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      s = __fadd_rn(s, __shfl_sync(0xFFFFFFFFu, v, j));
+    if (threadIdx.x == 0) out[0] = has_scale ? __fmul_rn(s, scale) : s;
+  }
+}
+
+// Blocks of a kernel that fit on one SM of the calling thread's card with
+// `smem` bytes of dynamic shared memory, and that card's SMs; looked up
+// once per card and kernel (the opt-in to more than 48 KB set there too).
+struct Fit {
+  int blocks, sms;
+};
+
+template <typename K>
+Fit fit(K kernel, int slot, int threads, int smem) {
+  static Fit cache[8][64];
+  static std::mutex mu;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  Fit& f = cache[slot][dev & 63];
+  if (f.sms == 0) {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int blocks = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                  threads, smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    f.blocks = blocks > 0 ? blocks : 1;
+    f.sms = sms > 0 ? sms : 1;
+  }
+  return f;
 }
 
 long long tiles(long long work, long long tile) {
@@ -512,23 +844,64 @@ int bps_randomk_indices(const void* parts, const void* tile_start,
 int bps_fma_scalar(const void* b, const void* c, void* out, long long n,
                    const void* a_p, float a_v, void* stream) {
   if (n > 0) {
-    const long long grid = tiles(n, kThreads);
-    fma_scalar_kernel<<<(unsigned)(grid < 65536 ? grid : 65536), kThreads,
-                        0, (cudaStream_t)stream>>>(
-        (const float*)b, (const float*)c, (float*)out, n,
+    const uintptr_t ob = (uintptr_t)out;
+    const long long head = min_ll(n, (long long)((16 - (ob & 15)) & 15) / 4);
+    const int vec = (((uintptr_t)b ^ ob) & 15) == 0 &&
+                    (((uintptr_t)c ^ ob) & 15) == 0 && (ob & 3) == 0;
+    const Fit f = fit(fma_scalar_kernel, 4, kThreads, 0);
+    const long long work = vec ? tiles((n - head) / 4, kThreads * kFmaVecs)
+                               : tiles(n, kThreads);
+    long long grid = (long long)f.sms * kFmaBlocksPerSm;
+    grid = work < grid ? work : grid;
+    fma_scalar_kernel<<<(unsigned)(grid > 0 ? grid : 1), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+        (const float*)b, (const float*)c, (float*)out, n, head, vec,
         (const float*)a_p, a_v);
   }
   return (int)cudaGetLastError();
 }
 
-// One level of XLA's tree sum: out[w] = the in-order sum of
-// in[32 w - lo .. 32 w - lo + 31] (indices outside [0, n) skipped), w < m.
-int bps_window_sum(const void* in, long long n, void* out, long long m,
-                   long long lo, int square, void* stream) {
-  if (m > 0)
-    window_sum_kernel<<<(unsigned)tiles(m, kThreads), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        (const float*)in, n, (float*)out, m, lo, square);
+// Floats of the workspace bps_xla_sum needs for n inputs.
+long long bps_xla_sum_workspace(long long n) {
+  return n > 0 ? sum_workspace(n) : 0;
+}
+
+// The id of the graph capture under way on the stream, 0 if none.
+unsigned long long bps_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, &id) !=
+          cudaSuccess ||
+      status != cudaStreamCaptureStatusActive)
+    return 0;
+  return id;
+}
+
+// out[0] = XLA's CPU sum of f(x[i]), i < n (f: 0 the value, 1 |v|, 2 v * v
+// rounded, its add apart; with n <= 32 one fma per element), times scale
+// where has_scale; one launch. ws: ws_floats floats, the first 4 the
+// ticket (zero between calls), see bps_xla_sum_workspace.
+int bps_xla_sum(const void* x, long long n, int mode, int has_scale,
+                float scale, void* ws, long long ws_floats, void* out,
+                void* stream) {
+  if (n <= 0 || mode < kSumPlain || mode > kSumSquare ||
+      ws_floats < sum_workspace(n) || ((uintptr_t)x & 3) != 0 ||
+      ((uintptr_t)ws & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (mode == kSumSquare && n <= 32) mode = kSumSquareFma;
+  void (*const kernels[4])(const float*, long long, float*, float*,
+                           unsigned int*, int, float, float*) = {
+      xla_sum_kernel<kSumPlain>, xla_sum_kernel<kSumAbs>,
+      xla_sum_kernel<kSumSquare>, xla_sum_kernel<kSumSquareFma>};
+  const Fit f = fit(kernels[mode], mode, kSumThreads, kSumSmemBytes);
+  const SumPlan p = sum_plan(n);
+  long long grid = (long long)f.sms * f.blocks;
+  grid = tiles(p.mB, kSumWarps) < grid ? tiles(p.mB, kSumWarps) : grid;
+  float* ws_a = (float*)ws + 4;
+  kernels[mode]<<<(unsigned)grid, kSumThreads, kSumSmemBytes,
+                  (cudaStream_t)stream>>>(
+      (const float*)x, n, ws_a, ws_a + round4(p.mB), (unsigned int*)ws,
+      has_scale, scale, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -57,8 +57,9 @@ class OnebitCodec(Codec):
 
     def compress(self, x: torch.Tensor, step: int = 0) -> Dict[str, Any]:
         # the L1 mean in XLA's summation order (the JAX codec leaves it to
-        # XLA), so the scale is the JAX package's bit for bit
-        scale = xla_mean(x.abs()) if self.scaled else \
+        # XLA), so the scale is the JAX package's bit for bit; |x| is taken
+        # as the sum reads x
+        scale = xla_mean(x, absolute=True) if self.scaled else \
             torch.ones((), dtype=torch.float32, device=x.device)
         return {"bits": onebit_pack(x), "scale": scale.to(torch.float32)}
 

@@ -38,6 +38,7 @@ wrapper made them).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import numpy as np
@@ -187,9 +188,13 @@ def _rng_lib():
         lib.bps_fma_scalar.argtypes = [_VP, _VP, _VP, _LL, _VP,
                                        ctypes.c_float, _VP]
         lib.bps_fma_scalar.restype = ctypes.c_int
-        lib.bps_window_sum.argtypes = [_VP, _LL, _VP, _LL, _LL, ctypes.c_int,
-                                       _VP]
-        lib.bps_window_sum.restype = ctypes.c_int
+        lib.bps_xla_sum.argtypes = [_VP, _LL, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_float, _VP, _LL, _VP, _VP]
+        lib.bps_xla_sum.restype = ctypes.c_int
+        lib.bps_xla_sum_workspace.argtypes = [_LL]
+        lib.bps_xla_sum_workspace.restype = _LL
+        lib.bps_capture_id.argtypes = [_VP]
+        lib.bps_capture_id.restype = ctypes.c_ulonglong
         lib._bps_typed = True
     return lib
 
@@ -636,10 +641,14 @@ def _sum_levels(n: int):
     return levels
 
 
-def xla_sum_plain(x: torch.Tensor, square: bool = False) -> torch.Tensor:
-    """The plain twin of ``xla_sum``: each level's windows summed column by
-    column, every addition its own f32 rounding."""
+def xla_sum_plain(x: torch.Tensor, square: bool = False,
+                  absolute: bool = False) -> torch.Tensor:
+    """The plain twin of ``xla_sum``: |x| or x * x first, then each level's
+    windows summed column by column, every addition its own f32
+    rounding."""
     fused = square and x.numel() <= SUM_WINDOW
+    if absolute:
+        x = x.abs()
     if square and not fused:
         x = torch.square(x)
     acc = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -656,43 +665,71 @@ def xla_sum_plain(x: torch.Tensor, square: bool = False) -> torch.Tensor:
     return acc.reshape(())
 
 
-def xla_sum(x: torch.Tensor, square: bool = False) -> torch.Tensor:
-    """The sum of flat f32 ``x`` in the order and rounding of XLA's CPU
-    backend (``jnp.sum`` under jit): windows of 32 padded around, level by
-    level, each window added in order from 0 (``window_sum_kernel``, one
-    launch per level). ``square``: the sum of ``x * x``, as the L2 norm
-    takes it (for at most 32 elements XLA fuses the square into the sum's
-    FMAs). A 0-dim f32 tensor on ``x``'s device."""
+# one workspace of xla_sum per (card, stream, graph capture id or 0): the
+# stream orders the calls that share one, and the kernel leaves its ticket
+# at 0; a capture's own is zeroed by a node of its graph. Kept for the
+# process (a graph may replay as long as it lives).
+_SUM_WS: Dict[tuple, torch.Tensor] = {}
+_SUM_WS_LOCK = threading.Lock()
+
+
+def _sum_workspace(lib, device, stream: int, n: int) -> torch.Tensor:
+    need = lib.bps_xla_sum_workspace(n)
+    capture = lib.bps_capture_id(stream) \
+        if torch.cuda.is_current_stream_capturing() else 0
+    key = (device.index, stream, capture)
+    with _SUM_WS_LOCK:
+        ws = _SUM_WS.get(key)
+        if ws is None or ws.numel() < need:
+            ws = _SUM_WS[key] = torch.zeros(max(need, 1024),
+                                            dtype=torch.float32,
+                                            device=device)
+    return ws
+
+
+def _xla_sum(x: torch.Tensor, square: bool, absolute: bool,
+             scale=None) -> torch.Tensor:
     if x.dim() != 1 or x.dtype != torch.float32:
         raise ValueError("xla_sum: expected a flat f32 tensor")
-    if not _route(x, "xla_sum"):
-        return xla_sum_plain(x, square)
+    if not _route(x, "xla_sum") or x.numel() == 0:
+        total = xla_sum_plain(x, square, absolute)
+        return total if scale is None else total * scale
     x = x.contiguous()
-    fused = square and x.numel() <= SUM_WINDOW
-    if square and not fused:
-        x = torch.square(x)
-    if x.numel() == 0:
-        return torch.zeros((), dtype=torch.float32, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    mode = 2 if square else int(absolute)
     lib = _rng_lib()
     with build.on_device(x.device) as stream:
-        for n, m, lo in _sum_levels(x.numel()):
-            out = torch.empty(m, dtype=torch.float32, device=x.device)
-            xla_sum.launches += 1
-            build.check(lib, lib.bps_window_sum(
-                x.data_ptr(), n, out.data_ptr(), m, lo, int(fused), stream),
-                "xla_sum")
-            x = out
-    return x.reshape(())
+        ws = _sum_workspace(lib, x.device, stream, x.numel())
+        xla_sum.launches += 1
+        build.check(lib, lib.bps_xla_sum(
+            x.data_ptr(), x.numel(), mode, int(scale is not None),
+            0.0 if scale is None else scale, ws.data_ptr(), ws.numel(),
+            out.data_ptr(), stream), "xla_sum")
+    return out
+
+
+def xla_sum(x: torch.Tensor, square: bool = False,
+            absolute: bool = False) -> torch.Tensor:
+    """The sum of flat f32 ``x`` in the order and rounding of XLA's CPU
+    backend (``jnp.sum`` under jit): windows of 32 padded around, level by
+    level, each window added in order from 0; one launch of
+    ``xla_sum_kernel``. ``absolute``: the sum of |x| (the onebit scale's
+    ``jnp.abs``, taken at load). ``square``: the sum of ``x * x``, as the
+    L2 norm takes it (for at most 32 elements XLA fuses the square into the
+    sum's FMAs). A 0-dim f32 tensor on ``x``'s device."""
+    return _xla_sum(x, square, absolute)
 
 
 xla_sum.launches = 0
 
 
-def xla_mean(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.mean`` of flat f32 ``x`` under jit on the CPU: ``xla_sum``
-    times 1/n, which XLA folds to an f32 constant."""
+def xla_mean(x: torch.Tensor, absolute: bool = False) -> torch.Tensor:
+    """``jnp.mean`` of flat f32 ``x`` (of |x| with ``absolute``) under jit
+    on the CPU: ``xla_sum`` times 1/n, which XLA folds to an f32 constant;
+    the kernel takes the product in the same launch."""
     # the float is an f32 value, so the product rounds once in f32
-    return xla_sum(x) * float(np.float32(1) / np.float32(x.numel()))
+    return _xla_sum(x, False, absolute,
+                    scale=float(np.float32(1) / np.float32(x.numel())))
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:

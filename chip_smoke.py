@@ -57,8 +57,15 @@ result line:
 
 Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
 does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
-XLA's tree sum of the onebit scale and the L2 norm) to their twins; the
-collective path launches both (its optimizer takes an LR schedule).
+XLA's tree sum of the onebit scale and the L2 norm) to their twins:
+``xla_sum`` in its three modes (plain, |x|, x * x) at lengths whose tree
+pads levels 1 and 2 on the left, on x and on a view one float past it,
+one launch a call, and across two replays of a captured graph;
+``fma_scalar`` on views one float in and written into b or c. Phase 3
+times them against ``torch.sum`` and ``torch.addcmul``, and the onebit
+scale ``xla_mean(x, absolute=True)`` against the same mean over a
+separate |x|. The collective path launches each exactly once a
+compressed leaf a step (its optimizer takes an LR schedule).
 
 Each PS run takes one more step with its spans on, to show where the time
 goes. Before each path runs, the kernel launch counters are zeroed; they are
@@ -234,38 +241,111 @@ def phase_onebit(dev, gen) -> list:
     return [pack, unpack]
 
 
+# xla_sum's lengths beside the path's: 33 and 32,769 pad level 1 on the
+# left (32,769 level 2 too), 32,758 level 1 alone, 32,000 level 2 alone
+XLA_SUM_LENGTHS = (EMBED_N, RAGGED_N, 1, 31, 32, 33, 32_769, 32_758, 32_000)
+XLA_SUM_MODES = ({}, {"absolute": True}, {"square": True})
+
+
+def _xla_sum_checks(dev, gen) -> None:
+    """``xla_sum`` bit for bit with its twin in every mode, at every
+    length, on x and on the view that starts one float past it; the
+    onebit form ``xla_mean(x, absolute=True)``; one launch a call; and
+    two replays of one captured graph."""
+    import numpy as np
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+
+    for n in XLA_SUM_LENGTHS:
+        base = torch.randn(n + 1, generator=gen, device=dev)
+        for view, x in (("x", base[:n]), ("x[1:]", base[1:])):
+            for kw in XLA_SUM_MODES:
+                before = K.xla_sum.launches
+                got = K.xla_sum(x, **kw)
+                if K.xla_sum.launches != before + 1:
+                    fail(f"xla_sum made {K.xla_sum.launches - before} "
+                         f"launches for one call")
+                want = K.xla_sum_plain(x, **kw)
+                if not torch.equal(got, want):
+                    fail(f"xla_sum {kw} of {view} differs from its twin at "
+                         f"n={n}: {got.item()} vs {want.item()}")
+            got = K.xla_mean(x, absolute=True)
+            want = K.xla_sum_plain(x, absolute=True) * float(
+                np.float32(1) / np.float32(n))
+            if not torch.equal(got, want):
+                fail(f"xla_mean(absolute) of {view} differs from its twin "
+                     f"at n={n}: {got.item()} vs {want.item()}")
+    print(f"xla_sum: bit-exact with its twin in {len(XLA_SUM_MODES)} modes "
+          f"at n in {XLA_SUM_LENGTHS}, aligned and x[1:], one launch a "
+          f"call", flush=True)
+    x = torch.randn(EMBED_N, generator=gen, device=dev)
+    want = [K.xla_sum(x, **kw) for kw in XLA_SUM_MODES]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [K.xla_sum(x, **kw) for kw in XLA_SUM_MODES]
+    for replay in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        g.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            fail(f"xla_sum: graph replay {replay} differs from the eager "
+                 f"sums")
+    print("xla_sum: two graph replays give the eager bits", flush=True)
+
+
+def _fma_checks(dev, gen) -> None:
+    """``fma_scalar`` bit for bit with its twin's exact FMA: the EF LR
+    rescale with a device scalar and the Nesterov momentum with mu, at the
+    path's lengths; written into b, into c, and on views one float past
+    16 bytes."""
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+
+    for n in (EMBED_N, RAGGED_N):
+        x, e, m = (torch.randn(n + 1, generator=gen, device=dev)
+                   for _ in range(3))
+        scale = torch.tensor(0.05, device=dev) / torch.tensor(0.03,
+                                                               device=dev)
+        mu = torch.tensor(0.9, device=dev)
+        for view, sl in (("x", slice(0, n)), ("x[1:]", slice(1, n + 1))):
+            xs, es, ms = x[sl], e[sl], m[sl]
+            for what, got, want in (
+                    ("EF rescale", K.fma_scalar(scale, es, xs),
+                     K.fma_f32_plain(scale, es, xs)),
+                    ("momentum", K.fma_scalar(0.9, ms, xs),
+                     K.fma_f32_plain(mu, ms, xs))):
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"fma_scalar ({what}, {view}) differs from its "
+                         f"twin at n={n}: {int((got != want).sum())} "
+                         f"elements")
+            want = K.fma_f32_plain(scale, es, xs)
+            for into in ("b", "c"):
+                b, c = es.clone(), xs.clone()
+                got = K.fma_scalar(scale, b, c, out=b if into == "b" else c)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"fma_scalar (out={into}, {view}) differs from "
+                         f"its twin at n={n}")
+    print(f"fma_scalar: bit-exact with its twin at n in "
+          f"{(EMBED_N, RAGGED_N)}, aligned and x[1:], out new, = b and = c",
+          flush=True)
+
+
 def phase_xla_rounding(dev, gen) -> list:
     """The two kernels that round as XLA on the CPU does, at the collective
     path's largest compressed leaf (the embedding): ``fma_scalar`` (the
     EF LR rescale with a device scalar, the Nesterov momentum with mu)
     and ``xla_sum`` (XLA's tree sum: the onebit L1-mean scale, and the
     L2 norm's sum of squares), each bit for bit against its plain twin,
-    whose FMA is exact; on the ragged length too."""
+    whose FMA is exact; then each timed against its PyTorch call, and the
+    onebit scale against the same mean over a separate |x|."""
     import torch
     from byteps_tpu_torch.ops.compression import kernels as K
 
-    for n in (EMBED_N, RAGGED_N):
-        x, e, m = (torch.randn(n, generator=gen, device=dev)
-                   for _ in range(3))
-        scale = torch.tensor(0.05, device=dev) / torch.tensor(0.03,
-                                                               device=dev)
-        mu = torch.tensor(0.9, device=dev)
-        for what, got, want in (
-                ("EF rescale", K.fma_scalar(scale, e, x),
-                 K.fma_f32_plain(scale, e, x)),
-                ("momentum", K.fma_scalar(0.9, m, x),
-                 K.fma_f32_plain(mu, m, x))):
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"fma_scalar ({what}) differs from its twin at n={n}: "
-                     f"{int((got != want).sum())} elements")
-        for square in (False, True):
-            got, want = K.xla_sum(x, square), K.xla_sum_plain(x, square)
-            if not torch.equal(got, want):
-                fail(f"xla_sum (square={square}) differs from its twin at "
-                     f"n={n}: {got.item()} vs {want.item()}")
-        print(f"fma_scalar and xla_sum n={n}: bit-exact with their twins",
-              flush=True)
+    _fma_checks(dev, gen)
+    _xla_sum_checks(dev, gen)
     n = EMBED_N
     x, e = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
     out = torch.empty_like(x)
@@ -288,14 +368,20 @@ def phase_xla_rounding(dev, gen) -> list:
         max_abs_err=0.0,
         ms=cuda_graph_ms(lambda: K.xla_sum(x)),
         plain_ms=cuda_ms(lambda: K.xla_sum_plain(x), 5),
-        # read x once (the upper levels read 1/32 as much again)
-        bound_ms=4 * n * (1 + 1 / 31) / PEAK_BYTES_PER_S * 1e3,
-        bound_by="bytes",
+        # read x once, write the 0-dim result
+        bound_ms=(4 * n + 4) / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=cuda_graph_ms(lambda: torch.sum(x)))
     for k in (fma, tree):
         print(f"{k['name']} n={n}: {k['ms']:.4f} ms (plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms, "
               f"library {k['library_ms']:.4f} ms)", flush=True)
+    onebit = {
+        "xla_mean(x, absolute=True)": lambda: K.xla_mean(x, absolute=True),
+        "xla_mean(x.abs())": lambda: K.xla_mean(x.abs()),
+        "x.abs().mean()": lambda: x.abs().mean()}
+    print(f"onebit scale n={n}: " + "; ".join(
+        f"{what} {cuda_graph_ms(fn):.4f} ms" for what, fn in onebit.items()),
+        flush=True)
     return [fma, tree]
 
 
@@ -824,6 +910,12 @@ def phase_train(args, card: str) -> dict:
         fail(f"non-finite loss: {losses}")
     if any(v == 0 for v in launches.values()):
         fail(f"a kernel of the path never launched: {launches}")
+    # one onebit scale (one sum) and one EF LR rescale a compressed leaf
+    for name in ("xla_sum", "fma_scalar"):
+        if launches[name] != n_comp * args.steps:
+            fail(f"{name}: {launches[name]} launches in {args.steps} steps, "
+                 f"not one for each of the {n_comp} compressed leaves a "
+                 f"step")
     steady = times[1:] if len(times) > 1 else times
     tok_s = B * S / (sum(steady) / len(steady))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9

@@ -178,6 +178,65 @@ def test_xla_sum_and_mean_follow_the_jitted_jax_order(seed):
         assert tn.item() == np.float32(jn(x)), n
 
 
+# n = 1..32 is one window; 33, 32,769 and 100,003 pad level 1 on the left
+# (and 32,769 and 100,003 level 2), 32,000 pads level 2 alone and 32,758
+# level 1 alone; 1,025 is the first length with two level-2 windows
+XLA_SUM_LENGTHS = [1, 31, 32, 33, 1025, 32_000, 32_758, 32_769, 100_003]
+
+
+@pytest.mark.parametrize("n", XLA_SUM_LENGTHS)
+def test_xla_sum_modes_follow_the_jitted_jax_sums(n):
+    """``xla_sum`` with ``absolute`` and ``square`` (|x| and x * x taken
+    as the sum reads x), and ``xla_mean`` with ``absolute``, equal jitted
+    ``jnp.sum(jnp.abs(x))``, ``jnp.sum(jnp.square(x))`` and
+    ``jnp.mean(jnp.abs(x))`` bit for bit, the plain twin and the wrapper
+    alike; so do the onebit scale and the L2 norm against the JAX
+    codecs."""
+    import jax
+    from byteps_tpu.ops.compression.codecs import DitheringCodec as JDither
+    from byteps_tpu_torch.ops.compression.codecs import (
+        DitheringCodec, OnebitCodec,
+    )
+    jabs = jax.jit(lambda v: jnp.sum(jnp.abs(v)))
+    jsq = jax.jit(lambda v: jnp.sum(jnp.square(v)))
+    jmean = jax.jit(lambda v: jnp.mean(jnp.abs(v)))
+    jscale = jax.jit(lambda v: JOnebit(size=n).compress(v)["scale"])
+    jnorm = jax.jit(lambda v: JDither(size=n, normalize="l2",
+                                      use_pallas=False).compress(v)["norm"])
+    for k in range(3):
+        rs = np.random.default_rng(n * 3 + k)
+        x = (rs.standard_normal(n) * 10.0 ** (2 * k - 2)).astype(np.float32)
+        t = torch.from_numpy(x)
+        want_abs, want_sq, want_mean = (np.float32(f(x))
+                                        for f in (jabs, jsq, jmean))
+        for f in (K.xla_sum_plain, K.xla_sum):
+            assert f(t, absolute=True).item() == want_abs, (n, k)
+            assert f(t, square=True).item() == want_sq, (n, k)
+            assert f(t, square=True, absolute=True).item() == want_sq, (n, k)
+        assert K.xla_mean(t, absolute=True).item() == want_mean, (n, k)
+        assert OnebitCodec(size=n).compress(t)["scale"].item() == \
+            np.float32(jscale(x)), (n, k)
+        assert DitheringCodec(size=n, normalize="l2").norm(t).item() == \
+            np.float32(jnorm(x)), (n, k)
+
+
+def test_onebit_scale_takes_abs_inside_the_sum(monkeypatch):
+    """``OnebitCodec.compress`` hands x itself to ``xla_mean`` with
+    ``absolute``, so no |x| tensor is built before the sum."""
+    from byteps_tpu_torch.ops.compression import codecs
+    seen = []
+
+    def spy(x, absolute=False):
+        seen.append((x, absolute))
+        return K.xla_mean(x, absolute=absolute)
+
+    monkeypatch.setattr(codecs, "xla_mean", spy)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        100).astype(np.float32))
+    codecs.OnebitCodec(size=100).compress(x)
+    assert len(seen) == 1 and seen[0][0] is x and seen[0][1] is True
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 8, 32, 33, 100])
 def test_rank_sum_follows_the_jitted_jax_order(n):
     """``rank_sum`` of n ranks' vectors equals jitted ``jnp.sum`` over

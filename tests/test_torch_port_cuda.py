@@ -358,9 +358,34 @@ def test_fma_kernel_bit_exact_with_twin(dev, case):
                       (x1, K.fma_f32_plain(mu, m1, x)),
                       (ex, K.fma_f32_plain(scale, e, x))):
         assert torch.equal(got, want), int((got != want).sum())
-    # written in place into c, as the round's momentum writes x
+    # written in place into c, as the round's momentum writes x, and
+    # into b
     y = x.clone()
     assert K.fma_scalar(0.9, m1, y, out=y) is y and torch.equal(y, x1)
+    y = m.clone()
+    assert K.fma_scalar(0.9, y, x, out=y) is y and torch.equal(y, m1)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1000, 1_000_003])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                     (0, 1, 2), (2, 0, 0)])
+@pytest.mark.parametrize("alias", ["none", "b", "c"])
+def test_fma_kernel_any_offset_length_and_aliasing(dev, n, offsets, alias):
+    """Views that start off 16 bytes (the same phase: a scalar head and the
+    vector body; other phases: every element scalar), ragged lengths (the
+    scalar tail), and out = b or out = c, bit for bit with the twin."""
+    ob, oc, oo = offsets
+    g = torch.Generator(device=dev).manual_seed(n + 7 * ob + oc)
+    bb, cc, oo_buf = (torch.randn(n + 4, generator=g, device=dev)
+                      for _ in range(3))
+    b, c = bb[ob: ob + n], cc[oc: oc + n]
+    want = K.fma_f32_plain(torch.tensor(-1.75, device=dev), b, c)
+    out = {"none": oo_buf[oo: oo + n], "b": b, "c": c}[alias]
+    before = K.fma_scalar.launches
+    got = K.fma_scalar(-1.75, b, c, out=out)
+    assert K.fma_scalar.launches == before + 1 and got is out
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 def test_wrappers_launch_on_their_tensors_card_from_any_thread(dev):
@@ -394,14 +419,78 @@ def test_wrappers_launch_on_their_tensors_card_from_any_thread(dev):
                                             x, x))
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 1025, 100_003, 32000 * 768])
+# 33, 32,769, 100,003 and 1,000,003 pad level 1 on the left (and all but
+# 33 level 2), 32,000 pads level 2 alone, 32,758 level 1 alone; the
+# embedding pads level 3
+XLA_SUM_MODES = [{}, {"absolute": True}, {"square": True}]
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1025, 32_000, 32_758, 32_769,
+                               100_003, 1_000_003, 32000 * 768])
 def test_xla_sum_kernel_bit_exact_with_twin(dev, n):
+    """Every mode, on x and on views of it that start 1, 2 and 3 floats
+    past a 16-byte boundary, bit for bit with the twin, one launch a
+    call; the mean with |x| too."""
     g = torch.Generator(device=dev).manual_seed(n)
-    x = torch.randn(n, generator=g, device=dev)
-    for square in (False, True):
-        got = K.xla_sum(x, square=square)
-        want = K.xla_sum_plain(x, square=square)
-        assert torch.equal(got, want), (n, square, got.item(), want.item())
+    base = torch.randn(n + 3, generator=g, device=dev)
+    for off in range(4):
+        x = base[off: off + n]
+        for kw in XLA_SUM_MODES:
+            before = K.xla_sum.launches
+            got = K.xla_sum(x, **kw)
+            assert K.xla_sum.launches == before + 1
+            want = K.xla_sum_plain(x, **kw)
+            assert torch.equal(got, want), (n, off, kw, got.item(),
+                                            want.item())
+        got = K.xla_mean(x, absolute=True)
+        want = K.xla_sum_plain(x, absolute=True) * float(
+            np.float32(1) / np.float32(n))
+        assert torch.equal(got, want), (n, off, got.item(), want.item())
+
+
+def test_xla_sum_graph_replays_give_the_same_bits(dev):
+    """Two replays of one captured graph of sums (the ticket is back at 0
+    after each) give the eager results, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    xs = [torch.randn(n, generator=g, device=dev)
+          for n in (33, 100_003, 32000 * 768)]
+    want = [K.xla_sum(x, absolute=True) for x in xs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [K.xla_sum(x, absolute=True) for x in xs]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert torch.equal(o, w), (o.item(), w.item())
+    assert all(torch.equal(K.xla_sum(x, absolute=True), w)
+               for x, w in zip(xs, want))
+
+
+def test_xla_sum_on_two_streams_at_once(dev):
+    """Two threads, each on a stream of its own, sum at once, many times:
+    each stream has its own workspace and ticket, so every result is the
+    twin's."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    xs = [torch.randn(n, generator=g, device=dev)
+          for n in (32000 * 768, 1_000_003)]
+    want = [K.xla_sum_plain(x) for x in xs]
+    torch.cuda.synchronize()
+
+    def run(x):
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            outs = [K.xla_sum(x) for _ in range(50)]
+        stream.synchronize()
+        return outs
+
+    import concurrent.futures as cf
+    with cf.ThreadPoolExecutor(2) as pool:
+        results = list(pool.map(run, xs))
+    for outs, w in zip(results, want):
+        assert all(torch.equal(o, w) for o in outs)
 
 
 def test_dequantize_one_partition_is_a_round_of_one(dev):

@@ -21,7 +21,13 @@ CUDA kernels here (``csrc/``), built with nvcc at first use.
 In PS mode the Horovod-style asynchronous surface of BytePS pushes host
 tensors through the scheduler: ``h = bps.push_pull_async(array, name)``,
 ``bps.poll(h)``, ``bps.synchronize(h)``, and ``bps.declare_tensor`` fixes
-a name's key ahead of time.
+a name's key ahead of time; ``bps.push_pull_rowsparse(grad2d, name)``
+sends only the nonzero rows of an embedding-style gradient (its
+asynchronous twin ``push_pull_rowsparse_async`` returns a handle). In PS
+mode ``push_pull`` and ``broadcast`` also cross the workers through the
+servers, and ``rank()``/``size()`` are global. ``byteps_tpu_torch.torch``
+is BytePS's PyTorch adapter (``DistributedOptimizer`` hooks,
+``DistributedDataParallel``, ``CrossBarrier``).
 
 The package imports ``torch`` and numpy and nothing of JAX.
 """
@@ -31,7 +37,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
+# the subpackage ``byteps_tpu_torch.torch`` (the PyTorch adapter) becomes
+# this module's attribute ``torch`` once imported: the real one is _torch
+import torch as _torch
 
 from .core.state import get_state
 from .core.types import DataType
@@ -39,7 +47,8 @@ from .ops.push_pull import broadcast, push_pull
 
 __all__ = ["init", "shutdown", "rank", "size", "local_rank", "local_size",
            "push_pull", "broadcast", "declare_tensor", "push_pull_async",
-           "poll", "synchronize"]
+           "push_pull_rowsparse", "push_pull_rowsparse_async", "poll",
+           "synchronize"]
 
 
 def init(device=None, store=None, rank: Optional[int] = None,
@@ -61,11 +70,14 @@ def shutdown() -> None:
 
 
 def rank() -> int:
-    return get_state().require().local_rank
+    """This process's global rank: BYTEPS_GLOBAL_RANK, else
+    ``worker_id * local_size + local_rank``."""
+    return get_state().require().rank()
 
 
 def size() -> int:
-    return get_state().require().local_size
+    """The job's process count: ``num_workers * local_size``."""
+    return get_state().require().size()
 
 
 def local_rank() -> int:
@@ -82,8 +94,20 @@ def declare_tensor(name: str, dtype: DataType = DataType.FLOAT32):
     return get_state().require().registry.declare(name, dtype)
 
 
+def _require_ps(op: str, tensor):
+    state = get_state().require()
+    if state.scheduler is None:
+        raise RuntimeError(f"{op} requires a connected PS "
+                           "(DMLC_NUM_SERVER > 0)")
+    if isinstance(tensor, _torch.Tensor) and tensor.device.type != "cpu":
+        raise TypeError(f"{op} takes a host tensor, got one on "
+                        f"{tensor.device}")
+    return state
+
+
 def push_pull_async(tensor, name: str, average: bool = True,
-                    priority: Optional[int] = None, out=None) -> int:
+                    priority: Optional[int] = None, out=None,
+                    dtype: Optional[DataType] = None) -> int:
     """Asynchronous PS push_pull of a host tensor (a numpy array or a CPU
     tensor): returns an int handle at once; the partitions flow through
     the priority-scheduled pipeline, and ``synchronize(handle)`` returns
@@ -92,25 +116,47 @@ def push_pull_async(tensor, name: str, average: bool = True,
     (-declared_key, unless the streamed train step pinned its production
     order); an explicit one counts at the key's first submission only.
     ``out``: a flat result buffer that the caller keeps until the handle
-    resolves (torch/ops.py:157-174)."""
-    state = get_state().require()
-    if state.scheduler is None:
-        raise RuntimeError("push_pull_async requires a connected PS "
-                           "(DMLC_NUM_SERVER > 0)")
-    if isinstance(tensor, torch.Tensor) and tensor.device.type != "cpu":
-        raise TypeError(f"push_pull_async takes a host tensor, got one on "
-                        f"{tensor.device}")
+    resolves (torch/ops.py:157-174). ``dtype``: the wire dtype where the
+    array's own does not say it (BFLOAT16 bits in a uint16 array)."""
+    state = _require_ps("push_pull_async", tensor)
     from .server.client import get_or_init_ctx
     host = np.ascontiguousarray(tensor)
     flat = host.reshape(-1)
-    ctx = get_or_init_ctx(state, name, flat)
+    ctx = get_or_init_ctx(state, name, flat, dtype)
     handle = state.handles.allocate(name)
     handle.shape = host.shape
+    handle.wire = ctx.dtype
     state.scheduler.submit(ctx, flat, handle, average,
                            state.config.num_workers,
                            version=state.next_version(name),
                            priority=priority, out=out)
     return handle.id
+
+
+def push_pull_rowsparse_async(tensor, name: str, average: bool = True,
+                              out=None) -> int:
+    """Asynchronous row-sparse PS push_pull (byteps_tpu/__init__.py
+    :287-325) of a [rows, width] f32 host gradient whose rows are mostly
+    zero, such as an embedding's: only the nonzero rows travel up,
+    ``[nrows][width][ids][rows]`` per row-aligned partition, the server
+    scatter-adds them (kRowSparsePushPull), and ``synchronize(handle)``
+    returns the dense cross-worker sum (mean when ``average``) of the
+    input's shape. ``out``: as ``push_pull_async``'s."""
+    state = _require_ps("push_pull_rowsparse", tensor)
+    from .server.client import rowsparse_submit
+    host = np.ascontiguousarray(tensor, dtype=np.float32)
+    if host.ndim != 2:
+        raise ValueError(f"expected [rows, width], got shape {host.shape}")
+    handle = state.handles.allocate(name)
+    handle.shape = host.shape
+    handle.wire = DataType.FLOAT32
+    rowsparse_submit(state, name, host, average, handle, out=out)
+    return handle.id
+
+
+def push_pull_rowsparse(tensor, name: str, average: bool = True):
+    """The blocking ``push_pull_rowsparse_async``: the dense aggregate."""
+    return synchronize(push_pull_rowsparse_async(tensor, name, average))
 
 
 def poll(handle: int) -> bool:

@@ -10,7 +10,8 @@ on one server:
   name (global.cc:412-429);
 - PS key = ``declared_key << 16 | partition_index`` (operations.cc:306-311);
 - partitions of at most ``partition_bytes``, rounded to a page
-  (operations.cc:140-180; global.cc:134-144);
+  (operations.cc:140-180; global.cc:134-144), or down to whole rows of
+  ``align_bytes`` for a row-sparse tensor;
 - server choice by the BYTEPS_KEY_HASH_FN hash of the key, or the
   least-loaded server for "mixed" (global.cc:566-677).
 
@@ -18,8 +19,9 @@ on one server:
   keys named ``shard_name`` (the JAX names, so a mixed fleet agrees);
   ``free`` retires a key;
 - crash migration (``migrate_server``): a dead server's partitions move
-  to the least-loaded survivors, the same way on every worker, and the
-  dead server takes no new key.
+  whole (a row-sparse key keeps its row-aligned table) to the
+  least-loaded survivors, the same way on every worker, and the dead
+  server takes no new key.
 
 Not yet ported: the elastic join and drain plans (``plan_join``,
 ``plan_drain``, ``rebalance``) and the colocated mixed mode.
@@ -133,25 +135,37 @@ class TensorRegistry:
             return ctx
 
     def init_tensor(self, name: str, nbytes: int,
-                    dtype: Optional[DataType] = None) -> TensorContext:
+                    dtype: Optional[DataType] = None,
+                    align_bytes: Optional[int] = None) -> TensorContext:
         """Partition into <= partition_bytes keys and assign each to a
-        server (operations.cc:283-414); idempotent for an unchanged
-        size."""
+        server (operations.cc:283-414); idempotent for an unchanged size
+        and alignment. ``align_bytes``: partition boundaries on multiples
+        of it (a row-sparse tensor's rows never straddle two partitions,
+        byteps_tpu/core/registry.py:295-325)."""
         ctx = self.declare(name, dtype or DataType.FLOAT32)
         if dtype is not None:
             ctx.dtype = dtype
         with self._lock:
-            if ctx.initialized and ctx.nbytes == nbytes:
+            if (ctx.initialized and ctx.nbytes == nbytes
+                    and ctx.align_bytes == align_bytes):
                 return ctx
-            self._partition_locked(ctx, nbytes)
+            self._partition_locked(ctx, nbytes, align_bytes)
+            ctx.align_bytes = align_bytes
             ctx.initialized = True
             return ctx
 
-    def _partition_locked(self, ctx: TensorContext, nbytes: int) -> None:
+    def _partition_locked(self, ctx: TensorContext, nbytes: int,
+                          align_bytes: Optional[int] = None) -> None:
         _check(nbytes > 0, f"tensor {ctx.name} has zero size")
         pb = self._config.partition_bytes
         part_bytes = max(PAGE_SIZE, (pb + PAGE_SIZE - 1) // PAGE_SIZE
                          * PAGE_SIZE)
+        if align_bytes:
+            _check(nbytes % align_bytes == 0,
+                   f"{ctx.name}: size {nbytes} not a multiple of "
+                   f"align_bytes {align_bytes}")
+            part_bytes = max(align_bytes,
+                             part_bytes // align_bytes * align_bytes)
         # re-init: retire the old partitions' load and staged slots (the
         # ":" scopes the match to this tensor's keys)
         if ctx.partitions and self._arena is not None:

@@ -2,8 +2,9 @@
 
 Port of byteps_tpu/core/scheduler.py, trimmed to what the PS train step
 uses: dense tensors and host-compressed ones (``submit``, with the
-COMPRESS and DECOMPRESS stages around the wire) and prebuilt wire
-payloads of the device tier (``submit_wire``), each through the fused
+COMPRESS and DECOMPRESS stages around the wire), prebuilt wire
+payloads of the device tier (``submit_wire``) and row-sparse pushes with
+dense pulls (``submit_rowsparse``), each through the fused
 WIRE stage, one PUSHPULL message per partition, or with
 BYTEPS_FUSED_PUSHPULL off through the two-op path (a PUSH stage, then a
 blocking PULL stage), with the reference's worker-side scheduling
@@ -50,6 +51,7 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config import WIRE_BACKOFF_CAP_MS, Config
 from ..utils.logging import log
@@ -151,15 +153,17 @@ class PartitionTask:
     common.h:221-264). Dense: ``in_view`` up, the reply into
     ``out_view``. Host-compressed: ``stack`` compresses ``in_view`` into
     ``wire`` and decompresses the reply into ``out_view``. Device tier:
-    a prebuilt ``wire`` up, ``pull_len`` reply bytes into ``out_view``."""
+    a prebuilt ``wire`` up, ``pull_len`` reply bytes into ``out_view``.
+    Row-sparse: a prebuilt ``wire`` up under ``cmd``, the dense reply
+    pulled under ``cmd_pull``."""
 
     __slots__ = ("ctx", "partition", "priority", "version", "in_view",
-                 "out_view", "group", "cmd", "wire", "pull_len", "stack",
-                 "step", "lease", "round_no", "attempt", "sent_to")
+                 "out_view", "group", "cmd", "cmd_pull", "wire", "pull_len",
+                 "stack", "step", "lease", "round_no", "attempt", "sent_to")
 
     def __init__(self, ctx, partition, priority, version, out_view, group,
                  cmd, wire=None, pull_len=None, in_view=None, stack=None,
-                 step=0):
+                 step=0, cmd_pull=None):
         self.ctx: TensorContext = ctx
         self.partition: Partition = partition
         self.priority = priority
@@ -167,7 +171,9 @@ class PartitionTask:
         self.in_view = in_view     # np.uint8 dense input (or None)
         self.out_view = out_view   # np.uint8 reply/result buffer
         self.group: "TaskGroup" = group
-        self.cmd = cmd             # command word of push and reply
+        self.cmd = cmd             # command word of the push
+        # the two-op pull's (the push's, but for a row-sparse push)
+        self.cmd_pull = cmd if cmd_pull is None else cmd_pull
         self.wire = wire           # push payload, prebuilt or compressed
         self.pull_len = pull_len   # device tier: reply bytes
         self.stack = stack         # host codec stack (or None)
@@ -742,7 +748,7 @@ class PipelineScheduler:
         try:
             reply = self._reply_buffer(task)
             got = self._client.zpull(
-                task.sent_to, task.key, reply, task.cmd,
+                task.sent_to, task.key, reply, task.cmd_pull,
                 exact=task.stack is None and task.pull_len is None)
             if task.pull_len is not None and got != task.pull_len:
                 raise RuntimeError(
@@ -800,7 +806,9 @@ class PipelineScheduler:
         else:
             step = 0
             self._client.ensure_init(ctx, flat_in.nbytes)
-        dtype = DataType.from_np(flat_in.dtype)
+        # bfloat16 bits come in a uint16 array: the key's dtype says so
+        bf16 = ctx.dtype == DataType.BFLOAT16 and comp is None
+        dtype = DataType.BFLOAT16 if bf16 else DataType.from_np(flat_in.dtype)
         cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, dtype)
         cmd_comp = get_command_type(RequestType.COMPRESSED_PUSH_PULL, dtype)
         if not usable_staging(out, flat_in.dtype, flat_in.nbytes):
@@ -810,7 +818,12 @@ class PipelineScheduler:
 
         def on_complete(err: Optional[Exception]) -> None:
             if err is None and average and num_workers > 1:
-                if np.issubdtype(out.dtype, np.integer):
+                if bf16:
+                    # in f32, rounded to bfloat16 once, as the JAX
+                    # package's ml_dtypes division rounds
+                    torch.from_numpy(out.view(np.int16)).view(
+                        torch.bfloat16).div_(num_workers)
+                elif np.issubdtype(out.dtype, np.integer):
                     trunc_divide_inplace(out, num_workers)
                 else:
                     np.divide(out, num_workers, out=out)
@@ -863,6 +876,55 @@ class PipelineScheduler:
                 self._queue.add_task(task)
             except RuntimeError as e:
                 group.partition_done(e)
+
+    def submit_rowsparse(self, ctx: TensorContext, host2d: np.ndarray,
+                         handle: Handle, average: bool, num_workers: int,
+                         version: int = 0, priority: Optional[int] = None,
+                         out: Optional[np.ndarray] = None) -> int:
+        """Row-sparse push_pull (byteps_tpu/core/scheduler.py:1382-1432):
+        per row-aligned partition the nonzero rows of the [rows, width]
+        f32 ``host2d`` become a prebuilt push payload and the reply is the
+        partition's dense aggregate, with the priority, credit, retry and
+        round numbering of dense traffic. ``handle`` resolves to the
+        [rows, width] sum (mean when ``average``). ``out``: a flat f32
+        result buffer (it may be ``host2d`` itself: the payloads are built
+        here). Returns the bytes of the payloads."""
+        from ..server.client import build_rowsparse_payload, nonzero_rows
+
+        host2d = np.ascontiguousarray(host2d, np.float32)
+        rows, width = host2d.shape
+        self._client.ensure_init(ctx, host2d.nbytes)
+        cmd_sparse = get_command_type(RequestType.ROW_SPARSE_PUSH_PULL,
+                                      DataType.FLOAT32)
+        cmd_dense = get_command_type(RequestType.DEFAULT_PUSH_PULL,
+                                     DataType.FLOAT32)
+        nz = nonzero_rows(host2d)
+        wires = [build_rowsparse_payload(p, nz, host2d)
+                 for p in ctx.partitions]
+        if not usable_staging(out, np.dtype(np.float32), rows * width * 4):
+            out = np.empty(rows * width, np.float32)
+        out_view = out.view(np.uint8)
+
+        def on_complete(err: Optional[Exception]) -> None:
+            if err is None and average and num_workers > 1:
+                np.divide(out, num_workers, out=out)
+            handle._finish(out.reshape(rows, width) if err is None else None,
+                           err)
+
+        group = TaskGroup(ctx, len(ctx.partitions), on_complete)
+        priority = self._pin_priority(ctx, priority)
+        round_no = self._next_round(ctx)
+        for p, wire in zip(ctx.partitions, wires):
+            task = PartitionTask(
+                ctx, p, priority, version,
+                out_view[p.offset:p.offset + p.length], group, cmd_sparse,
+                wire=wire, cmd_pull=cmd_dense)
+            task.round_no = round_no
+            try:
+                self._queue.add_task(task)
+            except RuntimeError as e:
+                group.partition_done(e)
+        return sum(len(w) for w in wires)
 
     def stop(self) -> None:
         """Fail the retries still waiting and the queued tasks, and stop

@@ -81,6 +81,7 @@ class GlobalState:
         self.registry = None
         self.arena = None
         self.scheduler = None
+        # the int handles of the asynchronous ops, in every mode
         self.handles = None
         self._version: Dict[str, int] = {}
 
@@ -138,6 +139,8 @@ class GlobalState:
                 kw["init_method"] = f"tcp://127.0.0.1:{port}"
             dist.init_process_group(**kw)
             self.group = dist.group.WORLD
+            from .scheduler import HandleManager
+            self.handles = HandleManager()
             try:
                 self._init_ps()
             except BaseException:
@@ -161,7 +164,7 @@ class GlobalState:
         from . import flight
         from .arena import StagingArena
         from .registry import TensorRegistry
-        from .scheduler import HandleManager, PipelineScheduler
+        from .scheduler import PipelineScheduler
         self.arena = StagingArena(pin=self.device.type == "cuda")
         self.registry = TensorRegistry(cfg)
         self.registry.attach_arena(self.arena)
@@ -171,7 +174,6 @@ class GlobalState:
         self.scheduler = PipelineScheduler(
             self.ps_client, credit_bytes=cfg.scheduling_credit,
             arena=self.arena, registry=self.registry, config=cfg)
-        self.handles = HandleManager()
 
     @property
     def is_root(self) -> bool:
@@ -186,8 +188,22 @@ class GlobalState:
             self.ps_client.close(shutdown_servers=self.is_root)
         if self.arena is not None:
             self.arena.reset()
-        self.ps_client = self.scheduler = self.handles = None
+        self.ps_client = self.scheduler = None
         self.registry = self.arena = None
+
+    def rank(self) -> int:
+        """The global rank (byteps_tpu/core/state.py:759-767):
+        BYTEPS_GLOBAL_RANK if set, else worker_id * local_size +
+        local_rank."""
+        c = self.config
+        if c.global_rank is not None:
+            return c.global_rank
+        return c.worker_id * c.local_size + c.local_rank
+
+    def size(self) -> int:
+        """The number of processes of the job: num_workers * local_size."""
+        c = self.config
+        return max(1, c.num_workers) * max(1, c.local_size)
 
     def next_version(self, name: str) -> int:
         """Per-tensor submission counter (the reference's version)."""
@@ -206,7 +222,7 @@ class GlobalState:
             self._stop_ps()
             if dist.is_initialized():
                 dist.destroy_process_group()
-            self.group = None
+            self.group = self.handles = None
             self.initialized = False
 
     def require(self) -> "GlobalState":

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -28,6 +28,15 @@ class DataType(enum.IntEnum):
     INT64 = 6
     BFLOAT16 = 7
     UINT16 = 8
+
+    @staticmethod
+    def of_torch(dtype) -> "DataType":
+        """The wire dtype of a torch dtype; bfloat16 is BFLOAT16 (its bits
+        travel as uint16, the server sums through f32)."""
+        import torch
+        if dtype == torch.bfloat16:
+            return DataType.BFLOAT16
+        return DataType.from_np(torch.empty((), dtype=dtype).numpy().dtype)
 
     @staticmethod
     def from_np(dtype) -> "DataType":
@@ -88,6 +97,29 @@ class TensorContext:
     nbytes: int = 0
     partitions: List[Partition] = dataclasses.field(default_factory=list)
     initialized: bool = False
+    align_bytes: Optional[int] = None   # row-sparse: whole rows a partition
+
+
+def host_array(t) -> Tuple[np.ndarray, DataType]:
+    """(numpy array, wire dtype) of tensor ``t`` on the host, in its
+    shape (a CPU tensor's own memory); bfloat16, which numpy lacks, as its
+    bits in uint16 (DataType.BFLOAT16), with no f32 round trip."""
+    import torch
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return (t.contiguous().cpu().view(torch.int16).numpy()
+                .view(np.uint16), DataType.BFLOAT16)
+    host = t.cpu().numpy()
+    return host, DataType.from_np(host.dtype)
+
+
+def host_tensor(a: np.ndarray, dtype: DataType):
+    """The inverse of ``host_array``: a CPU tensor over ``a``'s memory."""
+    import torch
+    a = np.ascontiguousarray(a)
+    if dtype == DataType.BFLOAT16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def trunc_divide_inplace(out: np.ndarray, n: int) -> None:

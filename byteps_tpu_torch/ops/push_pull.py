@@ -1,9 +1,11 @@
-"""push_pull over the ``dp`` process group.
+"""push_pull over the ``dp`` process group, and across PS workers.
 
 The JAX package sums gradients with ``lax.psum`` inside the compiled step
 (ops/push_pull.py:48-66); BytePS carries the same intra-host reduction on
 NCCL (SURVEY §1, L3a). Here it is ``torch.distributed.all_reduce`` on the
-group that ``init`` set up: NCCL on the card, gloo on the CPU.
+group that ``init`` set up: NCCL on the card, gloo on the CPU. The eager
+``push_pull`` and ``broadcast`` then cross the PS workers through the
+servers, as the JAX package's do.
 
 The shard helpers (byteps_tpu/ops/push_pull.py:73-133) split a leaf over
 the group for the locality-shard export: ``scatter_leaf`` reduce-scatters
@@ -15,8 +17,10 @@ shapes.
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -57,23 +61,95 @@ def psum_tree(tree: Any, group=None, average: bool = True) -> Any:
     return tree_map(lambda t: all_reduce_(t.clone(), group, average), tree)
 
 
+def _ps_leg(state, out: torch.Tensor, name: str, average: bool,
+            priority: Optional[int] = None,
+            zero: bool = False) -> torch.Tensor:
+    """The cross-worker half of an eager op (byteps_tpu/ops/push_pull.py
+    :268-279): the dp-reduced ``out`` round-trips through the servers
+    under ``name``. The group is one PS worker, so its root pushes
+    (zeros, with ``zero``) and broadcasts the aggregate; the other ranks
+    declare the key alike."""
+    from ..core.types import host_array, host_tensor
+    from ..server.client import ps_round_trip
+    host, dtype = host_array(out)
+    host = host.reshape(-1)
+    if not state.is_root:
+        state.registry.init_tensor(name, host.nbytes, dtype)
+    else:
+        if zero:
+            host = np.zeros_like(host)
+        agg = ps_round_trip(state, name, host, average, priority=priority,
+                            dtype=dtype)
+        out = host_tensor(agg, dtype).reshape(out.shape).to(out.device)
+    if state.local_size > 1:
+        dist.broadcast(out, src=0, group=state.group)
+    return out
+
+
 def push_pull(tensor: torch.Tensor, average: bool = True,
-              name: str = None) -> torch.Tensor:
-    """Eager push_pull of one tensor: its mean (or sum) over the ``dp``
-    group, as a new tensor. ``name`` is accepted for the reference's
-    signature; one process group needs no key."""
-    del name
-    return all_reduce_(tensor.clone(), average=average)
+              name: Optional[str] = None,
+              priority: Optional[int] = None) -> torch.Tensor:
+    """Eager push_pull of one tensor, as a new tensor
+    (byteps_tpu/ops/push_pull.py:203-285): its mean (or sum) over the
+    ``dp`` group, then, with a PS client, over the workers: the
+    dp-reduced value round-trips through the servers under ``name``,
+    which is required there. A zero-element tensor returns zeros and
+    touches nothing; a named one declares its key."""
+    state = get_state().require()
+    if tensor.numel() == 0:
+        return torch.zeros_like(tensor)
+    if name is not None and state.registry is not None:
+        from ..core.types import DataType
+        state.registry.init_tensor(name, tensor.numel()
+                                   * tensor.element_size(),
+                                   DataType.of_torch(tensor.dtype))
+    out = all_reduce_(tensor.clone(), average=average)
+    if state.ps_client is not None:
+        if name is None:
+            raise ValueError(
+                "push_pull over the PS requires a tensor name (stable keys "
+                "must match across workers; operations.cc:420-427)")
+        out = _ps_leg(state, out, name, average, priority)
+    return out
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
-              name: str = None) -> torch.Tensor:
-    """The root rank's copy of ``tensor``, as a new tensor."""
-    del name
-    group = get_state().require().group
+              name: Optional[str] = None) -> torch.Tensor:
+    """The root's copy of ``tensor``, as a new tensor
+    (byteps_tpu/ops/push_pull.py:288-338). ``root_rank`` is global: rank
+    ``root_rank % local_size`` of the ``dp`` group broadcasts, and with
+    several PS workers worker ``root_rank // local_size`` wins, through
+    a sum of its value and the others' zeros under ``"bcast/" + name``
+    (``name`` required there)."""
+    state = get_state().require()
     out = tensor.clone()
-    dist.broadcast(out, src=root_rank, group=group)
+    dist.broadcast(out, src=root_rank % state.local_size, group=state.group)
+    if state.ps_client is not None and state.config.num_workers > 1:
+        if name is None:
+            raise ValueError("broadcast over the PS requires a tensor name")
+        root_worker = root_rank // state.local_size
+        out = _ps_leg(state, out, "bcast/" + name, average=False,
+                      zero=state.config.worker_id != root_worker)
     return out
+
+
+def broadcast_pickled(payload: bytes, bcast: Callable, keys: Tuple[str, str],
+                      len_dtype) -> Any:
+    """The root's object, unpickled, from two rounds of ``bcast(array,
+    key)``, which returns the root's array: the pickle's length as
+    ``len_dtype`` under ``keys[0]`` first, since each worker's pickle may
+    differ in size and the PS needs equal buffers under one key, then
+    ``payload`` zero-padded (or cut) to the root's length under
+    ``keys[1]``. The JAX adapter sends the length as int32
+    (byteps_tpu/jax/__init__.py:157-181), the PyTorch one as int64
+    (byteps_tpu/torch/__init__.py:419-459)."""
+    n = bcast(np.array([len(payload)], len_dtype), keys[0])
+    total = int(n.reshape(-1)[0])
+    buf = np.zeros(total, np.uint8)
+    take = min(len(payload), total)
+    buf[:take] = np.frombuffer(payload, np.uint8)[:take]
+    return pickle.loads(
+        np.asarray(bcast(buf, keys[1])).astype(np.uint8).tobytes())
 
 
 def shard_layout(size: int, num_shards: int) -> Tuple[int, int]:

@@ -5,8 +5,11 @@ PS train step calls: the init push of a key and its init cache, the
 in-band codec install, the fused PUSHPULL with its completion reactor,
 the two-op path's asynchronous PUSH and blocking PULL, the per-server
 death probe that the scheduler's failover reads, the barrier and close;
-and ``get_or_init_ctx``/``ps_round_trip``, a host tensor's registry
-entry and its blocking round trip.
+and ``get_or_init_ctx``/``ps_round_trip``, a host tensor's registry entry
+and its blocking round trip, ``rowsparse_submit``, the one row-sparse
+submission, and ``build_rowsparse_payload``, the one producer of the
+row-sparse push wire. The JAX client's blocking row-sparse round without
+the scheduler is not ported: a PS-mode ``init`` always starts it.
 The transport is the native client of ``native/ps.cc`` (the same source
 as the JAX package's), so a worker of either package speaks one wire.
 
@@ -29,7 +32,7 @@ import numpy as np
 
 from ..config import Config
 from ..core.types import (
-    DataType, RequestType, TensorContext, get_command_type,
+    DataType, Partition, RequestType, TensorContext, get_command_type,
 )
 from ..native.build import build_ps
 from ..utils.logging import log
@@ -127,28 +130,77 @@ def server_addresses(config: Config) -> List[str]:
             for i in range(config.num_servers)]
 
 
-def get_or_init_ctx(state, name: str, host: np.ndarray) -> TensorContext:
+def get_or_init_ctx(state, name: str, host: np.ndarray,
+                    dtype: Optional[DataType] = None) -> TensorContext:
     """The registry entry of a flat host tensor: ``init_tensor`` every
     time, which is idempotent for an unchanged size and re-partitions on a
-    resize."""
-    return state.registry.init_tensor(name, host.nbytes,
-                                      DataType.from_np(host.dtype))
+    resize. ``dtype``: the wire dtype where the array's own does not say
+    it (BFLOAT16 bits in a uint16 array)."""
+    return state.registry.init_tensor(
+        name, host.nbytes, dtype or DataType.from_np(host.dtype))
+
+
+def build_rowsparse_payload(p: Partition, nz: np.ndarray,
+                            host2d: np.ndarray) -> np.ndarray:
+    """One partition's row-sparse push payload, ``[u32 nrows][u32 width]
+    [i32 local ids][f32 rows]`` (byteps_tpu/server/client.py:216-240;
+    parsed by ps.cc's DoPushSparse): the rows of ``nz`` (the tensor's
+    nonzero row ids, ascending) that fall in the partition, with ids
+    relative to its first row. Raises if the partition does not lie on
+    row boundaries."""
+    width = host2d.shape[1]
+    row_bytes = width * 4
+    if p.offset % row_bytes or p.length % row_bytes:
+        raise ValueError(
+            f"partition {p.index} not row-aligned; declare with "
+            f"init_tensor(..., align_bytes={row_bytes})")
+    lo = p.offset // row_bytes
+    hi = (p.offset + p.length) // row_bytes
+    sel = nz[(nz >= lo) & (nz < hi)]
+    payload = b"".join((
+        np.uint32(len(sel)).tobytes(),
+        np.uint32(width).tobytes(),
+        (sel - lo).astype(np.int32).tobytes(),
+        np.ascontiguousarray(host2d[sel]).tobytes(),
+    ))
+    return np.frombuffer(payload, np.uint8)
+
+
+def nonzero_rows(host2d: np.ndarray) -> np.ndarray:
+    """The ids (int32, ascending) of the rows of ``host2d`` that hold a
+    nonzero."""
+    return np.flatnonzero(np.any(host2d != 0, axis=1)).astype(np.int32)
+
+
+def rowsparse_submit(state, name: str, host2d: np.ndarray, average: bool,
+                     handle, out: Optional[np.ndarray] = None) -> int:
+    """The one row-sparse submission (byteps_tpu/__init__.py:269-284),
+    shared by ``push_pull_rowsparse_async``, the adapter and the PS train
+    step: declare ``name`` with partitions on whole rows, then enqueue the
+    sparse push and dense pull. Returns the bytes of the push payloads."""
+    host2d = np.ascontiguousarray(host2d, np.float32)
+    ctx = state.registry.init_tensor(name, host2d.nbytes, DataType.FLOAT32,
+                                     align_bytes=host2d.shape[1] * 4)
+    return state.scheduler.submit_rowsparse(
+        ctx, host2d, handle, average, state.config.num_workers,
+        version=state.next_version(name), out=out)
 
 
 def ps_round_trip(state, name: str, host: np.ndarray, average: bool,
                   priority: Optional[int] = None,
-                  out: Optional[np.ndarray] = None) -> np.ndarray:
+                  out: Optional[np.ndarray] = None,
+                  dtype: Optional[DataType] = None) -> np.ndarray:
     """The blocking round trip of one flat host tensor through the
     priority-scheduled pipeline: the cross-worker sum (mean when
     ``average``). ``out``: the result buffer (an arena slot), used if it
-    fits. The JAX package's fallback without a scheduler (a blocking
-    two-op PUSH and PULL) is not ported: a PS-mode ``init`` always
-    starts the scheduler."""
+    fits; ``dtype``: as ``get_or_init_ctx``'s. The JAX package's fallback
+    without a scheduler (a blocking two-op PUSH and PULL) is not ported:
+    a PS-mode ``init`` always starts the scheduler."""
     if state.scheduler is None:
         raise RuntimeError("ps_round_trip needs the PS scheduler: call "
                            "init() with DMLC_NUM_SERVER > 0")
     host = np.ascontiguousarray(host)
-    ctx = get_or_init_ctx(state, name, host)
+    ctx = get_or_init_ctx(state, name, host, dtype)
     handle = state.handles.allocate(name)
     state.scheduler.submit(ctx, host, handle, average,
                            state.config.num_workers,

@@ -1,6 +1,7 @@
-"""The training adapter: ``DistributedOptimizer`` and
-``broadcast_parameters``, and the train steps (``make_train_step`` over
-the ``dp`` group, ``make_ps_train_step`` through the parameter server).
+"""The training adapter: ``DistributedOptimizer``,
+``broadcast_parameters`` and ``broadcast_object``, and the train steps
+(``make_train_step`` over the ``dp`` group, ``make_ps_train_step``
+through the parameter server).
 
 Port of byteps_tpu/jax/__init__.py:49-96 (``distributed_optimizer``,
 ``optax.chain(comm, tx)``) onto a ``torch.optim`` optimizer: ``step()``
@@ -14,18 +15,21 @@ moments) up to rounding.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import pickle
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..core.state import get_state
 from ..ops.compression import CompressionTransform
-from ..ops.push_pull import all_reduce_
-from .train import make_ps_train_step, make_train_step
+from ..ops.push_pull import all_reduce_, broadcast, broadcast_pickled
+from .train import make_ps_train_step, make_train_step, named_leaves
 
 __all__ = ["DistributedOptimizer", "distributed_optimizer",
-           "broadcast_parameters", "make_train_step", "make_ps_train_step"]
+           "broadcast_parameters", "broadcast_object", "make_train_step",
+           "make_ps_train_step"]
 
 
 class DistributedOptimizer:
@@ -88,14 +92,42 @@ distributed_optimizer = DistributedOptimizer
 
 
 @torch.no_grad()
-def broadcast_parameters(params, root_rank: int = 0, group=None) -> None:
-    """Make every rank's parameters equal to the root's, in place.
-    ``params``: an iterable of tensors, a ``state_dict`` or
-    ``named_parameters()`` pairs."""
-    group = group if group is not None else get_state().require().group
-    if isinstance(params, dict):
-        params = params.values()
-    for p in params:
-        if isinstance(p, tuple):
-            p = p[1]
-        dist.broadcast(p.data, src=root_rank, group=group)
+def broadcast_parameters(params, root_rank: int = 0) -> None:
+    """Make every process's parameters equal to the root's, in place
+    (byteps_tpu/jax/__init__.py:138-154). ``params``: a nested dict of
+    tensors, a ``state_dict``, an ``nn.Module``, ``named_parameters()``
+    pairs or an iterable of tensors. Each leaf is broadcast
+    (``ops.push_pull.broadcast``) under ``"param/<path>"``, its path as
+    the JAX adapter flattens the same tree ("/"-joined keys, sorted; list
+    indices), so with several PS workers the root worker's copy wins on
+    every worker of either package."""
+    if isinstance(params, (dict, torch.nn.Module)):
+        leaves = named_leaves(params)
+    else:
+        items = list(params)
+        if items and isinstance(items[0], tuple):
+            leaves = named_leaves(dict(items))
+        else:
+            leaves = named_leaves(items)
+    for path, p in leaves:
+        p.data.copy_(broadcast(p.data, root_rank=root_rank,
+                               name="param/" + path))
+
+
+def broadcast_object(obj: Any, root_rank: int = 0, name: str = "obj") -> Any:
+    """The root's copy of a picklable object
+    (byteps_tpu/jax/__init__.py:157-181): its pickle's length (int32)
+    under ``"bcastobj/" + name + "/len"``, then the payload zero-padded
+    to the root's length under ``".../payload"`` (``broadcast_pickled``),
+    each through ``ops.push_pull.broadcast``."""
+    state = get_state().require()
+    dev = state.device if dist.get_backend(state.group) == "nccl" \
+        else torch.device("cpu")
+
+    def bcast(a: np.ndarray, key: str) -> np.ndarray:
+        return broadcast(torch.from_numpy(a).to(dev), root_rank=root_rank,
+                         name=key).cpu().numpy()
+
+    nm = "bcastobj/" + name
+    return broadcast_pickled(pickle.dumps(obj), bcast,
+                             (nm + "/len", nm + "/payload"), np.int32)

@@ -131,25 +131,65 @@ def make_ps_train_step(loss_fn: Callable, optimizer, params,
     instead, each rank pushes its own shard under the JAX package's shard
     key, and the drain all-gathers the shards before the per-leaf apply.
 
-    ``rowsparse_params`` is the JAX step's and not yet ported: asked for,
-    it raises.
+    ``rowsparse_params`` (substrings of gradient names, e.g.
+    ``("embed",)``): a matching 2-D gradient travels row-sparse, only its
+    nonzero rows on the push wire, and takes precedence over
+    ``compression`` (``_route_rowsparse``). The host tier leaves it out
+    of the streamed export, the shard plan and the buckets and submits it
+    after the backward; the device tier sends it through the host while
+    the rest compress on the card. A match that is not 2-D warns once
+    and stays on its tier's path.
 
     Returns ``step(batch) -> loss`` (a detached scalar, the dp mean).
     ``step.close()`` removes what the step holds on the parameters (the
     host tier's backward hooks) and stops its threads; call it when
     done with the step."""
-    if rowsparse_params:
-        raise NotImplementedError("rowsparse_params (the row-sparse wire) "
-                                  "is not yet ported to byteps_tpu_torch")
     named = named_leaves(params)
     names = ["grad/" + n for n, _ in named]
     tensors = [t for _, t in named]
+    rowsparse = tuple(rowsparse_params or ())
     if compression is None or not device_compress:
         return HostTierStep(loss_fn, optimizer, names, tensors, compression,
                             min_compress_bytes, stream_export,
-                            sharded_apply, local_shard_export)
+                            sharded_apply, local_shard_export, rowsparse)
     return _device_tier_step(loss_fn, optimizer, names, tensors,
-                             compression, min_compress_bytes)
+                             compression, min_compress_bytes, rowsparse)
+
+
+# names already warned about by _route_rowsparse
+_rowsparse_warned: set = set()
+
+
+def _rowsparse_match(name: str, rowsparse_params) -> bool:
+    return any(s in name for s in rowsparse_params)
+
+
+def _route_rowsparse(name: str, t: torch.Tensor, rowsparse_params) -> bool:
+    """The routing of both tiers (byteps_tpu/jax/train.py:496-512): a
+    gradient whose name matches ``rowsparse_params`` rides the row-sparse
+    wire when it is 2-D; any other match warns once and keeps its tier's
+    path. (The scheduler the JAX predicate also asks for runs whenever a
+    PS client does.)"""
+    if not _rowsparse_match(name, rowsparse_params):
+        return False
+    if t.dim() == 2:
+        return True
+    if name not in _rowsparse_warned:
+        from ..utils.logging import log
+        _rowsparse_warned.add(name)
+        log.warning("rowsparse_params matched %r but the gradient is not "
+                    "2D (shape %s): using the dense path", name,
+                    tuple(t.shape))
+    return False
+
+
+def _submit_rowsparse(state, name: str, host2d: np.ndarray, out=None):
+    """(handle, payload bytes) of the averaged row-sparse round of a host
+    [rows, width] f32 gradient."""
+    from ..server.client import rowsparse_submit
+    handle = state.handles.allocate(name)
+    return handle, rowsparse_submit(state, name, host2d, True, handle,
+                                    out=out)
 
 
 def _dp_mean_grads(loss_fn, batch, tensors, group):
@@ -171,7 +211,7 @@ def _dp_mean_grads(loss_fn, batch, tensors, group):
 
 
 def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
-                      min_compress_bytes):
+                      min_compress_bytes, rowsparse=()):
     """The device-compressed tier (byteps_tpu/jax/train.py:875-895):
 
     1. forward and backward on the local batch;
@@ -182,7 +222,12 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
        of more than one, the local root alone runs the round (one EF
        state per key, as the one JAX process does on the psum'd
        gradient) and broadcasts each aggregate;
-    4. ``optimizer.step()`` on the averaged gradients."""
+    4. ``optimizer.step()`` on the averaged gradients.
+
+    A leaf that ``rowsparse`` routes (``_route_rowsparse``) leaves the
+    device round: it is copied to the host and sent row-sparse, submitted
+    (and so declared) before the round as the JAX step submits it
+    (byteps_tpu/jax/train.py:515-560), and waited for after it."""
     from ..core.state import get_state
     from .device_compression import DeviceCompressor
 
@@ -199,11 +244,19 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
         optimizer.zero_grad(set_to_none=True)
         loss, grads = _dp_mean_grads(loss_fn, batch, tensors, state.group)
         spans.mark("forward_backward")
+        sparse = [i for i, (nm, t) in enumerate(zip(names, tensors))
+                  if state.ps_client is not None
+                  and _route_rowsparse(nm, t, rowsparse)]
+        dense = [i for i in range(len(names)) if i not in sparse]
         if state.ps_client is not None and not state.is_root:
-            # the keys the root's round declares, declared alike here
-            for name, t in zip(names, tensors):
-                if t.numel():
-                    _declare(state, name, t.numel(), torch.float32)
+            # the keys the root declares, declared alike and in its order
+            for i in sparse:
+                _declare(state, names[i], tensors[i].numel(), torch.float32,
+                         align=tensors[i].shape[1] * 4)
+            for i in dense:
+                if tensors[i].numel():
+                    _declare(state, names[i], tensors[i].numel(),
+                             torch.float32)
             for g in grads:
                 dist.broadcast(g, src=0, group=state.group)
         elif state.ps_client is not None:
@@ -215,8 +268,19 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
                 comp_state["device"] = DeviceCompressor(
                     client, state.config.num_workers, compression, mcb)
                 comp_state["client"] = client
-            grads = comp_state["device"].push_pull_leaves(
-                state, names, grads, spans=spans)
+            handles = {i: _submit_rowsparse(
+                state, names[i],
+                grads[i].detach().to(torch.float32).cpu().numpy())[0]
+                for i in sparse}
+            out = comp_state["device"].push_pull_leaves(
+                state, [names[i] for i in dense], [grads[i] for i in dense],
+                spans=spans) if dense else []
+            for i, g in zip(dense, out):
+                grads[i] = g
+            for i, h in handles.items():
+                agg = state.handles.wait_and_clear(h.id)
+                grads[i] = torch.from_numpy(agg).to(
+                    device=grads[i].device, dtype=grads[i].dtype)
             if state.local_size > 1:
                 grads = [g.contiguous() for g in grads]
                 for g in grads:
@@ -349,8 +413,12 @@ class HostTierStep:
     switch to another path (the JAX package's ``_disable_stream``). The
     hooks hold the step weakly; ``close()`` removes them and stops the
     export worker.
-    Not ported: rowsparse (it raises where asked for), cross-barrier
-    staleness, the ledger and health planes.
+    Row-sparse leaves (``rowsparse``): out of the hooks, the shard plan
+    and the buckets; after the backward each is reduced like a whole leaf,
+    copied into its slot and submitted row-sparse by the root
+    (``_submit_rowsparse``); its dense f32 aggregate lands in that slot
+    and through the same drain and per-leaf apply.
+    Not ported: cross-barrier staleness, the ledger and health planes.
 
     ``spans`` (off by default): forward_backward (step start to the
     backward's end on the device), export (the first leaf handed over to
@@ -360,7 +428,8 @@ class HostTierStep:
     ``ttfp_ms`` (the backward's start to the first submission),
     ``bytes_before_backward_end`` (bytes submitted before the backward's
     last kernel ended), ``leaves_streamed``, ``leaves_post_backward``,
-    ``fused_buckets``, ``shard_leaves``, ``bytes_pushed`` (by this
+    ``fused_buckets``, ``shard_leaves``, ``rowsparse_bytes`` (the
+    row-sparse payloads), ``bytes_pushed`` (by this
     rank, retries included), and the scheduler's ``retries``,
     ``server_failovers`` and ``key_migrations`` in the step.
 
@@ -377,7 +446,8 @@ class HostTierStep:
                  min_compress_bytes: Optional[int],
                  stream_export: Optional[bool],
                  sharded_apply: Optional[bool],
-                 local_shard_export: Optional[bool] = None):
+                 local_shard_export: Optional[bool] = None,
+                 rowsparse: Tuple[str, ...] = ()):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.names = names
@@ -387,6 +457,7 @@ class HostTierStep:
         self.stream_export = stream_export
         self.sharded_apply = sharded_apply
         self.local_shard_export = local_shard_export
+        self.rowsparse = rowsparse
         # the locality-shard plan and what it was made for
         self._shards: Dict[int, dict] = {}
         self._shard_key = None
@@ -436,7 +507,8 @@ class HostTierStep:
         on = self._streams_on(state)
         eligible = frozenset(
             i for i, t in enumerate(self.tensors)
-            if on and t.numel() and t.numel() * t.element_size() >= fusion)
+            if on and t.numel() and t.numel() * t.element_size() >= fusion
+            and not _rowsparse_match(self.names[i], self.rowsparse))
         if self._hook_key != eligible:
             self._remove_hooks()
             ref = weakref.ref(self)
@@ -473,7 +545,8 @@ class HostTierStep:
         chosen = []
         for i, t in enumerate(self.tensors):
             nb = t.numel() * t.element_size()
-            if not plan_on or nb == 0 or nb < smin:
+            if not plan_on or nb == 0 or nb < smin or \
+                    _rowsparse_match(self.names[i], self.rowsparse):
                 continue
             _, pad = shard_layout(t.numel(), n)
             if pad * 8 <= t.numel():
@@ -667,6 +740,7 @@ class HostTierStep:
         n_dp = dist.get_world_size(state.group)
         shards = self._shard_plan(state, fusion, n_dp)
         before = state.scheduler.counters()
+        self.counters["rowsparse_bytes"] = 0
         rnd = _Export(state, n_dp, shards)
         self._round = rnd
         try:
@@ -731,14 +805,20 @@ class HostTierStep:
     def _groups(self, post: List[int], fusion: int, cap: int) -> List[list]:
         """The post-backward keys: each leaf of at least ``fusion`` bytes
         alone, the smaller ones in buckets of one dtype up to ``cap``
-        bytes (byteps_tpu/jax/train.py:1127-1170)."""
+        bytes (byteps_tpu/jax/train.py:1127-1170), and each row-sparse
+        leaf alone, closing the bucket before it (:1494-1498)."""
         groups, bucket, bucket_bytes = [], [], 0
         for i in post:
             t = self.tensors[i]
             nb = t.numel() * t.element_size()
             if nb == 0:
                 continue
-            if nb < fusion:
+            if self._sparse(i):
+                if bucket:
+                    groups.append(bucket)
+                    bucket, bucket_bytes = [], 0
+                groups.append([i])
+            elif nb < fusion:
                 if bucket and (self.tensors[bucket[0]].dtype != t.dtype
                                or bucket_bytes + nb > cap):
                     groups.append(bucket)
@@ -754,14 +834,18 @@ class HostTierStep:
             groups.append(bucket)
         return groups
 
+    def _sparse(self, i: int) -> bool:
+        return _route_rowsparse(self.names[i], self.tensors[i],
+                                self.rowsparse)
+
     def _group_key(self, g: List[int]):
         """(key name, [(leaf, offset, length)], wire dtype) of a group."""
         sizes = [self.tensors[i].numel() for i in g]
         name = self.names[g[0]] if len(g) == 1 else fused_key(
             [(self.names[i], n) for i, n in zip(g, sizes)])
         dtype = self.tensors[g[0]].dtype
-        if self._registry is not None:
-            dtype = torch.float32       # the codecs' wire is f32
+        if self._registry is not None or self._sparse(g[0]):
+            dtype = torch.float32       # the codecs' and rows' wire is f32
         offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
         return name, list(zip(g, offs, sizes)), dtype
 
@@ -780,7 +864,8 @@ class HostTierStep:
         streamed leaves first: the same list on every rank, the handle
         and lease None where this rank pushes nothing."""
         n = rnd.n_dp
-        staged = []     # (name, members, lease, dtype, shard leaf, parent)
+        # (name, members, lease, wire dtype, shard leaf, parent, sparse)
+        staged = []
         for i in fallback:
             info = rnd.shards[i]
             src = scatter_leaf(self._grad(i), state.group)
@@ -789,17 +874,20 @@ class HostTierStep:
                                  src.numel() * src.element_size())
             lease.tensor.view(src.dtype).copy_(src, non_blocking=cuda)
             staged.append((name, [(i, 0, self.tensors[i].numel())], lease,
-                           src.dtype, i, info["parent"]))
+                           src.dtype, i, info["parent"], False))
         for g in groups:
             name, members, dtype = self._group_key(g)
+            sparse = self._sparse(g[0])
             if n > 1:
                 flat = torch.cat([self._grad(i).reshape(-1)
                                   for i in g]).to(dtype)
                 dist.all_reduce(flat, group=state.group)
                 _average_(flat, n)
                 if not state.is_root:
-                    _declare(state, name, flat.numel(), dtype)
-                    staged.append((name, members, None, dtype, None, None))
+                    _declare(state, name, flat.numel(), dtype, align=(
+                        self.tensors[g[0]].shape[1] * 4 if sparse else None))
+                    staged.append((name, members, None, dtype, None, None,
+                                   sparse))
                     continue
             esize = torch.empty((), dtype=dtype).element_size()
             lease = rnd.checkout(name + ":out",
@@ -815,20 +903,33 @@ class HostTierStep:
                     else:
                         dst[off: off + m].copy_(grad.reshape(-1),
                                                 non_blocking=cuda)
-            staged.append((name, members, lease, dtype, None, None))
+            staged.append((name, members, lease, dtype, None, None, sparse))
         if cuda and staged:
             torch.cuda.current_stream(state.device).synchronize()
         ready = []
         for i in streamed:
             fut, lease = rnd.futures[i]
+            wire = torch.float32 if self._registry is not None \
+                else self.tensors[i].dtype
             ready.append(([(i, 0, self.tensors[i].numel())],
                           None if fut is None else fut.result(), lease,
-                          i if i in rnd.shards else None))
-        for name, members, lease, dtype, shard, parent in staged:
-            handle = None if lease is None else self._submit(
-                rnd, name, lease.array(_np_dtype(dtype)),
-                production=shard is not None, parent=parent)
-            ready.append((members, handle, lease, shard))
+                          i if i in rnd.shards else None, wire))
+        for name, members, lease, dtype, shard, parent, sparse in staged:
+            handle = None
+            if lease is not None and sparse:
+                shape = self.tensors[members[0][0]].shape
+                handle, nbytes = _submit_rowsparse(
+                    state, name, lease.array(np.float32).reshape(shape),
+                    out=lease.array(np.float32))
+                rnd.pushed(nbytes)
+                rnd.handles.append(handle)
+                self.counters["rowsparse_bytes"] += nbytes
+            elif lease is not None:
+                handle = self._submit(rnd, name,
+                                      lease.array(_np_dtype(dtype)),
+                                      production=shard is not None,
+                                      parent=parent)
+            ready.append((members, handle, lease, shard, dtype))
         return ready
 
     def _drain(self, state, rnd: _Export, ready: list, leaf_apply,
@@ -858,7 +959,7 @@ class HostTierStep:
                               dist.get_backend(group) == "nccl" else "cpu")
         done: "queue.Queue" = queue.Queue()
         if root:
-            for wi, (_, handle, _, _) in enumerate(ready):
+            for wi, (_, handle, _, _, _) in enumerate(ready):
                 handle.add_done_callback(
                     lambda wi=wi: done.put((wi, time.perf_counter())))
         events, last_done = [], rnd.t_backward_end
@@ -872,11 +973,9 @@ class HostTierStep:
                     idx.fill_(wi)
                 dist.broadcast(idx, src=0, group=group)
                 wi = int(idx.item())
-            members, handle, lease, shard = ready[wi]
+            members, handle, lease, shard, wire = ready[wi]
             if handle is not None:
                 state.handles.wait_and_clear(handle.id)   # raises its error
-            wire = torch.float32 if self._registry is not None \
-                else self.tensors[members[0][0]].dtype
             t0 = time.perf_counter()
             buf = None      # one process: each member straight from the slot
             if shard is not None:
@@ -972,15 +1071,18 @@ def on_card(dev: torch.device):
         else contextlib.nullcontext()
 
 
-def _declare(state, name: str, n: int, dtype: torch.dtype) -> None:
+def _declare(state, name: str, n: int, dtype: torch.dtype,
+             align: Optional[int] = None) -> None:
     """Declare and partition a key that this rank does not push, as the
-    rank that pushes it does (``get_or_init_ctx``): the registry of every
-    rank of a dp group then numbers every key alike, and a later key
-    (a shard plan's) gets one number on every rank."""
+    rank that pushes it does (``get_or_init_ctx``, or with the row
+    alignment ``align`` a row-sparse key): the registry of every rank of
+    a dp group then numbers every key alike, and a later key (a shard
+    plan's) gets one number on every rank."""
     from ..core.types import DataType
     state.registry.init_tensor(name, n * torch.empty((), dtype=dtype)
                                .element_size(),
-                               DataType.from_np(_np_dtype(dtype)))
+                               DataType.from_np(_np_dtype(dtype)),
+                               align_bytes=align)
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:

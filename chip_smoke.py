@@ -53,7 +53,23 @@ result line:
     its keys move to server 0 and the step's rounds replay there; the
     parameters end bit for bit where 4 plain local Adam steps leave them;
     then with server 0 killed too the next step raises within 30 s,
-    naming the flight record's dump.
+    naming the flight record's dump;
+12. ``torch_adapter``, this slice's main path: the PyTorch adapter
+    (``byteps_tpu_torch.torch``) with one worker and a loopback server,
+    ``DistributedOptimizer(Adam)`` over the same model as an ``nn.Module``
+    for ``--steps`` steps, then ``Compression.fp16``,
+    ``DistributedDataParallel``, ``CrossBarrier`` and a sparse
+    ``nn.Embedding(32000, 768)`` on the row-sparse wire, 3 steps each,
+    each held bit for bit to plain local Adam steps (on fp16-rounded
+    gradients for fp16, on the densified gradient for the embedding);
+13. ``torch_adapter_2w``: two PS workers (two processes on the one card)
+    and a server process; the broadcasts make worker 1 equal to worker 0,
+    and 3 steps on their own batches leave both bit for bit where local
+    Adam on the mean gradient does;
+14. ``ps_rowsparse``: the dense host-tier step with
+    ``rowsparse_params=("embed",)`` for ``--steps`` steps, bit for bit
+    plain local Adam, the embedding's row-sparse bytes against its dense
+    ones; then one device-tier dithering + EF step with it.
 
 Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
 does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
@@ -923,6 +939,18 @@ def phase_train(args, card: str) -> dict:
           f"(step 0 has the warm-up) on {card}; peak memory {peak_gb:.2f} "
           f"GB; launches in {args.steps} steps {launches}", flush=True)
     return launches
+
+
+@contextlib.contextmanager
+def restored_env():
+    """``os.environ`` as it was before the block: one phase's settings
+    (the failover's server list and wire knobs) never reach the next."""
+    saved = dict(os.environ)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
 
 
 def _free_port() -> int:
@@ -1921,6 +1949,520 @@ def phase_ps_dp2(args, card: str, dev_type: str = "cuda",
     return out
 
 
+# ---------------------------------------------------------------------- #
+# the PyTorch adapter (byteps_tpu_torch.torch) and the row-sparse wire
+# ---------------------------------------------------------------------- #
+
+ADAPTER_2W_STEPS = 3
+
+
+def _model_loss(model, batch, attn):
+    """The Llama loss through ``model``'s own forward, so that the
+    modules' pre-forward hooks (CrossBarrier's) run."""
+    from byteps_tpu_torch.models import llama
+    inputs, targets = llama.split_batch(batch)
+    return llama.next_token_xent(model(inputs, attn_impl=attn), targets)
+
+
+def _adam(params):
+    import torch
+    return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            foreach=True)
+
+
+def _local_steps(model, loss_of, n: int, grad_fn=None) -> list:
+    """``n`` plain local Adam steps of ``model``; ``grad_fn`` maps each
+    gradient before the step. Returns the losses."""
+    opt = _adam(model.parameters())
+    losses = []
+    for _ in range(n):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model)
+        loss.backward()
+        if grad_fn is not None:
+            for p in model.parameters():
+                p.grad = grad_fn(p.grad)
+        opt.step()
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def _differ(a_params, b_params) -> dict:
+    """{leaf: elements that differ} of two parameter lists; empty when
+    they are equal bit for bit."""
+    out = {}
+    for i, (a, b) in enumerate(zip(a_params, b_params)):
+        bad = a.detach() != b.detach()
+        if bool(bad.any()):
+            out[i] = int(bad.sum())
+    return out
+
+
+def _timed_loop(n: int, body, on_card: bool, label: str) -> tuple:
+    import torch
+    losses, times = [], []
+    for i in range(n):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(bounded(body, f"{label} step {i}"))
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss ({label}): {losses}")
+    return losses, times
+
+
+def _tokens_per_s(times, tokens: int) -> float:
+    steady = times[1:]
+    return tokens / (sum(steady) / len(steady))
+
+
+def phase_torch_adapter(args, card: str, dev=None, cfg=None, B: int = 4,
+                        S: int = 2048) -> dict:
+    """The PyTorch adapter, this slice's main path, one worker against a
+    loopback server: Llama small() at full width as an ``nn.Module``,
+    ``bps.DistributedOptimizer(torch.optim.Adam(lr=1e-3),
+    named_parameters=model.named_parameters())`` for ``--steps`` steps
+    (every gradient through its hook's side-stream copy, the export
+    thread and a fused PUSHPULL; the aggregates into ``p.grad``), bit for
+    bit where plain local Adam steps leave the parameters; then 3 steps
+    each of ``Compression.fp16`` (bit for bit against local Adam on
+    fp16-rounded gradients), ``DistributedDataParallel`` +
+    ``sync_gradients()`` and ``CrossBarrier`` (bit for bit; its poller
+    steps torch's own Adam over each parameter; no tolerance, since an
+    ulp of an f32 weight can flip its bf16 cast in the forward, which
+    Adam's g / (|g| + eps) can turn into moves of up to 2 lr), and an
+    ``nn.Embedding(32000, 768, sparse=True)`` on the same 8,192 tokens
+    whose gradient rides the row-sparse wire (bit for bit against local
+    steps on the densified gradient). Returns the main run's launches."""
+    import torch
+    import byteps_tpu_torch.torch as bpt
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.torch.cross_barrier import CrossBarrier
+
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    init = _tree_clone(llama.Llama(cfg, device=dev, generator=gen).params())
+    attn = FA.make_flash_attn()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+
+    def loss_of(m):
+        return _model_loss(m, batch, attn)
+
+    def fresh():
+        # Llama takes the tensors it is given: each model its own copy
+        return llama.Llama(cfg, device=dev, params=_tree_clone(init))
+
+    def fp16_round(g):
+        return g.half().float()
+
+    out = {}
+    with loopback_ps(dev, "adapter") as state:
+        for kind, n in (("adam", args.steps), ("fp16", SHORT_RUN_STEPS),
+                        ("ddp", SHORT_RUN_STEPS),
+                        ("cross_barrier", SHORT_RUN_STEPS)):
+            model = fresh()
+            if kind == "ddp":
+                wrapped = bpt.DistributedDataParallel(model)
+                opt = _adam(model.parameters())
+
+                def body():
+                    opt.zero_grad(set_to_none=True)
+                    loss = loss_of(model)
+                    loss.backward()
+                    wrapped.sync_gradients()
+                    opt.step()
+                    return float(loss.detach())
+            else:
+                opt = bpt.DistributedOptimizer(
+                    _adam(model.parameters()),
+                    named_parameters=model.named_parameters(),
+                    compression=bpt.Compression.fp16 if kind == "fp16"
+                    else bpt.Compression.none)
+                if kind == "cross_barrier":
+                    opt = CrossBarrier(model, opt, num_steps=n)
+                    opt.step()          # step 0, before any gradient
+
+                def body():
+                    opt.zero_grad()
+                    loss = loss_of(model)
+                    loss.backward()
+                    opt.step()
+                    return float(loss.detach())
+            FA.flash_attention_fwd.launches = 0
+            pushed0 = state.scheduler.bytes_pushed
+            losses, times = _timed_loop(n, body, on_card, f"adapter {kind}")
+            launches = FA.flash_attention_fwd.launches
+            pushed = (state.scheduler.bytes_pushed - pushed0) / n
+            ref = fresh()
+            ref_losses = _local_steps(
+                ref, loss_of, n, fp16_round if kind == "fp16" else None)
+            differ = _differ(list(model.parameters()), list(ref.parameters()))
+            if differ or losses != ref_losses:
+                fail(f"adapter {kind}: the parameters differ from {n} "
+                     f"plain local Adam steps: elements per leaf {differ}; "
+                     f"losses {losses} vs {ref_losses}")
+            if on_card and launches != 24 * n:
+                fail(f"adapter {kind}: flash_attn_fwd launched {launches} "
+                     f"times in {n} steps, not 24 a step")
+            print(f"torch_adapter {kind}: {_tokens_per_s(times, B * S):.1f} "
+                  f"tokens/s over steps 1..{n - 1} on {card}; steps "
+                  f"{['%.1f' % (t * 1e3) for t in times[1:]]} ms; "
+                  f"{pushed:.0f} bytes pushed per step; B1 launches per "
+                  f"step {launches / n:.0f}; parameters bit-identical to "
+                  f"{n} plain local Adam steps"
+                  + (" on fp16-rounded gradients" if kind == "fp16" else "")
+                  + f"; losses {losses}", flush=True)
+            if kind == "adam":
+                out["flash_attn_fwd"] = launches
+            del model, opt, ref
+        # the sparse embedding
+        n = SHORT_RUN_STEPS
+        tokens = batch["tokens"][:, :-1]
+        emb0 = torch.randn(cfg.vocab_size, cfg.dim, generator=gen,
+                           device=dev) * 0.02
+
+        def emb_model():
+            emb = torch.nn.Embedding(cfg.vocab_size, cfg.dim, sparse=True,
+                                     device=dev)
+            with torch.no_grad():
+                emb.weight.copy_(emb0)
+            return emb
+
+        def emb_loss(m):
+            return (m(tokens) ** 2).mean()
+
+        emb = emb_model()
+        opt = bpt.DistributedOptimizer(
+            _adam(emb.parameters()), named_parameters=emb.named_parameters())
+
+        def body():
+            opt.zero_grad()
+            loss = emb_loss(emb)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        pushed0 = state.scheduler.bytes_pushed
+        losses, times = _timed_loop(n, body, on_card, "adapter sparse")
+        pushed = (state.scheduler.bytes_pushed - pushed0) / n
+        ref = emb_model()
+        ref_losses = _local_steps(ref, emb_loss, n, lambda g: g.to_dense())
+        differ = _differ([emb.weight], [ref.weight])
+        rows = int(torch.unique(tokens).numel())
+        dense = cfg.vocab_size * cfg.dim * 4
+        parts = len(state.registry.declare("grad/weight").partitions)
+        if differ or losses != ref_losses:
+            fail(f"adapter sparse embedding: differs from {n} local Adam "
+                 f"steps on the densified gradient: {differ}; losses "
+                 f"{losses} vs {ref_losses}")
+        if pushed != 8 * parts + rows * (4 + cfg.dim * 4):
+            fail(f"adapter sparse embedding: {pushed:.0f} bytes pushed a "
+                 f"step, not the {rows} rows of the batch in {parts} "
+                 f"partitions (dense {dense})")
+        print(f"torch_adapter sparse embedding [{cfg.vocab_size}, "
+              f"{cfg.dim}] on {tokens.numel()} tokens ({rows} rows): "
+              f"{_tokens_per_s(times, tokens.numel()):.1f} tokens/s over "
+              f"steps 1..{n - 1} on {card}; {pushed:.0f} bytes pushed per "
+              f"step against {dense} dense; parameters bit-identical to "
+              f"{n} local Adam steps on the densified gradient", flush=True)
+    return out
+
+
+def _adapter_2w_worker(w: int, port: int, seed: int, cfg_name: str,
+                       B: int, S: int, dev: str, q) -> None:
+    """Worker ``w`` of 2 of ``phase_torch_adapter_2w`` (a spawned
+    process). Puts (w, result) on ``q``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S * 2, exit=True)
+    try:
+        q.put((w, _adapter_2w_body(w, port, seed, cfg_name, B, S, dev)))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((w, {"error": traceback.format_exc()}))
+
+
+def _adapter_2w_body(w, port, seed, cfg_name, B, S, dev):
+    import hashlib
+
+    import torch
+    sys.path.insert(0, ROOT)
+    import byteps_tpu_torch.torch as bpt
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "DMLC_NUM_WORKER": "2", "DMLC_NUM_SERVER": "1",
+        "DMLC_WORKER_ID": str(w), "DMLC_ROLE": "worker",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "BYTEPS_LOCAL_RANK": "0", "BYTEPS_LOCAL_SIZE": "1",
+        "BYTEPS_CLIENT_TIMEOUT_S": str(PS_TIMEOUT_S)})
+    cfg = _dp2_cfg(cfg_name)
+    attn = FA.make_flash_attn()
+    # each worker its own weights: the broadcasts make them worker 0's
+    model = llama.Llama(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 20 + w))
+    init = _tree_clone(model.params())
+    batches = [_dp2_tokens(cfg, r, seed, B, S, dev) for r in range(2)]
+
+    def digest():
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {"own_init": digest()}
+    bpt.init(device=dev)
+    try:
+        out["rank_size"] = (bpt.rank(), bpt.size())
+        print(f"torch_adapter_2w worker {w}: bps.rank() {bpt.rank()}, "
+              f"bps.size() {bpt.size()}", flush=True)
+        bpt.broadcast_parameters(model.state_dict(), root_rank=0)
+        base = _adam(model.parameters())
+        if w == 1:
+            base.param_groups[0]["lr"] = 0.5    # the root's state wins
+        opt = bpt.DistributedOptimizer(
+            base, named_parameters=model.named_parameters())
+        bpt.broadcast_optimizer_state(opt, root_rank=0)
+        out["lr"] = opt.param_groups[0]["lr"]
+        out["after_broadcast"] = digest()
+
+        def body():
+            opt.zero_grad()
+            loss = _model_loss(model, batches[w], attn)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        FA.flash_attention_fwd.launches = 0
+        out["losses"], out["times"] = _timed_loop(
+            ADAPTER_2W_STEPS, body, on_card, f"adapter_2w worker {w}")
+        out["launches"] = FA.flash_attention_fwd.launches
+        out["final"] = digest()
+    finally:
+        bounded(bpt.shutdown, f"adapter_2w shutdown (worker {w})")
+    if w == 0:
+        # local Adam from worker 0's weights on the two workers' mean
+        # gradient, as ps_dp2 builds its reference
+        ref = llama.Llama(cfg, device=dev, params=init)
+        opt = _adam(ref.parameters())
+        for _ in range(ADAPTER_2W_STEPS):
+            grads = []
+            for b in batches:
+                opt.zero_grad(set_to_none=True)
+                _model_loss(ref, b, attn).backward()
+                grads.append([p.grad for p in ref.parameters()])
+            for p, g0, g1 in zip(ref.parameters(), *grads):
+                p.grad = (g0 + g1) / 2
+            opt.step()
+        out["local_differ"] = _differ(list(model.parameters()),
+                                      list(ref.parameters()))
+    return out
+
+
+def phase_torch_adapter_2w(args, card: str, dev_type: str = "cuda",
+                           cfg_name: str = "small", B: int = 4,
+                           S: int = 2048) -> dict:
+    """Two PS workers through the adapter (``DMLC_NUM_WORKER=2``): each a
+    spawned process with a ``dp`` group of one, both on the one card,
+    and one ``python -m byteps_tpu_torch.server`` process. Worker 1
+    starts from other weights and another learning rate;
+    ``broadcast_parameters`` and ``broadcast_optimizer_state`` from
+    worker 0 make them equal; each takes ADAPTER_2W_STEPS steps of
+    ``DistributedOptimizer(Adam)`` on its own batch. Fails unless both end
+    bit for bit equal to each other and to local Adam on the mean of the
+    two gradients, and ``rank()``/``size()`` are (w, 2). Returns worker
+    0's launches. ``dev_type``/``cfg_name``/``B``/``S`` exist to
+    rehearse the phase on the CPU."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    dev = "cuda:0" if dev_type == "cuda" else "cpu"
+    port = _free_port()
+    server = _spawn_ps_server(port, {"DMLC_NUM_WORKER": "2"})
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = []
+    res = {}
+    try:
+        _wait_port(port)
+        procs = [ctx.Process(target=_adapter_2w_worker, args=(
+            w, port, args.seed, cfg_name, B, S, dev, q)) for w in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + PS_TIMEOUT_S * 2
+        while len(res) < 2:
+            try:
+                w, r = q.get(timeout=2.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead or time.time() > deadline:
+                    fail(f"torch_adapter_2w: no result from worker(s) "
+                         f"{sorted(set(range(2)) - set(res))}; exit codes "
+                         f"{[p.exitcode for p in procs]}")
+                continue
+            res[w] = r
+        for p in procs:
+            p.join(60)
+        try:
+            server.wait(PS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail("torch_adapter_2w: the PS server did not exit after both "
+                 "workers' SHUTDOWN")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    for w, r in sorted(res.items()):
+        if "error" in r:
+            fail(f"torch_adapter_2w worker {w} raised:\n{r['error']}")
+    a, b = res[0], res[1]
+    if (a["rank_size"], b["rank_size"]) != ((0, 2), (1, 2)):
+        fail(f"torch_adapter_2w: rank()/size() {a['rank_size']}, "
+             f"{b['rank_size']}, not (0, 2) and (1, 2)")
+    if a["own_init"] == b["own_init"]:
+        fail("torch_adapter_2w: the workers started from the same weights")
+    if a["after_broadcast"] != b["after_broadcast"] or \
+            b["after_broadcast"] != a["own_init"] or a["lr"] != b["lr"]:
+        fail("torch_adapter_2w: broadcast_parameters/broadcast_optimizer_"
+             "state did not make worker 1 equal to worker 0")
+    if a["final"] != b["final"]:
+        fail("torch_adapter_2w: the workers' parameters differ")
+    if a["local_differ"]:
+        fail(f"torch_adapter_2w: the parameters differ from local Adam on "
+             f"the mean gradient: elements per leaf {a['local_differ']}")
+    if dev_type == "cuda" and (a["launches"], b["launches"]) != (
+            24 * ADAPTER_2W_STEPS,) * 2:
+        fail(f"torch_adapter_2w: flash_attn_fwd launches {a['launches']}, "
+             f"{b['launches']}, not 24 a step on each worker")
+    steady = [max(x, y) for x, y in zip(a["times"][1:], b["times"][1:])]
+    tok_s = 2 * B * S / (sum(steady) / len(steady))
+    print(f"torch_adapter_2w (two PS workers, one card, one server "
+          f"process): {tok_s:.1f} tokens/s for the fleet ({tok_s / 2:.1f} "
+          f"per worker) over steps 1..{ADAPTER_2W_STEPS - 1} on {card}; "
+          f"steps {['%.1f' % (t * 1e3) for t in steady]} ms; rank/size "
+          f"{a['rank_size']} and {b['rank_size']}; parameters bit-identical "
+          f"on both workers and to {ADAPTER_2W_STEPS} local Adam steps on "
+          f"the mean of the two gradients; losses {a['losses']} and "
+          f"{b['losses']}", flush=True)
+    return {"flash_attn_fwd": a["launches"]}
+
+
+def phase_ps_rowsparse(args, card: str, dev=None, cfg=None, B: int = 4,
+                       S: int = 2048) -> dict:
+    """``make_ps_train_step(..., rowsparse_params=("embed",))`` on the
+    dense host tier, one worker: the embedding's gradient leaves the
+    streamed export and travels row-sparse after the backward; the
+    parameters must end bit for bit where plain local Adam steps (and so
+    the dense host tier, ``phase_ps_host``) leave them; its row-sparse
+    bytes are printed against its dense bytes. Then one device-tier
+    dithering + EF step with the same ``rowsparse_params``: the
+    embedding through the host row-sparse path, the rest compressed on
+    the card (one B4 launch). Returns the host tier's launches."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    counters = _counters()
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    model = llama.Llama(cfg, device=dev, generator=gen)
+    init = _tree_clone(model.params())
+    attn = FA.make_flash_attn()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    rows = int(torch.unique(batch["tokens"][:, :-1]).numel())
+    dense = cfg.vocab_size * cfg.dim * 4
+
+    def loss(b):
+        return llama.loss_fn(model.params(), b, cfg, attn)
+
+    with loopback_ps(dev, "rowsparse") as state:
+        step = make_ps_train_step(loss, _adam(model.parameters()),
+                                  model.params(), rowsparse_params=("embed",))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        run = run_steps(step, batch, args.steps, "rowsparse", on_card,
+                        counters)
+        step.close()
+        ctx = state.registry.declare("grad/embed")
+        parts = len(ctx.partitions)
+        aligned = ctx.align_bytes == cfg.dim * 4
+    report("rowsparse", card, run, B, S, dev, on_card,
+           " (the embedding row-sparse)")
+    sparse = [c["rowsparse_bytes"] for c in run["per_step"]]
+    ref = llama.Llama(cfg, device=dev, params=init)
+    ref_losses = _local_steps(
+        ref, lambda m: llama.loss_fn(m.params(), batch, cfg, attn),
+        len(run["losses"]))
+    differ = _differ(list(model.parameters()), list(ref.parameters()))
+    if differ or ref_losses != run["losses"]:
+        fail(f"ps_rowsparse: the parameters differ from plain local Adam "
+             f"steps: elements per leaf {differ}; losses {run['losses']} "
+             f"vs {ref_losses}")
+    want = 8 * parts + rows * (4 + cfg.dim * 4)
+    if not aligned or set(sparse) != {want}:
+        fail(f"ps_rowsparse: the embedding pushed {sparse} row-sparse bytes "
+             f"a step, not {want} ({rows} rows, {parts} row-aligned "
+             f"partitions: {aligned})")
+    if on_card and run["launches"]["flash_attn_fwd"] != 24 * args.steps:
+        fail(f"ps_rowsparse: flash_attn_fwd launched "
+             f"{run['launches']['flash_attn_fwd']} times in {args.steps} "
+             f"steps, not 24 a step")
+    print(f"ps_rowsparse: the embedding [{cfg.vocab_size}, {cfg.dim}] "
+          f"pushed {want} bytes a step row-sparse ({rows} of "
+          f"{cfg.vocab_size} rows, {parts} row-aligned partitions) against "
+          f"{dense} dense; parameters after {len(ref_losses)} steps "
+          f"bit-identical to plain local Adam steps (the dense host tier's "
+          f"result, phase ps_host)", flush=True)
+    del ref
+    kw = {"compressor": "dithering", "ef": "vanilla"}
+    with loopback_ps(dev, "rowsparse device tier") as state:
+        step = make_ps_train_step(loss, _adam(model.parameters()),
+                                  model.params(), compression=kw,
+                                  rowsparse_params=("embed",))
+        for fn in counters.values():
+            fn.launches = 0
+        pushed0 = state.scheduler.bytes_pushed
+        loss_v = bounded(lambda: float(step(batch)),
+                         "ps_rowsparse device-tier step")
+        pushed = state.scheduler.bytes_pushed - pushed0
+        levels = counters["dithering_levels"].launches
+        aligned = state.registry.declare("grad/embed").align_bytes == \
+            cfg.dim * 4
+        step.close()
+    if not math.isfinite(loss_v) or not aligned or \
+            (on_card and levels != 1):
+        fail(f"ps_rowsparse device tier: loss {loss_v}, embedding "
+             f"row-aligned {aligned}, B4 launches {levels}")
+    print(f"ps_rowsparse device tier (dithering + EF, the embedding "
+          f"row-sparse through the host): one step, loss {loss_v:.6f}, "
+          f"{pushed} bytes pushed, B4 launches {levels}", flush=True)
+    return dict(run["launches"])
+
+
 def apply_ab(step, batch, on_card: bool, card: str, n: int = 4) -> dict:
     """The dense step with each leaf's optimizer step run as its
     aggregate lands (``sharded_apply`` on) against one
@@ -2066,14 +2608,19 @@ def main() -> int:
     phase_ps_host(args, card)
     dp2 = phase_ps_dp2(args, card)
     ps_topk = phase_ps_topk(args, card)
-    failover = phase_ps_failover(args, card)
+    with restored_env():
+        failover = phase_ps_failover(args, card)
+    adapter = phase_torch_adapter(args, card)
+    adapter_2w = phase_torch_adapter_2w(args, card)
+    rowsparse = phase_ps_rowsparse(args, card)
     # each kernel's count from a path that runs it, each path's counters
-    # zeroed just before it and read just after: B1 from the fused run of
-    # ps_failover (the main path; every path launches it, 24 a
-    # step), B4 and the dequantization from the collective dithering run
-    # and B5 from the collective randomk run (collective_codecs), B2, B3,
-    # fma_scalar and xla_sum from the collective onebit run
-    launches["flash_attn_fwd"] = failover["fused"]["flash_attn_fwd"]
+    # zeroed just before it and read just after: B1 from the adapter's
+    # DistributedOptimizer(Adam) run (this slice's main path; every path
+    # launches it, 24 a step), B4 and the dequantization from the
+    # collective dithering run and B5 from the collective randomk run
+    # (collective_codecs), B2, B3, fma_scalar and xla_sum from the
+    # collective onebit run
+    launches["flash_attn_fwd"] = adapter["flash_attn_fwd"]
     for name in ("dithering_levels", "dithering_dequantize"):
         launches[name] = coll["dithering"][name]
     launches["randomk_indices"] = coll["randomk"]["randomk_indices"]
@@ -2081,7 +2628,9 @@ def main() -> int:
         "collective onebit": onebit_run,
         "ps device tier": ps, "ps dp2 (root, shard off)": dp2[False],
         "collective codecs": coll, "ps topk": ps_topk,
-        "ps failover": failover}), flush=True)
+        "ps failover": failover, "torch adapter": adapter,
+        "torch adapter, two workers (worker 0)": adapter_2w,
+        "ps rowsparse": rowsparse}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

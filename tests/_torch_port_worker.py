@@ -151,7 +151,7 @@ def _ps_env_for(port: int, num_workers: int = 1, worker_id: int = 0,
 
 
 def _dp_dense_run(rank, world, store, params, cfg, row, shard, steps,
-                  sgd_momentum=DP_MU):
+                  sgd_momentum=DP_MU, rowsparse=None):
     """The dense PS steps of a dp group: losses, parameters, declared
     names and the step's counters."""
     import torch
@@ -170,7 +170,8 @@ def _dp_dense_run(rank, world, store, params, cfg, row, shard, steps,
                               momentum=sgd_momentum)
         step = make_ps_train_step(
             lambda b: tl.loss_fn(model.params(), b, cfg), opt,
-            model.params(), local_shard_export=shard)
+            model.params(), local_shard_export=shard,
+            rowsparse_params=rowsparse)
         batch = {"tokens": torch.from_numpy(dp_tokens()[row: row + 1])}
         losses = [float(step(batch)) for _ in range(steps)]
         out = {"losses": np.array(losses),
@@ -192,8 +193,9 @@ def _dp_dense_run(rank, world, store, params, cfg, row, shard, steps,
 def run_dp_ps(rank: int, world: int, tmp: str, ports, params_path: str,
               out_path: str) -> None:
     """One rank of the dp group's runs: the shard helpers, two dense PS
-    steps of tiny() with the shard export off and on (a server each), and
-    two device-tier steps under dithering + EF."""
+    steps of tiny() with the shard export off and on (a server each), the
+    same with the shard export on and the embedding row-sparse, and two
+    device-tier steps under dithering + EF."""
     import dataclasses
     import os
 
@@ -228,6 +230,10 @@ def run_dp_ps(rank: int, world: int, tmp: str, ports, params_path: str,
                             params, cfg, rank, shard, DP_STEPS)
         out.update({f"{'on' if shard else 'off'}/{k}": v
                     for k, v in run.items()})
+    _ps_env_for(ports[3])
+    run = _dp_dense_run(rank, world, f"{tmp}/store4", params, cfg, rank,
+                        True, DP_STEPS, rowsparse=("embed",))
+    out.update({f"rs/{k}": v for k, v in run.items()})
     _ps_env_for(ports[2], BYTEPS_MIN_COMPRESS_BYTES="16384")
     bps.init(device="cpu", store=dist.FileStore(f"{tmp}/store3", world),
              rank=rank, world_size=world)

@@ -629,3 +629,143 @@ def test_collective_step_on_the_card_equals_its_cpu_twin(dev, kw):
     for a_step, b_step in zip(out["cuda"], out["cpu"]):
         for a, b in zip(a_step, b_step):
             assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# the PyTorch adapter on the card
+# --------------------------------------------------------------------- #
+
+class _Exact(torch.nn.Module):
+    """Two dense leaves and a sparse embedding whose gradients are exact
+    on any device: (p * c).sum() has gradient c."""
+
+    def __init__(self, dtype, device):
+        super().__init__()
+        rs = np.random.RandomState(0)
+        self.a = torch.nn.Parameter(torch.from_numpy(
+            rs.randn(257).astype(np.float32)).to(device, dtype))
+        self.b = torch.nn.Parameter(torch.from_numpy(
+            rs.randn(33, 65).astype(np.float32)).to(device, dtype))
+        self.emb = torch.nn.Embedding(40, 24, sparse=True, device=device)
+        self.ca = torch.from_numpy(rs.randn(257).astype(np.float32)).to(
+            device, dtype)
+        self.cb = torch.from_numpy(rs.randn(33, 65).astype(np.float32)).to(
+            device, dtype)
+        self.idx = torch.from_numpy(rs.randint(0, 40, 9)).to(device)
+
+    def forward(self):
+        return (self.a * self.ca).sum() + (self.b * self.cb).sum() + \
+            self.emb(self.idx).float().sum()
+
+
+def _adapter_grads(device, dtype, monkeypatch):
+    """The gradients ``DistributedOptimizer.synchronize()`` writes, one
+    worker against a loopback server, on ``device``."""
+    import byteps_tpu_torch.torch as bpt
+    from byteps_tpu_torch.native import build
+    from _torch_port_ps_util import _ps_env, ps_server
+
+    bounded(build.build_ps, timeout=240)
+    model = _Exact(dtype, device)
+    with ps_server() as port:
+        _ps_env(monkeypatch, port)
+        bpt.init(device=device)
+        try:
+            opt = bpt.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.5),
+                named_parameters=model.named_parameters())
+
+            def run():
+                opt.zero_grad()
+                model().float().backward()
+                opt.synchronize()
+
+            bounded(run)
+        finally:
+            bpt.shutdown()
+    return {n: p.grad.cpu() for n, p in model.named_parameters()}, model
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adapter_hook_on_card_gradients_equals_the_cpu(dev, dtype,
+                                                       monkeypatch):
+    """The hook's side-stream copy into a pinned buffer, the export
+    thread's submission and the aggregate's copy back into ``p.grad``
+    give on the card what they give on the CPU, bf16 as its bits."""
+    card, m = _adapter_grads(dev, dtype, monkeypatch)
+    cpu, _ = _adapter_grads(torch.device("cpu"), dtype, monkeypatch)
+    for name in cpu:
+        assert card[name].dtype == cpu[name].dtype, name
+        assert torch.equal(card[name], cpu[name]), name
+    assert torch.equal(card["a"], m.ca.cpu())
+    assert torch.equal(card["b"], m.cb.cpu())
+
+
+def _cross_barrier_run(device, monkeypatch, build_on=None, steps=3):
+    """``steps`` CrossBarrier SGD steps of a bias-free linear layer whose
+    gradient is an exact quarter-integer matrix (lr 0.25: every update is
+    exact); the CrossBarrier built on a thread whose current card is
+    ``build_on``."""
+    import threading
+
+    import byteps_tpu_torch.torch as bpt
+    from byteps_tpu_torch.native import build
+    from byteps_tpu_torch.torch.cross_barrier import CrossBarrier
+    from _torch_port_ps_util import _ps_env, ps_server
+
+    bounded(build.build_ps, timeout=240)
+    rs = np.random.RandomState(1)
+    lin = torch.nn.Linear(16, 8, bias=False, device=device)
+    w0 = torch.from_numpy(rs.randn(8, 16).astype(np.float32))
+    c = torch.from_numpy(rs.randint(-8, 9, (8, 16)).astype(np.float32) / 4)
+    with torch.no_grad():
+        lin.weight.copy_(w0)
+    eye = torch.eye(16, device=device)
+    with ps_server() as port:
+        _ps_env(monkeypatch, port)
+        bpt.init(device=device)
+        try:
+            opt = bpt.DistributedOptimizer(
+                torch.optim.SGD(lin.parameters(), lr=0.25),
+                named_parameters=lin.named_parameters())
+            box = {}
+
+            def make():
+                if build_on is not None:
+                    torch.cuda.set_device(build_on)
+                box["cb"] = CrossBarrier(lin, opt, num_steps=steps)
+
+            t = threading.Thread(target=make)
+            t.start()
+            t.join()
+            cb = box["cb"]
+            cb.step()
+
+            def run():
+                for _ in range(steps):
+                    cb.zero_grad()
+                    (lin(eye) * c.to(device).T).sum().backward()
+                    cb.step()
+
+            bounded(run)
+        finally:
+            bpt.shutdown()
+    want = w0.clone()
+    for _ in range(steps):
+        want -= 0.25 * c
+    return lin.weight.detach().cpu(), want
+
+
+def test_cross_barrier_updates_on_the_card(dev, monkeypatch):
+    got, want = _cross_barrier_run(dev, monkeypatch)
+    assert torch.equal(got, want)
+
+
+def test_cross_barrier_poller_updates_on_the_params_card(dev, monkeypatch):
+    """Parameters on card 1, the CrossBarrier (and so its poller thread)
+    started from a thread on card 0: the updates land on card 1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    got, want = _cross_barrier_run(torch.device("cuda", 1), monkeypatch,
+                                   build_on=0)
+    assert torch.equal(got, want)

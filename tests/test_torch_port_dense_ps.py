@@ -409,9 +409,11 @@ def test_ps_api_refuses_a_device_tensor_and_unported_options(monkeypatch):
             model = tl.Llama(_cfg(), device="cpu",
                              generator=torch.Generator().manual_seed(0))
             opt = torch.optim.SGD(model.parameters(), lr=0.1)
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                make_ps_train_step(lambda b: None, opt, model.params(),
-                                   rowsparse_params=("embed",))
+            # rowsparse is ported: the step takes the option
+            step = make_ps_train_step(lambda b: None, opt, model.params(),
+                                      rowsparse_params=("embed",))
+            assert step.rowsparse == ("embed",)
+            step.close()
             # the locality-shard export is ported: a group of one has
             # nothing to shard, and its step takes whole-leaf keys
             step = make_ps_train_step(lambda b: None, opt, model.params(),

@@ -144,9 +144,10 @@ def dp_runs(tmp_path_factory, ps_lib):
     params_path = str(tmp / "params.npz")
     W.save_params(params_path, init)
     outs = [str(tmp / f"rank{r}.npz") for r in range(2)]
-    with ps_server() as p0, ps_server() as p1, ps_server() as p2:
+    with ps_server() as p0, ps_server() as p1, ps_server() as p2, \
+            ps_server() as p3:
         procs = _spawn(W.run_dp_ps, lambda r: (
-            r, 2, str(tmp), (p0, p1, p2), params_path, outs[r]))
+            r, 2, str(tmp), (p0, p1, p2, p3), params_path, outs[r]))
         _join(procs)
     jax_runs = {}
     with pytest.MonkeyPatch.context() as mpatch:
@@ -258,6 +259,22 @@ def test_shard_on_equals_shard_off_on_both_ranks(dp_runs):
     assert [int(r["off/bytes_pushed"]) for r in ranks] == [total, 0]
     assert [int(r["on/bytes_pushed"]) for r in ranks] == \
         [total - sharded // 2, sharded // 2]
+
+
+def test_rowsparse_dp_steps_equal_the_dense_ones(dp_runs):
+    """The embedding row-sparse in a group of two: the root pushes the
+    group's mean of its rows (out of the shard plan), the aggregate is
+    broadcast, and both ranks end bit for bit where the dense run (shard
+    export on) leaves them, with one key numbering."""
+    ranks, _ = dp_runs
+    for r in ranks:
+        for k in (k for k in r if k.startswith("on/p/")):
+            np.testing.assert_array_equal(r["rs" + k[2:]], r[k], k)
+        np.testing.assert_array_equal(r["rs/losses"], r["on/losses"])
+        assert int(r["rs/shard_leaves"]) == \
+            len([n for n in LEAVES_SHARDED if "embed" not in n])
+        assert int(r["rs/streamed"]) == 8
+    np.testing.assert_array_equal(ranks[0]["rs/keys"], ranks[1]["rs/keys"])
 
 
 def test_device_tier_gives_both_ranks_one_aggregate(dp_runs):

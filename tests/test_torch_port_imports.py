@@ -53,7 +53,9 @@ def test_the_ps_path_modules_are_checked():
                 "core/types", "native/build", "ops/compression/host",
                 "ops/compression/rng", "server/__init__", "server/client",
                 "training/device_compression", "training/train",
-                "utils/spans"):
+                "utils/spans", "torch/__init__", "torch/compression",
+                "torch/cross_barrier", "ops/push_pull",
+                "training/__init__"):
         assert f"byteps_tpu_torch/{mod}.py" in files, mod
 
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 import concurrent.futures
 import pickle
 import threading
+import weakref
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -409,6 +410,13 @@ def _start_round(grad: torch.Tensor, name: str,
     return _export(comp, name, True, staging), ctx, False
 
 
+def _remove_hooks(handles) -> None:
+    """Take a dropped optimizer's (or DDP wrapper's) gradient hooks off
+    the parameters that outlive it."""
+    for h in handles:
+        h.remove()
+
+
 class _DistributedOptimizer(torch.optim.Optimizer):
     """The methods mixed into a dynamic subclass of the user's optimizer:
     a post-accumulate-grad hook per parameter starts its round as the
@@ -450,14 +458,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if p.requires_grad:
                 self._hook_refs.append(
                     p.register_post_accumulate_grad_hook(self._make_hook()))
+        weakref.finalize(self, _remove_hooks, list(self._hook_refs))
 
     def _make_hook(self):
+        # the hook holds the optimizer weakly: a parameter's hooks live on
+        # the autograd side, out of the garbage collector's sight, so a
+        # strong reference would keep the optimizer, its model and their
+        # gradients alive after the user drops them
+        ref = weakref.ref(self)
+
         def hook(p: torch.Tensor):
-            self._passes[p] = self._passes.get(p, 0) + 1
-            if self._passes[p] < self._backward_passes_per_step:
+            opt = ref()
+            if opt is None:
                 return
-            self._passes[p] = 0
-            self._on_grad(p)
+            opt._passes[p] = opt._passes.get(p, 0) + 1
+            if opt._passes[p] < opt._backward_passes_per_step:
+                return
+            opt._passes[p] = 0
+            opt._on_grad(p)
 
         return hook
 
@@ -521,11 +539,16 @@ class DistributedDataParallel(torch.nn.Module):
                     self._hook_refs.append(
                         p.register_post_accumulate_grad_hook(
                             self._make_hook(name)))
+            weakref.finalize(self, _remove_hooks, list(self._hook_refs))
 
     def _make_hook(self, name):
+        ref = weakref.ref(self)     # as the optimizer's hooks: weakly
+
         def hook(p):
-            self._pending[p] = _start_round(p.grad, "ddp_grad/" + name,
-                                            self._staging)
+            ddp = ref()
+            if ddp is not None:
+                ddp._pending[p] = _start_round(p.grad, "ddp_grad/" + name,
+                                               ddp._staging)
 
         return hook
 

@@ -69,7 +69,18 @@ result line:
 14. ``ps_rowsparse``: the dense host-tier step with
     ``rowsparse_params=("embed",)`` for ``--steps`` steps, bit for bit
     plain local Adam, the embedding's row-sparse bytes against its dense
-    ones; then one device-tier dithering + EF step with it.
+    ones; then one device-tier dithering + EF step with it;
+15. ``zoo``: the rest of the model zoo at full width and depth
+    (``phase_zoo``): MLP, ResNet-50 and VGG-16 at 224x224, BERT-large at
+    S=128 (BytePS's batch of 64 a GPU), MoE small (8 experts, B=8,
+    S=512), with SGD(lr=0.01) on eight paths: the dense host tier for
+    each model, the PyTorch adapter's ``DistributedOptimizer`` for
+    ResNet-50, the device tier's dithering + EF for VGG-16 and the
+    collective onebit + EF for BERT-large, 3 steps each; the dense and
+    adapter paths bit for bit where plain local SGD leaves the
+    parameters, the codec paths' kernels held to their twins at the
+    path's shapes; throughput, parameter bytes, bytes pushed, keys and
+    fused buckets and peak memory of each path.
 
 Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
 does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
@@ -500,11 +511,12 @@ RAGGED_ROUND = (1, 15, 16, 17, 4099)
 RAGGED_GAP = 3
 
 
-def path_round(kw: dict, dev):
-    """The PS path's round for ``LlamaConfig.small()``: the
-    ``DeviceCompressor``'s own ``_Round`` (and its tables) over the
-    registry's partitions of every gradient leaf, built without a server,
-    with the default partition size and compression threshold."""
+def path_round(kw: dict, dev, shapes=None):
+    """The PS path's round for ``LlamaConfig.small()`` (or the parameter
+    shapes ``shapes``): the ``DeviceCompressor``'s own ``_Round`` (and its
+    tables) over the registry's partitions of every gradient leaf, built
+    without a server, with the default partition size and compression
+    threshold."""
     import types
 
     import torch
@@ -523,8 +535,10 @@ def path_round(kw: dict, dev):
     cfg = Config(num_servers=1)
     state = types.SimpleNamespace(registry=TensorRegistry(cfg))
     dc = DeviceCompressor(None, 1, kw, cfg.min_compress_bytes)
+    if shapes is None:
+        shapes = llama.param_shapes(llama.LlamaConfig.small())
     plans = [dc.plan(state, "grad/" + name, t.numel(), dev) for name, t in
-             named_leaves(meta(llama.param_shapes(llama.LlamaConfig.small())))]
+             named_leaves(meta(shapes))]
     return dc._spec(plans).round
 
 
@@ -2463,6 +2477,451 @@ def phase_ps_rowsparse(args, card: str, dev=None, cfg=None, B: int = 4,
     return dict(run["launches"])
 
 
+# ---------------------------------------------------------------------- #
+# the model zoo: BytePS's published workloads on the PS step, the
+# PyTorch adapter and the codec paths
+# ---------------------------------------------------------------------- #
+
+ZOO_STEPS = 3
+ZOO_LR = 0.01           # BytePS's benchmark_byteps.py: SGD(lr=0.01)
+
+
+def _zoo_spec(name: str, dev, seed: int, tiny: bool) -> dict:
+    """One zoo model at its preset's full width (``tiny``: its tiny()
+    config, to rehearse on the CPU) with seeded weights and a seeded
+    batch: the model, ``loss(model, batch)``, the batch, the samples and
+    the unit a step counts (images or tokens) and a fresh copy of the
+    model from the same weights (``clone()``)."""
+    import torch
+    from byteps_tpu_torch.models import bert, mlp, moe, resnet, vgg
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if name == "mlp":
+        cfg = mlp.MLPConfig()
+        B = 64
+        model = mlp.MLP(cfg, dev, generator=gen)
+        batch = {"x": torch.rand(B, cfg.in_dim, generator=gen, device=dev),
+                 "y": torch.randint(0, cfg.n_classes, (B,), generator=gen,
+                                    device=dev)}
+        loss = lambda m, b: mlp.loss_fn(m.params(), b, cfg)  # noqa: E731
+        make = lambda p: mlp.MLP(cfg, dev, params=p)  # noqa: E731
+        unit, per = "images", B
+        desc = f"MLPConfig() {cfg.in_dim}-{'-'.join(map(str, cfg.hidden))}-" \
+               f"{cfg.n_classes} f32, B={B}"
+    elif name in ("resnet50", "vgg16"):
+        if name == "resnet50":
+            cfg = resnet.ResNetConfig.tiny() if tiny else \
+                resnet.ResNetConfig.resnet50()
+            model = resnet.ResNet(cfg, dev, generator=gen)
+            state0 = _tree_clone(model.state())
+            loss = lambda m, b: resnet.loss_fn(  # noqa: E731
+                m.params(), state0, b, cfg)[0]
+            make = lambda p: resnet.ResNet(  # noqa: E731
+                cfg, dev, params=p, state=state0)
+            size, desc = (32 if tiny else 224), \
+                f"ResNetConfig.{'tiny' if tiny else 'resnet50'}()"
+        else:
+            cfg = vgg.VGGConfig.tiny() if tiny else vgg.VGGConfig.vgg16()
+            model = vgg.VGG(cfg, dev, generator=gen)
+            loss = lambda m, b: vgg.loss_fn(m.params(), b, cfg)  # noqa: E731
+            make = lambda p: vgg.VGG(cfg, dev, params=p)  # noqa: E731
+            size, desc = cfg.image_size, \
+                f"VGGConfig.{'tiny' if tiny else 'vgg16'}()"
+        B = 4 if tiny else 64
+        batch = {"x": torch.rand(B, size, size, 3, generator=gen, device=dev),
+                 "y": torch.randint(0, cfg.n_classes, (B,), generator=gen,
+                                    device=dev)}
+        unit, per = "images", B
+        desc += f" bf16, B={B}, {size}x{size}x3"
+    elif name == "bert_large":
+        cfg = bert.BertConfig.tiny() if tiny else bert.BertConfig.bert_large()
+        B, S = (4, 64) if tiny else (64, 128)
+        model = bert.Bert(cfg, dev, generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev)
+        masked = torch.rand(B, S, generator=gen, device=dev) < 0.15
+        labels = torch.where(masked, torch.randint(
+            0, cfg.vocab_size, (B, S), generator=gen, device=dev), -1)
+        batch = {"tokens": toks, "labels": labels}
+        loss = lambda m, b: bert.loss_fn(m.params(), b, cfg)  # noqa: E731
+        make = lambda p: bert.Bert(cfg, dev, params=p)  # noqa: E731
+        unit, per = "tokens", B * S
+        desc = f"BertConfig.{'tiny' if tiny else 'bert_large'}() bf16, " \
+               f"B={B}, S={S}, 15% masked"
+    else:
+        cfg = moe.MoEConfig.tiny() if tiny else moe.MoEConfig.small()
+        B, S = (2, 64) if tiny else (8, 512)
+        model = moe.MoE(cfg, dev, generator=gen)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                         generator=gen, device=dev)}
+        loss = lambda m, b: moe.loss_fn(m.params(), b, cfg)  # noqa: E731
+        make = lambda p: moe.MoE(cfg, dev, params=p)  # noqa: E731
+        unit, per = "tokens", B * S
+        desc = f"MoEConfig.{'tiny' if tiny else 'small'}() bf16, " \
+               f"{cfg.n_experts} experts, top {cfg.top_k}, B={B}, S={S}"
+    init = _tree_clone(model.params())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    return dict(model=model, loss=loss, batch=batch, unit=unit, per=per,
+                desc=desc, n_bytes=n_bytes, held=0,
+                n_leaves=len(list(model.parameters())),
+                clone=lambda: make(_tree_clone(init)))
+
+
+def _sgd(params):
+    import torch
+    return torch.optim.SGD(params, lr=ZOO_LR, foreach=True)
+
+
+def _zoo_plain(spec, n: int):
+    """``n`` plain local SGD steps of a fresh copy of the model on the
+    same batch: (the copy, the losses)."""
+    ref = spec["clone"]()
+    opt = _sgd(ref.parameters())
+    losses = []
+    for _ in range(n):
+        opt.zero_grad(set_to_none=True)
+        loss = spec["loss"](ref, spec["batch"])
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    return ref, losses
+
+
+def _zoo_gate_plain(label: str, spec, model, losses) -> None:
+    """The run's parameters bit for bit where as many plain local SGD
+    steps leave them (one worker: the aggregate is the pushed
+    gradient)."""
+    ref, ref_losses = _zoo_plain(spec, len(losses))
+    differ = _differ(list(model.parameters()), list(ref.parameters()))
+    if differ or losses != ref_losses:
+        fail(f"zoo {label}: the parameters differ from {len(losses)} plain "
+             f"local SGD steps: elements per leaf {differ}; losses "
+             f"{losses} vs {ref_losses}")
+    print(f"zoo {label}: parameters bit-identical to {len(losses)} plain "
+          f"local SGD steps; losses {losses}", flush=True)
+    del ref
+
+
+def _zoo_report(label: str, card: str, spec, times, pushed: float, dev,
+                on_card: bool, extra: str = "") -> dict:
+    import torch
+    rate = _tokens_per_s(times, spec["per"])
+    # the path's own peak: what the earlier phases left allocated is
+    # taken off (phase_zoo reset the peak before building the model)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - spec["held"]) / 1e9 \
+        if on_card else float("nan")
+    print(f"zoo {label}: {spec['desc']}; {spec['n_bytes']} parameter bytes "
+          f"in {spec['n_leaves']} leaves; {rate:.1f} {spec['unit']}/s over "
+          f"steps 1..{len(times) - 1} on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in times[1:]]} ms; {pushed:.0f} "
+          f"bytes pushed per step; peak memory {peak_gb:.2f} GB (the "
+          f"model, its step and its activations){extra}",
+          flush=True)
+    return dict(rate=rate, unit=spec["unit"], pushed=pushed,
+                peak_gb=peak_gb)
+
+
+def _declared(state) -> str:
+    names = list(state.registry._contexts)
+    fused = sum(n.startswith("fused/") for n in names)
+    return f"; {len(names)} keys declared, {fused} of them fused buckets"
+
+
+def _zoo_ps_host(label, spec, card, dev, on_card, counters) -> dict:
+    """The dense host tier: ``make_ps_train_step(loss, SGD,
+    model.params())`` through a loopback server, gated bit for bit."""
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    model = spec["model"]
+    with loopback_ps(dev, label) as state:
+        step = make_ps_train_step(lambda b: spec["loss"](model, b),
+                                  _sgd(model.parameters()), model.params())
+        run = run_steps(step, spec["batch"], ZOO_STEPS, label, on_card,
+                        counters)
+        c = step.counters
+        extra = (f"; leaves streamed {c['leaves_streamed']}, after the "
+                 f"backward {c['leaves_post_backward']}, fused buckets "
+                 f"{c['fused_buckets']}" + _declared(state))
+        step.close()
+        del step
+    if run["pushed"] != ZOO_STEPS * spec["n_bytes"]:
+        fail(f"zoo {label}: pushed {run['pushed']} bytes in {ZOO_STEPS} "
+             f"steps, not {spec['n_bytes']} a step")
+    out = _zoo_report(label, card, spec, run["times"],
+                      run["pushed"] / ZOO_STEPS, dev, on_card, extra)
+    spans = run["spans"]
+    print(f"zoo {label} spans of one more step (host clock; they overlap): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items()),
+          flush=True)
+    _zoo_gate_plain(label, spec, model, run["losses"])
+    out["launches"] = run["launches"]
+    return out
+
+
+def _zoo_adapter(label, spec, card, dev, on_card) -> dict:
+    """The reference's ``benchmark_byteps.py`` route: the PyTorch
+    adapter's ``DistributedOptimizer(SGD(lr=0.01))`` over the model as an
+    ``nn.Module``, through a loopback server, gated bit for bit."""
+    import byteps_tpu_torch.torch as bpt
+
+    model = spec["model"]
+    with loopback_ps(dev, label) as state:
+        opt = bpt.DistributedOptimizer(
+            _sgd(model.parameters()),
+            named_parameters=model.named_parameters())
+
+        def body():
+            opt.zero_grad()
+            loss = spec["loss"](model, spec["batch"])
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        pushed0 = state.scheduler.bytes_pushed
+        losses, times = _timed_loop(ZOO_STEPS + 1, body, on_card, label)
+        pushed = (state.scheduler.bytes_pushed - pushed0) / (ZOO_STEPS + 1)
+        extra = _declared(state)
+        del opt
+    if pushed != spec["n_bytes"]:
+        fail(f"zoo {label}: {pushed:.0f} bytes pushed a step, not "
+             f"{spec['n_bytes']}")
+    out = _zoo_report(label, card, spec, times, pushed, dev, on_card, extra)
+    _zoo_gate_plain(label, spec, model, losses)
+    return out
+
+
+def _zoo_ps_dithering(label, spec, card, dev, on_card, counters) -> dict:
+    """The device tier under dithering + EF: one B4 launch a round (a
+    step), two of the dequantization; gated on finite losses and the
+    launch counts."""
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    model = spec["model"]
+    with loopback_ps(dev, label) as state:
+        step = make_ps_train_step(
+            lambda b: spec["loss"](model, b), _sgd(model.parameters()),
+            model.params(), compression={"compressor": "dithering",
+                                         "ef": "vanilla"})
+        run = run_steps(step, spec["batch"], ZOO_STEPS, label, on_card,
+                        counters)
+        plans = step.device_compressor()._plans.values()
+        n_parts = sum(len(p.codecs) for p in plans)
+        n_comp = sum(c is not None for p in plans for c in p.codecs)
+        extra = f"; {n_comp} of {n_parts} partitions compressed" + \
+            _declared(state)
+        step.close()
+        del step
+    out = _zoo_report(label, card, spec, run["times"],
+                      run["pushed"] / ZOO_STEPS, dev, on_card, extra)
+    if on_card:
+        for name, per in (("dithering_levels", 1),
+                          ("dithering_dequantize", 2)):
+            if run["launches"][name] != per * ZOO_STEPS:
+                fail(f"zoo {label}: {name} launched "
+                     f"{run['launches'][name]} times in {ZOO_STEPS} steps, "
+                     f"not {per} a step")
+    out["launches"] = run["launches"]
+    return out
+
+
+def _zoo_collective_onebit(label, spec, card, dev, on_card,
+                           counters) -> dict:
+    """``make_train_step`` through ``DistributedOptimizer(SGD)`` under
+    onebit + EF with an LR schedule: per compressed leaf a step, one B2,
+    two B3 (EF and the gathered payload), one ``xla_sum`` (the scale) and
+    one ``fma_scalar`` (the EF LR rescale)."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.training import (DistributedOptimizer,
+                                           make_train_step)
+
+    model = spec["model"]
+    os.environ["DMLC_NUM_SERVER"] = "0"     # no PS: the collective path
+    bps.init(device=dev)
+    try:
+        opt = DistributedOptimizer(
+            _sgd(model.parameters()),
+            compression={"compressor": "onebit", "ef": "vanilla"},
+            lr_schedule=lambda s: ZOO_LR)
+        n_comp = sum(st is not None for st in opt.compression.stacks)
+        largest = max((p.numel() for p, st in zip(opt.params,
+                                                  opt.compression.stacks)
+                       if st is not None), default=0)
+        step = make_train_step(lambda b: spec["loss"](model, b), opt)
+        for fn in counters.values():
+            fn.launches = 0
+        losses, times = _timed_loop(
+            ZOO_STEPS, lambda: float(step(spec["batch"])), on_card, label)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        del opt, step
+    finally:
+        bps.shutdown()
+    out = _zoo_report(label, card, spec, times, 0.0, dev, on_card,
+                      f" (the collective path pushes nothing to a server); "
+                      f"{n_comp} of {spec['n_leaves']} leaves compressed")
+    if on_card:
+        for name, per in (("onebit_pack", 1), ("onebit_unpack", 2),
+                          ("xla_sum", 1), ("fma_scalar", 1)):
+            if launches[name] != per * n_comp * ZOO_STEPS:
+                fail(f"zoo {label}: {name} launched {launches[name]} times "
+                     f"in {ZOO_STEPS} steps, not {per} for each of the "
+                     f"{n_comp} compressed leaves a step")
+    out.update(launches=launches, largest=largest)
+    return out
+
+
+def _zoo_onebit_checks(dev, n: int) -> None:
+    """The collective onebit path's kernels at its largest compressed
+    leaf, bit for bit against their plain twins."""
+    import numpy as np
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x, e = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    x[::97] = 0.0
+    words = K.onebit_pack(x)
+    scale = K.xla_mean(x, absolute=True)
+    want_scale = K.xla_sum_plain(x, absolute=True) * float(
+        np.float32(1) / np.float32(n))
+    checks = {
+        "onebit_pack": torch.equal(words, K.onebit_pack_plain(x)),
+        "onebit_unpack": torch.equal(K.onebit_unpack(words, scale, n),
+                                     K.onebit_unpack_plain(words, scale, n)),
+        "xla_sum": torch.equal(scale, want_scale),
+        "fma_scalar": torch.equal(K.fma_scalar(scale, e, x),
+                                  K.fma_f32_plain(scale, e, x))}
+    torch.cuda.synchronize()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"zoo: {bad} differ from their plain twins at n={n}")
+    print(f"zoo kernels at the collective onebit path's largest leaf "
+          f"(n={n}): onebit_pack, onebit_unpack, xla_sum (the scale) and "
+          f"fma_scalar bit-exact with their twins", flush=True)
+
+
+def _zoo_dither_checks(dev, shapes, seed: int) -> None:
+    """B4 and the dequantization over the device tier's round of a
+    zoo model (``shapes``: its parameter shapes), bit for bit against
+    their plain twins."""
+    import torch
+    from byteps_tpu_torch.ops.compression import kernels as K
+    from byteps_tpu_torch.ops.compression import rng
+
+    rnd = path_round({"compressor": "dithering"}, dev, shapes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rnd.total, generator=gen, device=dev)
+    views = [x[a: a + n] for a, n in rnd.spans]
+    norms = rnd.norms(views)
+    base = rng.uniform_base(seed, 1)
+    _dither_round_check(
+        x, norms, rnd.table, base, "linear",
+        f"zoo dithering_levels round ({len(rnd.members)} partitions, "
+        f"n={rnd.total})", None)
+    lv = K.dithering_levels_round(
+        x, norms, rnd.table, base, 127, "linear",
+        torch.empty(rnd.table.out_extent, dtype=torch.int8, device=dev))
+    for residual in (False, True):
+        got = K.dithering_dequantize_round(
+            lv, norms, rnd.table, 127, "linear",
+            x.clone() if residual else torch.zeros_like(x),
+            residual=residual)
+        want = K.dithering_dequantize_round_plain(
+            lv, norms, rnd.table, 127, "linear",
+            x.clone() if residual else torch.zeros_like(x),
+            residual=residual)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"zoo dithering_dequantize "
+                 f"({'residual' if residual else 'aggregate'}): "
+                 f"{int((got != want).sum())} elements differ from the twin")
+    print(f"zoo dithering_dequantize over the same round: aggregate and "
+          f"residual bit-exact with the twin", flush=True)
+
+
+ZOO_PATHS = (("mlp", "ps host dense"), ("resnet50", "ps host dense"),
+             ("resnet50", "adapter"), ("vgg16", "ps host dense"),
+             ("vgg16", "ps device dithering"),
+             ("bert_large", "ps host dense"),
+             ("bert_large", "collective onebit"), ("moe_small",
+                                                   "ps host dense"))
+
+
+def phase_zoo(args, card: str, dev=None, tiny: bool = False) -> dict:
+    """``zoo``: the five models of the JAX zoo beside Llama at their
+    presets' full width and depth on one card (MLPConfig(), ResNet-50,
+    VGG-16, BERT-large, MoE small), seeded random weights, BytePS's
+    published batch of 64 a GPU for the three BytePS workloads (ResNet-50
+    and VGG-16 at 224x224, BERT-large at S=128 with 15% masked) and
+    examples/benchmark.py's shapes otherwise (MLP B=64, MoE B=8 S=512),
+    ZOO_STEPS timed steps (and one more with the spans) on each of
+    ZOO_PATHS, with SGD(lr=0.01). Dense host-tier and adapter paths end
+    bit for bit where plain local SGD steps leave the parameters; the
+    device-tier and collective paths launch their kernels as many times
+    as a round or a compressed leaf asks, and those kernels are held to
+    their twins at the path's shapes. The model, optimizer and step are
+    freed before the next model. ``tiny`` rehearses it on the CPU at the
+    tiny() configs. Returns each path's launches."""
+    import torch
+
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    counters = {**_counters(), **_collective_counters()}
+    # cuDNN's fastest backward algorithms add in a run-dependent order:
+    # the bit-for-bit gates need the deterministic ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    t_zoo = time.perf_counter()
+    try:
+        for i, (name, path) in enumerate(ZOO_PATHS):
+            label = f"{name} {path}"
+            held = 0
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+            spec = _zoo_spec(name, dev, args.seed + 10 + i, tiny)
+            spec["held"] = held
+            t0 = time.perf_counter()
+            if path == "ps host dense":
+                res = _zoo_ps_host(label, spec, card, dev, on_card, counters)
+            elif path == "adapter":
+                res = _zoo_adapter(label, spec, card, dev, on_card)
+            elif path == "ps device dithering":
+                res = _zoo_ps_dithering(label, spec, card, dev, on_card,
+                                        counters)
+                if on_card:
+                    _zoo_dither_checks(dev, _shapes(spec["model"]),
+                                       args.seed)
+            else:
+                res = _zoo_collective_onebit(label, spec, card, dev,
+                                             on_card, counters)
+                if on_card and res["largest"]:
+                    _zoo_onebit_checks(dev, res["largest"])
+            print(f"zoo {label}: {time.perf_counter() - t0:.1f} s for the "
+                  f"path, its gates and checks", flush=True)
+            out[label] = res
+            del spec, res
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"zoo: {time.perf_counter() - t_zoo:.1f} s for the "
+          f"{len(ZOO_PATHS)} paths", flush=True)
+    return out
+
+
+def _shapes(model):
+    """A model's parameter shapes as the nested dict its params() has."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return tuple(node.shape)
+    return walk(model.params())
+
+
 def apply_ab(step, batch, on_card: bool, card: str, n: int = 4) -> dict:
     """The dense step with each leaf's optimizer step run as its
     aggregate lands (``sharded_apply`` on) against one
@@ -2575,6 +3034,9 @@ def main() -> int:
     ap.add_argument("--dp2-only", action="store_true",
                     help="build, then run only the ps_dp2 phase (for a "
                          "machine with several cards); no result line")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="build, then run only the zoo phase; no result "
+                         "line")
     args = ap.parse_args()
     if args.steps < 3:
         fail("--steps must be at least 3")
@@ -2588,10 +3050,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     if args.dp2_only:
         phase_ps_dp2(args, card)
+        return 0
+    if args.zoo_only:
+        phase_zoo(args, card)
         return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2613,6 +3079,8 @@ def main() -> int:
     adapter = phase_torch_adapter(args, card)
     adapter_2w = phase_torch_adapter_2w(args, card)
     rowsparse = phase_ps_rowsparse(args, card)
+    zoo = {k: v["launches"] for k, v in phase_zoo(args, card).items()
+           if "launches" in v}
     # each kernel's count from a path that runs it, each path's counters
     # zeroed just before it and read just after: B1 from the adapter's
     # DistributedOptimizer(Adam) run (this slice's main path; every path
@@ -2624,15 +3092,24 @@ def main() -> int:
     for name in ("dithering_levels", "dithering_dequantize"):
         launches[name] = coll["dithering"][name]
     launches["randomk_indices"] = coll["randomk"]["randomk_indices"]
+    # and the zoo's paths beside them, each counted from 0 on its own: B2,
+    # B3, xla_sum and fma_scalar from BERT-large's collective onebit, B4
+    # and the dequantization from VGG-16's device-tier dithering
+    for path in zoo.values():
+        for name, n in path.items():
+            if name in launches:
+                launches[name] += n
     print("launches by path: " + json.dumps({
         "collective onebit": onebit_run,
         "ps device tier": ps, "ps dp2 (root, shard off)": dp2[False],
         "collective codecs": coll, "ps topk": ps_topk,
         "ps failover": failover, "torch adapter": adapter,
         "torch adapter, two workers (worker 0)": adapter_2w,
-        "ps rowsparse": rowsparse}), flush=True)
+        "ps rowsparse": rowsparse, "zoo": zoo}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
+    print(f"chip_smoke: every phase passed, "
+          f"{time.perf_counter() - t_start:.1f} s from the start", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))

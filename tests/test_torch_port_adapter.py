@@ -276,3 +276,48 @@ def test_without_servers_the_adapter_is_the_identity(monkeypatch):
             st.local_size = 1
     finally:
         tbps.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["optimizer", "ddp", "cross_barrier"])
+def test_a_dropped_model_and_its_optimizer_are_freed(ps_lib, monkeypatch,
+                                                     kind):
+    """The gradient hooks hold their optimizer (or DDP wrapper) weakly:
+    they live on the autograd side, where the garbage collector cannot
+    see a cycle through them, so a strong hold kept every wrapped model,
+    optimizer and gradient alive for the life of the process. One worker
+    against a loopback server; the parameter that stays alive past its
+    optimizer keeps no hook."""
+    import gc
+    import weakref
+
+    with ps_server() as port:
+        _ps_env(monkeypatch, port)
+        tbps.init(device="cpu")
+        try:
+            def run():
+                model = _net(0)
+                if kind == "ddp":
+                    model = tbps.DistributedDataParallel(model)
+                    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+                else:
+                    opt = tbps.DistributedOptimizer(
+                        torch.optim.SGD(model.parameters(), lr=0.1),
+                        named_parameters=model.named_parameters())
+                    if kind == "cross_barrier":
+                        opt = TCrossBarrier(model, opt, num_steps=STEPS)
+                        opt.step()
+                for s in range(STEPS):
+                    opt.zero_grad()
+                    _loss(model, _batch(0, s, 0)).backward()
+                    if kind == "ddp":
+                        model.sync_gradients()
+                    opt.step()
+                kept = next(model.parameters())
+                return weakref.ref(model), weakref.ref(opt), kept
+
+            model_ref, opt_ref, kept = bounded(run)
+            gc.collect()
+            assert model_ref() is None and opt_ref() is None
+            assert not kept._post_accumulate_grad_hooks
+        finally:
+            tbps.shutdown()

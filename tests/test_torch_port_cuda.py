@@ -769,3 +769,99 @@ def test_cross_barrier_poller_updates_on_the_params_card(dev, monkeypatch):
     got, want = _cross_barrier_run(torch.device("cuda", 1), monkeypatch,
                                    build_on=0)
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------- #
+# the model zoo on the card
+# --------------------------------------------------------------------- #
+
+def _zoo_case(name, dev):
+    """(model on ``dev``, loss of it) of a zoo model's tiny() in f32,
+    from one seeded init and one seeded batch."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import bert, mlp, moe, resnet, vgg
+
+    gen = torch.Generator().manual_seed(9)
+    B = 4
+    if name == "mlp":
+        cfg = mlp.MLPConfig()
+        params = mlp.init_params(cfg, gen, "cpu")
+        batch = {"x": torch.rand(B, 784, generator=gen),
+                 "y": torch.randint(0, 10, (B,), generator=gen)}
+        model = mlp.MLP(cfg, dev, params=params)
+        return model, lambda m, b: mlp.loss_fn(m.params(), b, cfg), batch
+    if name in ("vgg", "resnet"):
+        mod = {"vgg": vgg, "resnet": resnet}[name]
+        cfg = dataclasses.replace(
+            vgg.VGGConfig.tiny() if name == "vgg"
+            else resnet.ResNetConfig.tiny(), dtype=torch.float32)
+        batch = {"x": torch.rand(B, 32, 32, 3, generator=gen),
+                 "y": torch.randint(0, 10, (B,), generator=gen)}
+        if name == "vgg":
+            model = vgg.VGG(cfg, dev, params=vgg.init_params(cfg, gen, "cpu"))
+            return model, lambda m, b: vgg.loss_fn(m.params(), b, cfg), batch
+        params, state = mod.init_params(cfg, gen, "cpu")
+        model = resnet.ResNet(cfg, dev, params=params, state=state)
+        return model, lambda m, b: resnet.loss_fn(
+            m.params(), m.state(), b, cfg)[0], batch
+    if name == "bert":
+        cfg = dataclasses.replace(bert.BertConfig.tiny(seq=32),
+                                  dtype=torch.float32)
+        toks = torch.randint(0, cfg.vocab_size, (B, 32), generator=gen)
+        labels = torch.where(torch.rand(B, 32, generator=gen) < 0.3, toks, -1)
+        model = bert.Bert(cfg, dev, params=bert.init_params(cfg, gen, "cpu"))
+        return model, lambda m, b: bert.loss_fn(m.params(), b, cfg), {
+            "tokens": toks, "labels": labels}
+    cfg = dataclasses.replace(moe.MoEConfig.tiny(seq=32), dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (B, 33), generator=gen)
+    model = moe.MoE(cfg, dev, params=moe.init_params(cfg, gen, "cpu"))
+    return model, lambda m, b: moe.loss_fn(m.params(), b, cfg), {
+        "tokens": toks}
+
+
+@pytest.mark.parametrize("name", ["mlp", "vgg", "resnet", "bert", "moe"])
+def test_zoo_model_on_the_card_equals_the_cpu(dev, name):
+    """Each zoo model's tiny() in f32 (no TF32): loss to 1e-5 and every
+    gradient to 1e-3 of its leaf's max, card against CPU."""
+    out = {}
+    for where in ("cpu", dev):
+        model, loss_of, batch = _zoo_case(name, where)
+        loss = loss_of(model, {k: v.to(where) for k, v in batch.items()})
+        loss.backward()
+        out[str(where)] = (float(loss.detach()), {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()
+            if p.grad is not None})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(dev)]
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu), (l_dev, l_cpu)
+    assert set(g_dev) == set(g_cpu)
+    if name == "bert":
+        # the key bias's gradient is 0 in exact arithmetic (a constant
+        # added to all of a query's logits): f32 noise on both devices,
+        # held to 0 against the largest gradient, not to each other
+        top = max(float(g.abs().max()) for g in g_cpu.values())
+        for g in (g_cpu.pop("blocks.bk"), g_dev.pop("blocks.bk")):
+            assert float(g.abs().max()) <= 1e-6 * top
+    for n, g in g_cpu.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((g_dev[n] - g).abs().max()) <= 1e-3 * scale, n
+
+
+def test_moe_route_on_the_card_equals_the_cpu(dev):
+    """The stable top-k on the card keeps ties in index order: the route
+    of tied, over-capacity tokens equals the CPU's bit for bit."""
+    from byteps_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig.tiny()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4096, cfg.dim, generator=gen)
+    w = torch.randn(cfg.dim, cfg.n_experts, generator=gen) * 0.02
+    w[:, 1] = w[:, 0]
+    x[::3] = 0.0
+    cap = moe.capacity(cfg, x.shape[0]) // 2
+    probs = moe.router_probs(x, w)
+    want = moe.route_probs(probs, cfg, cap)
+    got = moe.route_probs(probs.to(dev), cfg, cap)
+    for a, b in zip(got[:2], want[:2]):           # dispatch, combine
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-6, atol=0)

@@ -47,7 +47,8 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_ps_path_modules_are_checked():
-    """The parameter-server slice's modules are among the files above."""
+    """The parameter-server slice's modules and the model zoo are among
+    the files above."""
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("config", "core/arena", "core/registry", "core/scheduler",
                 "core/types", "native/build", "ops/compression/host",
@@ -55,7 +56,9 @@ def test_the_ps_path_modules_are_checked():
                 "training/device_compression", "training/train",
                 "utils/spans", "torch/__init__", "torch/compression",
                 "torch/cross_barrier", "ops/push_pull",
-                "training/__init__"):
+                "training/__init__", "models/__init__", "models/common",
+                "models/llama", "models/mlp", "models/vgg",
+                "models/resnet", "models/bert", "models/moe"):
         assert f"byteps_tpu_torch/{mod}.py" in files, mod
 
 

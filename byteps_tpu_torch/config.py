@@ -14,6 +14,10 @@ BYTEPS_FUSION_BYTES, BYTEPS_STREAM_EXPORT, BYTEPS_SHARDED_APPLY,
 BYTEPS_LOCAL_SHARD_EXPORT and BYTEPS_SHARD_MIN_BYTES. The scheduler's
 wire reads three more (byteps_tpu/config.py:171,201-202):
 BYTEPS_FUSED_PUSHPULL, BYTEPS_WIRE_RETRY and BYTEPS_WIRE_BACKOFF_MS.
+Cross-barrier bounded staleness reads BYTEPS_CROSS_BARRIER and
+BYTEPS_STALENESS (byteps_tpu/config.py:188-189, 355-356), and the host
+codecs BYTEPS_NATIVE_CODEC (``native_codec_on``; the server reads the
+first two itself).
 """
 
 from __future__ import annotations
@@ -101,6 +105,14 @@ class Config:
     wire_retry: int = 2                   # BYTEPS_WIRE_RETRY
     wire_backoff_ms: float = 50.0         # BYTEPS_WIRE_BACKOFF_MS
 
+    # --- cross-barrier bounded staleness (the host tier's carried drain)
+    # the step releases once the front half of the model has landed; the
+    # tail's pull, copy and apply may drain after the next step's export,
+    # at most ``staleness`` rounds of one key in flight beyond the first
+    # (0: the synchronous step, bit for bit). Fused PUSHPULL only
+    cross_barrier: bool = False           # BYTEPS_CROSS_BARRIER
+    staleness: int = 1                    # BYTEPS_STALENESS, 0..8
+
     # --- server ---
     server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
 
@@ -133,5 +145,15 @@ class Config:
             fused_pushpull=_env_bool("BYTEPS_FUSED_PUSHPULL", True),
             wire_retry=_env_int("BYTEPS_WIRE_RETRY", 2),
             wire_backoff_ms=float(_env_str("BYTEPS_WIRE_BACKOFF_MS", "50")),
+            cross_barrier=_env_bool("BYTEPS_CROSS_BARRIER", False),
+            staleness=max(0, min(8, _env_int("BYTEPS_STALENESS", 1))),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
         )
+
+
+def native_codec_on() -> bool:
+    """BYTEPS_NATIVE_CODEC (on unless "0"): onebit, topk, randomk and
+    default dithering through the C++ codec of native/ps.cc
+    (ops/compression/native.py), else numpy. Read as each host codec is
+    made: the codecs are made per partition, also outside ``init``."""
+    return os.environ.get("BYTEPS_NATIVE_CODEC", "1") != "0"

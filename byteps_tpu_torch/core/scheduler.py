@@ -13,7 +13,9 @@ blocking PULL stage), with the reference's worker-side scheduling
 - ``ScheduledQueue``: tasks ordered by (priority desc, key asc), admitted
   while the in-flight byte credit lasts (BYTEPS_SCHEDULING_CREDIT), and
   at most one task of a key in flight, so two rounds of one tensor never
-  interleave on the server;
+  interleave on the server; under cross-barrier staleness
+  (``PipelineScheduler.xb_window``) up to ``window + 1`` successive
+  rounds of an uncompressed key, in submission order;
 - ``PipelineScheduler``: the dispatcher admits tasks and hands them to
   the WIRE stage; the client's completion reactor finishes them; the
   per-tensor ``TaskGroup`` fires the handle when the last partition
@@ -68,9 +70,16 @@ UNLIMITED_CREDIT = 32 << 30
 
 
 class ScheduledQueue:
-    """Priority + credit gated task queue (scheduled_queue.cc)."""
+    """Priority + credit gated task queue (scheduled_queue.cc).
 
-    def __init__(self, credit_bytes: int = 0):
+    ``window`` (the staleness credit, byteps_tpu/core/scheduler.py:60-80):
+    up to ``window`` more rounds of one key may be in flight while one
+    is, for tasks without a host codec stack only: each carries its own
+    round stamp, and the server's window gate parks the one that arrives
+    ahead (it never sums two rounds). Same-key tasks admit in submission
+    order, so round k always goes before round k + 1."""
+
+    def __init__(self, credit_bytes: int = 0, window: int = 0):
         self._credit = (credit_bytes if credit_bytes > 0
                         else UNLIMITED_CREDIT)  # guarded-by: _cv
         self._capacity = self._credit
@@ -79,6 +88,7 @@ class ScheduledQueue:
         self._counter = itertools.count()
         self._stopped = False                  # guarded-by: _cv
         self._inflight: Dict[int, int] = {}    # guarded-by: _cv
+        self._window = max(0, int(window))
 
     def add_task(self, task: "PartitionTask") -> None:
         with self._cv:
@@ -106,14 +116,16 @@ class ScheduledQueue:
 
     def _pop_admissible_locked(self) -> Optional["PartitionTask"]:
         """Pop the highest-priority admissible task; in-flight keys are
-        skipped, and a credit-starved head blocks admission (no smaller
-        task overtakes it, scheduled_queue.cc:136-149)."""
+        skipped (beyond the staleness window of an uncompressed task),
+        and a credit-starved head blocks admission (no smaller task
+        overtakes it, scheduled_queue.cc:136-149)."""
         skipped: List = []
         found = None
         while self._heap:
             item = heapq.heappop(self._heap)
             t = item[3]
-            if self._inflight.get(t.key, 0) >= 1:
+            limit = 1 + (self._window if t.stack is None else 0)
+            if self._inflight.get(t.key, 0) >= limit:
                 skipped.append(item)
                 continue
             # a task above the whole capacity runs once credit is full
@@ -146,6 +158,12 @@ class ScheduledQueue:
         for task in tasks:
             task.group.partition_done(
                 RuntimeError("scheduler stopped before task ran"))
+
+
+def _variable_wire(task) -> bool:
+    """A host codec wire that may be shorter than its bound (varint
+    dithering, lossless); every other reply has its exact length."""
+    return task.stack is not None and task.stack.variable_wire
 
 
 class PartitionTask:
@@ -381,7 +399,15 @@ class PipelineScheduler:
         self.server_failovers = 0            # guarded-by: _count_mu
         self.key_migrations = 0              # guarded-by: _count_mu
         self._arena = arena        # scratch for compressed replies
-        self._queue = ScheduledQueue(credit_bytes)
+        # the cross-barrier staleness credit (byteps_tpu/core/scheduler.py
+        # :478-494), read by the train step's carry gate: the carried
+        # drain submits a key's next round while its last may be in
+        # flight. Fused PUSHPULL only: the fused reply is round-stamped
+        # and parked by the server, and a bare two-op PULL could read
+        # the previous round's aggregate
+        self.xb_window = max(0, int(cfg.staleness)) \
+            if self._fused and cfg.cross_barrier else 0
+        self._queue = ScheduledQueue(credit_bytes, window=self.xb_window)
         self._push_pool = concurrent.futures.ThreadPoolExecutor(
             num_threads, thread_name_prefix="bps-push")
         self._pull_pool = concurrent.futures.ThreadPoolExecutor(
@@ -692,11 +718,14 @@ class PipelineScheduler:
         except Exception as e:  # noqa: BLE001 - forwarded to the waiter
             self._finish(task, e)
             return
-        # a dense reply is the whole partition, a codec reply its wire
+        # a dense reply is the whole partition, a device-tier reply its
+        # wire and a fixed host wire its bound; a variable host wire
+        # (varint dithering, lossless) may be shorter than its bound
         want = task.pull_len if task.pull_len is not None else len(reply)
+        short_ok = _variable_wire(task)
 
         def on_done(got: int, err) -> None:
-            if err is None and got != want:
+            if err is None and got != want and not (short_ok and got < want):
                 err = RuntimeError(
                     f"fused pushpull reply for {task.ctx.name!r} "
                     f"key={task.key} is {got} bytes, expected {want}")
@@ -704,7 +733,7 @@ class PipelineScheduler:
                 self._fail_or_retry(task, err)
                 return
             if task.stack is not None:
-                task.wire = reply
+                task.wire = reply[:got]
                 self._submit_stage(self._codec_pool, self._do_decompress,
                                    task)
                 return
@@ -749,7 +778,7 @@ class PipelineScheduler:
             reply = self._reply_buffer(task)
             got = self._client.zpull(
                 task.sent_to, task.key, reply, task.cmd_pull,
-                exact=task.stack is None and task.pull_len is None)
+                exact=task.pull_len is None and not _variable_wire(task))
             if task.pull_len is not None and got != task.pull_len:
                 raise RuntimeError(
                     f"pull reply for {task.ctx.name!r} key={task.key} is "

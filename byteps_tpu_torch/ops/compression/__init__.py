@@ -36,12 +36,8 @@ __all__ = [
     "Codec", "OnebitCodec", "TopkCodec", "RandomkCodec", "DitheringCodec",
     "CompressorStack", "resolve_k",
     "make_compressor", "default_stacks", "compressed_psum_tree",
-    "CompressionTransform", "NOT_YET_PORTED",
+    "CompressionTransform",
 ]
-
-# codecs of the JAX package that the port does not have yet (the host
-# tier's lossless codec; make_compressor has no such name in either)
-NOT_YET_PORTED = ("lossless",)
 
 
 def parse_bool_kwarg(kwargs: Dict[str, str], name: str,
@@ -98,12 +94,10 @@ PORTED = ("onebit", "topk", "randomk", "dithering")
 
 
 def make_compressor(kwargs: Dict[str, str], size: int) -> CompressorStack:
-    """The momentum -> EF -> codec stack from string kwargs."""
+    """The momentum -> EF -> codec stack from string kwargs. The host
+    tier's lossless codec has no device or collective form, here as in
+    the JAX package: it is an unknown compressor."""
     name = kwargs.get("compressor")
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not yet ported to byteps_tpu_torch "
-            f"(have {list(PORTED)}); use byteps_tpu for it")
     if name not in PORTED:
         raise ValueError(f"unknown compressor {name!r}; have {list(PORTED)}")
     codec = _make_codec(name, kwargs, size)

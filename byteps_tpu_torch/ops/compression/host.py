@@ -1,16 +1,18 @@
-"""Host-side (numpy) wire codecs: the wire format of the PS path.
+"""Host-side wire codecs: the wire format of the PS path.
 
-Port of byteps_tpu/ops/compression/host.py, trimmed to what the PS train
-step reads: ``make_host_codec`` for onebit, topk, randomk and dithering, with
-the error-feedback and Nesterov momentum wrappers
+Port of byteps_tpu/ops/compression/host.py: ``make_host_codec`` for
+onebit, topk, randomk, dithering (dense or varint index coding) and
+lossless, with the error-feedback and Nesterov momentum wrappers
 (``HostErrorFeedback``, ``HostNesterovMomentum``). The host-codec tier
 (``server/compressed.py``, ``device_compress=False``) compresses with
-them in the scheduler's COMPRESS and DECOMPRESS stages. The device tier
+them in the scheduler's COMPRESS and DECOMPRESS stages, through the C++
+codec of ``native/ps.cc`` where it computes the same bytes
+(``native.py``; BYTEPS_NATIVE_CODEC=0 keeps numpy). The device tier
 (``training/device_compression.py``) compresses on the card; it reads a
 host codec only for ``kwargs_wire()`` (the codec configuration sent
 in-band to the server, operations.cc:396-408) and ``wire_bytes()`` (the
-size of a reply). ``compress``/``decompress`` are also the numpy golden
-model the tests hold the device tier against. They round each f32
+size of a reply). The numpy ``compress``/``decompress`` are also the
+golden model the tests hold the other tiers against. They round each f32
 operation as written, as the JAX package's numpy codecs and the C++
 server do.
 
@@ -20,10 +22,11 @@ server (native/ps.cc CompressorCfg):
 - onebit:    uint32 bits[ceil(n/32)], then f32 scale
 - topk:      int32 idx[k] ascending, then f32 val[k] (``HostTopk.select``)
 - randomk:   int32 idx[k], then f32 val[k] (``rng.np_index_parallel``)
-- dithering: int8 levels[n], then f32 norm
-
-Not yet ported: the lossless tier, dithering's varint index coding
-and the native (C++) codec acceleration.
+- dithering: int8 levels[n], then f32 norm; with ``index_coding=varint``
+             u32 nnz, the LEB128 gaps between the nonzero indices, their
+             int8 levels, then f32 norm (a wire of variable length,
+             ``wire_bytes()`` its bound)
+- lossless:  ``lossless.py``
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ class HostCodec:
     """Base: compress(x, step) -> bytes; decompress(buf) -> f32[n]."""
 
     n: int
+    # a wire that may be shorter than ``wire_bytes()``, its bound
+    variable_wire = False
 
     def compress(self, x: np.ndarray, step: int = 0) -> bytes:
         raise NotImplementedError
@@ -156,6 +161,52 @@ class HostRandomk(HostCodec):
         return f"compressor=randomk;n={self.n};k={self.k};seed={self.seed}"
 
 
+def _varint_encode(vals: np.ndarray) -> np.ndarray:
+    """LEB128 bytes of nonnegative int64 values, one numpy pass per byte
+    position (at most 5 for a gap below 2^35)."""
+    vals = np.asarray(vals, np.int64)
+    if vals.size == 0:
+        return np.zeros(0, np.uint8)
+    nb = np.ones(vals.shape, np.int64)
+    v = vals >> 7
+    while v.any():
+        nb += v > 0
+        v >>= 7
+    ends = np.cumsum(nb)
+    out = np.zeros(int(ends[-1]), np.uint8)
+    starts = ends - nb
+    for j in range(int(nb.max())):
+        sel = nb > j
+        byte = (vals[sel] >> (7 * j)) & 0x7F
+        cont = np.where(j < nb[sel] - 1, 0x80, 0)
+        out[starts[sel] + j] = (byte | cont).astype(np.uint8)
+    return out
+
+
+def _varint_decode(buf_u8: np.ndarray, count: int):
+    """(int64 values[count], bytes read): the first ``count`` LEB128
+    values of ``buf_u8``. A stream with fewer raises, as does a value
+    of more than 6 bytes (the C++ decoder's cap: values stay below 2^42,
+    so their cumulative sum cannot wrap an index negative)."""
+    if count == 0:
+        return np.zeros(0, np.int64), 0
+    ends = np.flatnonzero((buf_u8 & 0x80) == 0)
+    if len(ends) < count:
+        raise ValueError("truncated varint stream")
+    last = int(ends[count - 1])
+    b = buf_u8[: last + 1].astype(np.int64)
+    starts = np.concatenate(([0], ends[:count - 1] + 1))
+    gid = np.zeros(last + 1, np.int64)
+    gid[starts[1:]] = 1
+    gid = np.cumsum(gid)
+    shift = (np.arange(last + 1) - starts[gid]) * 7
+    if int(shift.max(initial=0)) > 35:
+        raise ValueError("varint too long")
+    vals = np.zeros(count, np.int64)
+    np.add.at(vals, gid, (b & 0x7F) << shift)
+    return vals, last + 1
+
+
 @dataclasses.dataclass
 class HostDithering(HostCodec):
     n: int
@@ -163,6 +214,11 @@ class HostDithering(HostCodec):
     partition: str = "linear"
     normalize: str = "max"
     seed: int = 0
+    # "varint": the nonzero levels alone on the wire, their indices
+    # delta + LEB128 coded (the reference's coded sparse dithering,
+    # impl/dithering.cc:25-80, byte-aligned): about 2 x nnz bytes instead
+    # of n. Host and C++ tiers only; the device payload stays dense.
+    index_coding: str = "dense"
 
     def __post_init__(self):
         # the bound of DitheringCodec and of the C++ parser: a level must
@@ -202,12 +258,41 @@ class HostDithering(HostCodec):
                              np.float32(0.0), exp + 1.0)
             level = np.clip(level, 0, 126)
         levels = (np.sign(x) * level).astype(np.int8)
+        if self.index_coding == "varint":
+            nz = np.flatnonzero(levels)
+            gaps = np.empty(len(nz), np.int64)
+            if len(nz):
+                gaps[0] = nz[0] + 1          # from an implicit index -1
+                gaps[1:] = np.diff(nz)
+            return (np.uint32(len(nz)).tobytes()
+                    + _varint_encode(gaps).tobytes()
+                    + levels[nz].tobytes() + np.float32(norm).tobytes())
         return levels.tobytes() + np.float32(norm).tobytes()
 
-    def decompress(self, buf) -> np.ndarray:
+    def _dense_levels(self, buf) -> tuple:
+        """(int8 levels[n], norm) of either wire; a varint wire that does
+        not parse raises ``ValueError``."""
         raw = np.frombuffer(buf, np.uint8)
-        lv = raw[: self.n].view(np.int8).astype(np.float32)
-        norm = raw[self.n: self.n + 4].view(np.float32)[0]
+        if self.index_coding != "varint":
+            return (raw[: self.n].view(np.int8),
+                    raw[self.n: self.n + 4].view(np.float32)[0])
+        nnz = int(raw[:4].copy().view(np.uint32)[0])
+        if nnz > self.n:
+            raise ValueError(f"varint dithering wire: nnz {nnz} > n")
+        gaps, used = _varint_decode(raw[4: len(raw) - 4 - nnz], nnz)
+        if used != len(raw) - 8 - nnz:
+            raise ValueError("varint dithering wire: trailing bytes")
+        idx = np.cumsum(gaps) - 1
+        if len(idx) and (gaps.min() < 1 or gaps.max() > self.n
+                         or idx[-1] >= self.n):
+            raise ValueError("varint dithering wire: bad indices")
+        lv = np.zeros(self.n, np.int8)
+        lv[idx] = raw[4 + used: 4 + used + nnz].view(np.int8)
+        return lv, raw[-4:].copy().view(np.float32)[0]
+
+    def decompress(self, buf) -> np.ndarray:
+        lv, norm = self._dense_levels(buf)
+        lv = lv.astype(np.float32)
         if self.partition == "linear":
             mag = np.abs(lv) / np.float32(self.s)
         else:
@@ -215,13 +300,23 @@ class HostDithering(HostCodec):
                            np.exp2(-(np.abs(lv) - 1.0)).astype(np.float32))
         return (np.sign(lv) * mag * norm).astype(np.float32)
 
+    @property
+    def variable_wire(self) -> bool:
+        return self.index_coding == "varint"
+
     def wire_bytes(self) -> int:
+        if self.index_coding == "varint":
+            # the bound (every level nonzero, gaps of several bytes), as
+            # ps.cc's WireLen(); a wire is shorter
+            return 2 * self.n + self.n // 64 + 16
         return self.n + 4
 
     def kwargs_wire(self) -> str:
+        extra = ";index_coding=varint" if self.index_coding == "varint" \
+            else ""
         return (f"compressor=dithering;n={self.n};s={self.s};"
                 f"partition_type={self.partition};"
-                f"normalize_type={self.normalize};seed={self.seed}")
+                f"normalize_type={self.normalize};seed={self.seed}{extra}")
 
 
 class HostErrorFeedback:
@@ -242,6 +337,10 @@ class HostErrorFeedback:
 
     def decompress(self, buf) -> np.ndarray:
         return self.codec.decompress(buf)
+
+    @property
+    def variable_wire(self) -> bool:
+        return self.codec.variable_wire
 
     def wire_bytes(self) -> int:
         return self.codec.wire_bytes()
@@ -267,6 +366,10 @@ class HostNesterovMomentum:
     def decompress(self, buf) -> np.ndarray:
         return self.inner.decompress(buf)
 
+    @property
+    def variable_wire(self) -> bool:
+        return self.inner.variable_wire
+
     def wire_bytes(self) -> int:
         return self.inner.wire_bytes()
 
@@ -277,17 +380,22 @@ class HostNesterovMomentum:
 def make_host_codec(kwargs: Dict[str, str], n: int):
     """kwargs -> (momentum ->) (EF ->) base codec, in the reference's
     stacking order (compressor_registry.cc:39-56) and with the parameter
-    names of ``make_compressor``. The device tier strips ``ef`` and
+    names of ``make_compressor``; the base codec is the C++ one where
+    ``native.maybe_native`` gives it. The device tier strips ``ef`` and
     ``momentum`` first: it runs both on the card and asks only for the
     base codec the server mirrors."""
-    from . import (
-        NOT_YET_PORTED, parse_bool_kwarg, parse_ef_kwarg,
-        parse_momentum_kwarg,
-    )
+    from . import parse_bool_kwarg, parse_ef_kwarg, parse_momentum_kwarg
+    from .native import maybe_native
 
     name = kwargs.get("compressor")
-    if name == "onebit":
-        codec: HostCodec = HostOnebit(
+    if name == "lossless":
+        # bitwise round trip: an EF or momentum stack around it is
+        # harmless (its error stays 0); the zlib tier is the host's only
+        # one, the wire describing itself
+        from .lossless import HostLossless
+        codec: HostCodec = HostLossless(n=n)
+    elif name == "onebit":
+        codec = HostOnebit(
             n=n, scaled=parse_bool_kwarg(kwargs, "scaling", "true"))
     elif name == "topk":
         # ``approx`` is the TPU's ApproxTopK in the JAX package; the
@@ -297,20 +405,17 @@ def make_host_codec(kwargs: Dict[str, str], n: int):
         codec = HostRandomk(n=n, k=resolve_k(float(kwargs.get("k", 0.01)), n),
                             seed=int(kwargs.get("seed", 0)))
     elif name == "dithering":
-        if kwargs.get("index_coding", "dense") != "dense":
-            raise NotImplementedError(
-                "dithering index_coding=varint is not yet ported to "
-                "byteps_tpu_torch (the dense wire is)")
+        coding = kwargs.get("index_coding", "dense")
+        if coding not in ("dense", "varint"):
+            raise ValueError(f"unknown index_coding {coding!r}")
         codec = HostDithering(
             n=n, s=int(kwargs.get("s", kwargs.get("k", 127))),
             partition=kwargs.get("partition_type", "linear"),
             normalize=kwargs.get("normalize_type", "max"),
-            seed=int(kwargs.get("seed", 0)))
-    elif name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"host codec {name!r} is not yet ported to byteps_tpu_torch")
+            seed=int(kwargs.get("seed", 0)), index_coding=coding)
     else:
         raise ValueError(f"unknown compressor {name!r}")
+    codec = maybe_native(kwargs, codec.kwargs_wire(), n) or codec
     stack = codec
     if parse_ef_kwarg(kwargs):
         stack = HostErrorFeedback(codec)

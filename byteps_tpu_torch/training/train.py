@@ -140,6 +140,10 @@ def make_ps_train_step(loss_fn: Callable, optimizer, params,
     the rest compress on the card. A match that is not 2-D warns once
     and stays on its tier's path.
 
+    Under cross-barrier bounded staleness (BYTEPS_CROSS_BARRIER,
+    BYTEPS_STALENESS) the host tier may carry the back half's rounds into
+    the next step (``HostTierStep``); ``step.flush()`` lands them.
+
     Returns ``step(batch) -> loss`` (a detached scalar, the dp mean).
     ``step.close()`` removes what the step holds on the parameters (the
     host tier's backward hooks) and stops its threads; call it when
@@ -294,6 +298,7 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
     step.spans = spans
     step.device_compressor = lambda: comp_state["device"]
     step.close = lambda: None       # it holds nothing on the parameters
+    step.flush = lambda: None       # it carries nothing across steps
     return step
 
 
@@ -316,10 +321,15 @@ class _Export:
     the step's counters and spans."""
 
     def __init__(self, state, n_dp: int = 1,
-                 shards: Optional[Dict[int, dict]] = None):
+                 shards: Optional[Dict[int, dict]] = None,
+                 carry: frozenset = frozenset(), par: int = 0):
         self.state = state
         self.n_dp = n_dp                 # the dp group's size
         self.shards = shards or {}       # leaf -> its shard plan
+        # cross-barrier: the leaves whose round may drain in the next
+        # step, and the step's parity, which picks their slots
+        self.carry = carry
+        self.par = par
         # streamed leaf -> (the worker's future of its handle, its slot);
         # (None, None) on a rank that pushes nothing for the leaf
         self.futures: Dict[int, tuple] = {}
@@ -348,6 +358,14 @@ class _Export:
                 self.first_push = now
             self.last_submit = now
             self.submitted_bytes += nbytes
+
+    def slot_key(self, i: Optional[int], name: str) -> str:
+        """The arena key of a key's result slot: a carry-eligible leaf
+        alternates two slots by step parity, since its last round may
+        still be landing in one (byteps_tpu/jax/train.py:1024-1031)."""
+        if i in self.carry:
+            return f"{name}:out~x{self.par}"
+        return name + ":out"
 
     def checkout(self, key: str, nbytes: int, tag=None):
         lease = self.state.arena.checkout(key, nbytes, tag=tag)
@@ -418,7 +436,20 @@ class HostTierStep:
     copied into its slot and submitted row-sparse by the root
     (``_submit_rowsparse``); its dense f32 aggregate lands in that slot
     and through the same drain and per-leaf apply.
-    Not ported: cross-barrier staleness, the ledger and health planes.
+
+    Cross-barrier bounded staleness (BYTEPS_CROSS_BARRIER with
+    BYTEPS_STALENESS > 0 on the fused PUSHPULL: the scheduler's
+    ``xb_window``; byteps_tpu/jax/train.py:1322-1360, 1515-1575,
+    1686-1710): with the per-leaf apply, no host codec and one process,
+    the step returns once every key but the carry-eligible ones
+    (``_carry_set``: dense whole-leaf keys of the back half of the model)
+    has landed; those land too if their reply is already in, and are
+    otherwise carried: their slots (two per leaf, alternating by step
+    parity) stay leased, and the next step lands them and runs their
+    optimizer steps after its own export, before its own drain. Their
+    parameters stay one update behind meanwhile. ``flush()`` lands what
+    is still carried. The server must run with the same two variables.
+    Not ported: the ledger and health planes.
 
     ``spans`` (off by default): forward_backward (step start to the
     backward's end on the device), export (the first leaf handed over to
@@ -430,8 +461,12 @@ class HostTierStep:
     last kernel ended), ``leaves_streamed``, ``leaves_post_backward``,
     ``fused_buckets``, ``shard_leaves``, ``rowsparse_bytes`` (the
     row-sparse payloads), ``bytes_pushed`` (by this
-    rank, retries included), and the scheduler's ``retries``,
-    ``server_failovers`` and ``key_migrations`` in the step.
+    rank, retries included), the scheduler's ``retries``,
+    ``server_failovers`` and ``key_migrations`` in the step, and the
+    carry's ``carried_leaves`` (carried out of the step), ``carried``
+    (their names), ``carry_drained`` (the last step's carry landed in
+    this one) and ``carry_lag`` (the step boundaries it crossed, 1 at the
+    steady state; None with nothing drained).
 
     A wire exchange that fails retries inside the scheduler, and a key
     whose server died moves to a survivor there (``core/scheduler.py``):
@@ -477,6 +512,12 @@ class HostTierStep:
         self._round: Optional[_Export] = None   # read by the hooks
         self._pending: Tuple[List, List] = ([], [])  # leases, h2d events
         self._streams: Dict[Tuple[str, torch.device], Any] = {}
+        # cross-barrier: the last step's rounds still to land, {"entries":
+        # [(leaf, handle, lease, wire dtype)], "step": its ordinal}; the
+        # step's ordinal and parity
+        self._carry: Optional[dict] = None
+        self._xb_seq = 0
+        self._xb_par = 0
 
     # ---- plumbing ----------------------------------------------------- #
 
@@ -579,14 +620,36 @@ class HostTierStep:
         self._shards, self._shard_key = plan, key
         return plan
 
+    def _declare_streamed(self, state, shards: Dict[int, dict]) -> None:
+        """Declare the keys of the leaves that stream whole, before the
+        backward and in flatten order: the PS key is the declaration's
+        number, and autograd produces the gradients in another order
+        (``lm_head`` first). Flatten order is the order the JAX step's
+        taps declare them in at the fusion thresholds where that order
+        is fixed (README, the port's section), and it is the same on every
+        rank of a dp group. A leaf of the shard plan has its shard keys
+        declared by the plan."""
+        dtype = torch.float32 if self._registry is not None else None
+        for i in sorted(self._hook_key or ()):
+            if i not in shards:
+                t = self.tensors[i]
+                ctx = _declare(state, self.names[i], t.numel(),
+                               dtype or t.dtype)
+                if state.is_root:
+                    # each key's init is a barrier of every worker: they
+                    # start all at once, as the shard plan's do
+                    state.ps_client.init_async(ctx)
+
     def _remove_hooks(self) -> None:
         for h in self._hooks:
             h.remove()
         self._hooks, self._hook_key = [], None
 
     def close(self) -> None:
-        """Remove the backward hooks, release the last step's slots and
-        stop the export worker. The step can run again afterwards."""
+        """Land what the cross-barrier carry holds (``flush``), remove the
+        backward hooks, release the last step's slots and stop the export
+        worker. The step can run again afterwards."""
+        self.flush()
         self._remove_hooks()
         self._release_pending()
         if self._worker is not None:
@@ -631,8 +694,8 @@ class HostTierStep:
                 rnd.works.append(work)
                 rnd.futures[i] = (None, None)
                 return
-        lease = rnd.checkout(name + ":out", src.numel() * src.element_size(),
-                             tag="export")
+        lease = rnd.checkout(rnd.slot_key(i, name),
+                             src.numel() * src.element_size(), tag="export")
         dst = lease.tensor.view(src.dtype)
         ev = None
         if src.is_cuda:
@@ -739,19 +802,35 @@ class HostTierStep:
         self._arm_hooks(state, fusion)
         n_dp = dist.get_world_size(state.group)
         shards = self._shard_plan(state, fusion, n_dp)
+        self._declare_streamed(state, shards)
         before = state.scheduler.counters()
         self.counters["rowsparse_bytes"] = 0
-        rnd = _Export(state, n_dp, shards)
+        carry = self._carry_set(state, fusion, shards, n_dp, leaf_apply)
+        self._xb_seq += 1
+        if carry is not None:
+            self._xb_par ^= 1
+        rnd = _Export(state, n_dp, shards, carry or frozenset(),
+                      self._xb_par)
         self._round = rnd
         try:
             loss, ready = self._export(state, rnd, batch, fusion, cap, cuda)
-            events = self._drain(state, rnd, ready, leaf_apply, cuda)
+            # the last step's carried rounds, after this step's export:
+            # their pulls overlapped this step's forward and backward
+            events, carried, drained, lag = self._apply_carry(state, cuda)
+            with rnd._mu:
+                rnd.leases += carried
+            events += self._drain(state, rnd, ready, leaf_apply, cuda)
         except BaseException:
             self._abandon(state, rnd)
             raise
         finally:
             self._round = None
         self._pending = (rnd.leases, events)
+        entries = self._carry["entries"] if self._carry else []
+        self.counters.update(
+            carried_leaves=len(entries), carry_drained=drained,
+            carry_lag=lag,
+            carried=tuple(self.names[e[0]] for e in entries))
         # bytes_pushed, and the wire's retries, server failovers and
         # migrated keys, of this step
         after = state.scheduler.counters()
@@ -761,6 +840,85 @@ class HostTierStep:
             dist.all_reduce(loss, group=state.group)
             loss /= n_dp
         return loss
+
+    def _carry_set(self, state, fusion: int, shards: Dict[int, dict],
+                   n_dp: int, leaf_apply) -> Optional[frozenset]:
+        """The leaves whose round may land after the step returns (None:
+        cross-barrier staleness is off). It is on with the scheduler's
+        staleness credit (BYTEPS_CROSS_BARRIER, BYTEPS_STALENESS > 0, the
+        fused PUSHPULL), the per-leaf apply, no host codec and one
+        process. Eligible are the dense whole-leaf keys of the back half
+        of the model in flatten order, at least ``fusion`` bytes each,
+        outside the shard plan and the row-sparse wire
+        (byteps_tpu/jax/train.py:1322-1360): the next forward reads the
+        front half first."""
+        if (state.scheduler.xb_window <= 0 or leaf_apply is None
+                or self._registry is not None or n_dp > 1):
+            return None
+        def eligible(i: int) -> bool:
+            nb = self.tensors[i].numel() * self.tensors[i].element_size()
+            return (nb > 0 and nb >= fusion and i not in shards and
+                    not _rowsparse_match(self.names[i], self.rowsparse))
+
+        first = max(1, (len(self.tensors) + 1) // 2)
+        return frozenset(filter(eligible, range(first, len(self.tensors))))
+
+    def _apply_carry(self, state, cuda: bool):
+        """Land the last step's carried rounds: each aggregate into its
+        parameter's gradient and that leaf's optimizer step, in place,
+        from the values the carry left (the parameter and its optimizer
+        state as the carried step found them). Returns (the copies'
+        events, the carried slots, the leaves drained, the step
+        boundaries they crossed)."""
+        carry, self._carry = self._carry, None
+        if carry is None:
+            return [], [], 0, None
+        compute = torch.cuda.current_stream(state.device) if cuda else None
+        events: List = []
+        try:
+            for i, handle, lease, wire in carry["entries"]:
+                state.handles.wait_and_clear(handle.id)   # raises its error
+                p = self.tensors[i]
+                if p.grad is None:
+                    p.grad = torch.empty_like(p)
+                self._h2d(lease.tensor.view(wire), p.grad.view(-1), compute,
+                          events)
+                self._leaf_apply.step(p)
+                if compute is not None:
+                    # this step's own round of the leaf may land in the
+                    # same p.grad: its copy waits for this step's read
+                    self._stream("h2d", p.device).wait_stream(compute)
+        except BaseException:
+            # a carried round that fails loses its leaf's update: the
+            # step raises, as a failed drain does
+            self._void_carry(state, carry)
+            raise
+        return (events, [e[2] for e in carry["entries"]],
+                len(carry["entries"]), self._xb_seq - carry["step"])
+
+    def _void_carry(self, state, carry: Optional[dict]) -> None:
+        if carry is not None:
+            for _, handle, lease, _ in carry["entries"]:
+                state.handles.discard(handle.id)
+                lease.abandon()
+
+    def flush(self) -> None:
+        """Drain the cross-barrier carry: each carried leaf's aggregate
+        lands and its optimizer step runs, in place. Call it after the
+        last step of a run (or before a checkpoint); a second call, or
+        one with nothing carried, does nothing (byteps_tpu/jax/train.py
+        :1874-1917)."""
+        if self._carry is None:
+            return
+        from ..core.state import get_state
+        state = get_state().require()
+        with on_card(state.device):
+            events, leases, _, _ = self._apply_carry(
+                state, state.device.type == "cuda")
+            for ev in events:
+                ev.synchronize()
+            for lease in leases:
+                lease.release()
 
     def _export(self, state, rnd: _Export, batch, fusion: int, cap: int,
                 cuda: bool):
@@ -890,8 +1048,9 @@ class HostTierStep:
                                    sparse))
                     continue
             esize = torch.empty((), dtype=dtype).element_size()
-            lease = rnd.checkout(name + ":out",
-                                 sum(m[2] for m in members) * esize)
+            lease = rnd.checkout(
+                rnd.slot_key(g[0] if len(g) == 1 else None, name),
+                sum(m[2] for m in members) * esize)
             dst = lease.tensor.view(dtype)
             if n > 1:
                 dst.copy_(flat, non_blocking=cuda)
@@ -962,9 +1121,16 @@ class HostTierStep:
             for wi, (_, handle, _, _, _) in enumerate(ready):
                 handle.add_done_callback(
                     lambda wi=wi: done.put((wi, time.perf_counter())))
+        # cross-barrier: the step releases once every other key has
+        # landed; a carry-eligible one lands too if its reply is already
+        # in, and is carried to the next step otherwise
+        carry_wi = {wi for wi, (members, _, _, shard, _) in enumerate(ready)
+                    if len(members) == 1 and shard is None
+                    and members[0][0] in rnd.carry}
+        pending = set(range(len(ready)))
         events, last_done = [], rnd.t_backward_end
         h2d_ms = apply_ms = 0.0
-        for _ in range(len(ready)):
+        while pending - carry_wi or (pending and not done.empty()):
             if root:
                 wi, t_done = done.get()
                 last_done = max(last_done, t_done)
@@ -973,6 +1139,7 @@ class HostTierStep:
                     idx.fill_(wi)
                 dist.broadcast(idx, src=0, group=group)
                 wi = int(idx.item())
+            pending.discard(wi)
             members, handle, lease, shard, wire = ready[wi]
             if handle is not None:
                 state.handles.wait_and_clear(handle.id)   # raises its error
@@ -1010,6 +1177,14 @@ class HostTierStep:
                         compute.synchronize()
                 t0 = time.perf_counter()
                 apply_ms += (t0 - t1) * 1e3
+        if pending:
+            # these slots stay leased until the next step drains them
+            entries = [(ready[wi][0][0][0], *ready[wi][1:3], ready[wi][4])
+                       for wi in sorted(pending)]
+            self._carry = {"entries": entries, "step": self._xb_seq}
+            kept = {id(e[2]) for e in entries}
+            with rnd._mu:
+                rnd.leases = [lz for lz in rnd.leases if id(lz) not in kept]
         self.last_completion = last_done
         if root:
             self.spans.add("wire", (last_done - rnd.t_backward_end) * 1e3)
@@ -1029,7 +1204,8 @@ class HostTierStep:
         the compute stream wait for it (a plain copy on the CPU). A
         ``fresh`` ``dst``, just allocated on the compute stream, is
         written only after the compute stream's work so far; a gradient's
-        last writer, the backward, has finished."""
+        last writer, the backward, has finished, and its last reader, a
+        carried leaf's optimizer step, is ordered by ``_apply_carry``."""
         if compute is None:
             dst.copy_(src)
             return
@@ -1059,6 +1235,9 @@ class HostTierStep:
             state.handles.discard(h.id)
         for lease in rnd.leases:
             lease.abandon()
+        # a raised step voids the carry: its rounds' slots are abandoned
+        self._void_carry(state, self._carry)
+        self._carry = None
 
 
 def on_card(dev: torch.device):
@@ -1072,17 +1251,16 @@ def on_card(dev: torch.device):
 
 
 def _declare(state, name: str, n: int, dtype: torch.dtype,
-             align: Optional[int] = None) -> None:
-    """Declare and partition a key that this rank does not push, as the
-    rank that pushes it does (``get_or_init_ctx``, or with the row
+             align: Optional[int] = None):
+    """Declare and partition a key before, or instead of, pushing it, as
+    the rank that pushes it does (``get_or_init_ctx``, or with the row
     alignment ``align`` a row-sparse key): the registry of every rank of
     a dp group then numbers every key alike, and a later key (a shard
-    plan's) gets one number on every rank."""
+    plan's) gets one number on every rank. Returns its context."""
     from ..core.types import DataType
-    state.registry.init_tensor(name, n * torch.empty((), dtype=dtype)
-                               .element_size(),
-                               DataType.from_np(_np_dtype(dtype)),
-                               align_bytes=align)
+    return state.registry.init_tensor(
+        name, n * torch.empty((), dtype=dtype).element_size(),
+        DataType.from_np(_np_dtype(dtype)), align_bytes=align)
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:

@@ -80,7 +80,24 @@ result line:
     adapter paths bit for bit where plain local SGD leaves the
     parameters, the codec paths' kernels held to their twins at the
     path's shapes; throughput, parameter bytes, bytes pushed, keys and
-    fused buckets and peak memory of each path.
+    fused buckets and peak memory of each path;
+16. ``ps_host_lossless``: the dense host tier's Llama small() step under
+    the lossless codec (byte planes + zlib, ``device_compress=False``),
+    3 steps, bit for bit where the dense host tier from the same weights
+    ends, its bytes pushed against the dense 498,674,688 a step;
+17. ``ps_host_varint``: host dithering + EF at s = 2 on the varint wire
+    (the nonzero levels, their LEB128 index gaps), 3 steps, bit for bit
+    where the dense int8 wire ends, both wires' bytes a step;
+18. the native (C++) host codec: on one round of the card's own
+    gradients, partition by partition, topk, randomk and dithering write
+    the numpy tier's bytes, onebit its signs with the scale within an
+    ulp; then the host onebit step with the native codec and with
+    BYTEPS_NATIVE_CODEC=0, tokens/s of each;
+19. ``ps_cross_barrier``: the dense host tier with BYTEPS_CROSS_BARRIER=1:
+    at staleness 0 bit for bit the synchronous step; at staleness 1
+    against a server capped at 2,000 MB/s it carries leaves, flushes
+    idempotently and ends bit for bit where a local replay of its carry
+    schedule ends; tokens/s at staleness 0 and 1 without the cap.
 
 Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
 does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
@@ -2478,6 +2495,300 @@ def phase_ps_rowsparse(args, card: str, dev=None, cfg=None, B: int = 4,
 
 
 # ---------------------------------------------------------------------- #
+# the rest of the host codecs (lossless, varint dithering, the native
+# codec) and cross-barrier bounded staleness, on the dense host tier's
+# Llama small() at full width
+# ---------------------------------------------------------------------- #
+
+# the level count of the varint run: most of a gradient's levels are 0
+VARINT_S = "2"
+# the server's rate cap (MB/s) in the carried cross-barrier run: the
+# step's 2 x 499 MB then take about as long as its backward
+XB_THROTTLE_MBPS = "2000"
+# and its per-request delay (ms, BYTEPS_CHAOS_SLOW_SERVER), with the keys
+# submitted after the backward in flatten order: lm_head, the last key,
+# has its partitions' delays still to come when the last key the step
+# waits for (the final_norm bucket) has landed, so it is carried every
+# step. (Streamed, the bucket is the last key sent and the step's wait
+# for it leaves every carry-eligible reply in, or nearly.)
+XB_SLOW_MS = "20"
+
+
+def _llama_setup(args, dev, cfg, B: int, S: int, seed_off: int):
+    """(device, config, initial weights, batch, attention) of a host-tier
+    phase; the weights are copied into each run's fresh model."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    dev = torch.device(dev or "cuda:0")
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + seed_off)
+    init = _tree_clone(llama.Llama(cfg, device=dev, generator=gen).params())
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    return dev, cfg, init, batch, FA.make_flash_attn()
+
+
+def _host_run(label: str, card: str, setup, n: int, env: dict, B: int,
+              S: int, note: str = "", flush: bool = False, **kw):
+    """``n`` timed steps and one with its spans on of the host-tier step
+    (Adam, foreach) of a fresh model from the setup's weights, against a
+    loopback server that starts under ``env`` (``os.environ`` is put back
+    after). ``flush``: then ``step.flush()``, twice, the second a no-op.
+    Returns (model, run); ``run["per_step"]`` has every step's
+    counters."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training import make_ps_train_step
+    dev, cfg, init, batch, attn = setup
+    on_card = dev.type == "cuda"
+    model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    with restored_env():
+        os.environ.update(env)
+        with loopback_ps(dev, label):
+            step = make_ps_train_step(
+                lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+                _adam(model.parameters()), model.params(), **kw)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            run = run_steps(step, batch, n, label, on_card, _counters())
+            run["per_step"].append(dict(step.counters))
+            if flush:
+                bounded(step.flush, f"flush ({label})")
+                once = [p.detach().clone() for p in model.parameters()]
+                bounded(step.flush, f"second flush ({label})")
+                if _differ(once, model.parameters()):
+                    fail(f"{label}: a second flush() changed the "
+                         f"parameters")
+            step.close()
+    report(label, card, run, B, S, dev, on_card, note)
+    if on_card and run["launches"]["flash_attn_fwd"] != 24 * n:
+        fail(f"flash_attn_fwd: {run['launches']['flash_attn_fwd']} "
+             f"launches in {n} {label} steps, not 24 a step")
+    return model, run
+
+
+def _same_run(label: str, a, b) -> None:
+    """Fail unless two runs (model, run) end with the same parameters and
+    losses, bit for bit."""
+    differ = _differ(list(a[0].parameters()), list(b[0].parameters()))
+    if differ or a[1]["losses"] != b[1]["losses"]:
+        fail(f"{label}: losses {a[1]['losses']} vs {b[1]['losses']}; "
+             f"elements differing per leaf {differ}")
+
+
+def phase_ps_host_lossless(args, card: str, dev=None, cfg=None, B: int = 4,
+                           S: int = 2048) -> None:
+    """``ps_host_lossless``: the host-codec tier under
+    ``{"compressor": "lossless"}`` (byte planes + zlib on the worker, the
+    server decoding, folding and re-encoding) against the dense host tier
+    from the same weights: the codec is exact, so the parameters must
+    end bit for bit alike; the bytes pushed a step are printed against
+    the dense ones."""
+    setup = _llama_setup(args, dev, cfg, B, S, 11)
+    n = SHORT_RUN_STEPS
+    dense = _host_run("lossless: dense host tier", card, setup, n, {}, B, S)
+    lossless = _host_run("host lossless", card, setup, n, {}, B, S,
+                         compression={"compressor": "lossless"},
+                         device_compress=False)
+    _same_run("host lossless against the dense host tier", lossless, dense)
+    print(f"ps host lossless: parameters after {len(dense[1]['losses'])} "
+          f"steps bit-identical to the dense host tier's; "
+          f"{lossless[1]['pushed'] / n:.0f} bytes pushed a step against "
+          f"the dense {dense[1]['pushed'] / n:.0f} "
+          f"({lossless[1]['pushed'] / dense[1]['pushed']:.4f})", flush=True)
+
+
+def phase_ps_host_varint(args, card: str, dev=None, cfg=None, B: int = 4,
+                         S: int = 2048) -> None:
+    """``ps_host_varint``: host dithering + EF at s = VARINT_S with
+    ``index_coding=varint`` (the nonzero levels and their LEB128 index
+    gaps) against the same configuration on the dense int8 wire, from
+    the same weights: the same levels, so the parameters must end bit for
+    bit alike; both wires' bytes a step are printed."""
+    setup = _llama_setup(args, dev, cfg, B, S, 12)
+    n = SHORT_RUN_STEPS
+    kw = {"compressor": "dithering", "s": VARINT_S, "ef": "vanilla"}
+    runs = {}
+    for coding in ("dense", "varint"):
+        runs[coding] = _host_run(
+            f"host dithering s={VARINT_S} {coding} wire", card, setup, n, {},
+            B, S, compression=dict(kw, index_coding=coding),
+            device_compress=False)
+    _same_run("varint against dense dithering", runs["varint"],
+              runs["dense"])
+    pushed = {k: r[1]["pushed"] / n for k, r in runs.items()}
+    print(f"ps host varint: parameters after "
+          f"{len(runs['dense'][1]['losses'])} steps bit-identical to the "
+          f"dense wire's; bytes pushed a step: varint {pushed['varint']:.0f}"
+          f", dense {pushed['dense']:.0f} "
+          f"({pushed['varint'] / pushed['dense']:.4f})", flush=True)
+
+
+NATIVE_GATE_KWS = (
+    {"compressor": "onebit"}, {"compressor": "topk", "k": "0.01"},
+    {"compressor": "randomk", "k": "0.01", "seed": "3"},
+    {"compressor": "dithering", "seed": "4"})
+
+
+def phase_native_codec(args, card: str, dev=None, cfg=None, B: int = 4,
+                       S: int = 2048) -> None:
+    """The native (C++) host codec against the numpy tier on the card's
+    own gradients of one round: each leaf cut into the registry's
+    partitions, each partition through both tiers; topk, randomk and
+    dithering must write the same bytes, onebit the same signs with its
+    scale within an ulp. Then the host onebit step with the native codec
+    (the default) and with BYTEPS_NATIVE_CODEC=0, from the same
+    weights."""
+    import numpy as np
+    from byteps_tpu_torch.config import Config
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops.compression.host import make_host_codec
+    from byteps_tpu_torch.ops.compression.native import NativeCodec
+    from byteps_tpu_torch.training.train import named_leaves
+
+    setup = _llama_setup(args, dev, cfg, B, S, 13)
+    dev, cfg, init, batch, attn = setup
+    model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    llama.loss_fn(model.params(), batch, cfg, attn).backward()
+    part = Config.from_env().partition_bytes // 4
+    pieces = []
+    for _, p in named_leaves(model.params()):
+        g = p.grad.detach().float().reshape(-1).cpu().numpy()
+        pieces += [g[o:o + part] for o in range(0, g.size, part)]
+    del model
+    checked = {}
+    t0 = time.perf_counter()
+    for kw in NATIVE_GATE_KWS:
+        name = kw["compressor"]
+        for i, x in enumerate(pieces):
+            with restored_env():
+                os.environ.pop("BYTEPS_NATIVE_CODEC", None)
+                native = make_host_codec(kw, x.size)
+                os.environ["BYTEPS_NATIVE_CODEC"] = "0"
+                plain = make_host_codec(kw, x.size)
+            if not isinstance(native, NativeCodec) or isinstance(
+                    plain, NativeCodec):
+                fail(f"native codec gate: {name} took the wrong tiers")
+            a = native.compress(x, step=1).tobytes()
+            b = plain.compress(x, step=1)
+            if name != "onebit":
+                ok = a == b
+            else:
+                sa, sb = (np.frombuffer(w[-4:], np.int32)[0] for w in (a, b))
+                ok = a[:-4] == b[:-4] and abs(int(sa) - int(sb)) <= 1
+            if not ok:
+                fail(f"native codec gate: {name} partition {i} of "
+                     f"{x.size} elements differs from the numpy tier")
+        checked[name] = len(pieces)
+    print(f"native codec: {checked} partitions of the card's gradients, "
+          f"native wire = numpy wire (onebit: signs equal, scale within an "
+          f"ulp), {time.perf_counter() - t0:.1f} s", flush=True)
+    kw = {"compressor": "onebit", "ef": "vanilla"}
+    n = SHORT_RUN_STEPS
+    arms = {}
+    for arm, env in (("native", {}), ("numpy", {"BYTEPS_NATIVE_CODEC": "0"}),
+                     ):
+        _, run = _host_run(f"host onebit, {arm} codec", card, setup, n, env,
+                           B, S, compression=kw, device_compress=False)
+        arms[arm] = _tokens_per_s(run["times"], B * S)
+    print(f"host onebit tokens/s on {card}: native codec "
+          f"{arms['native']:.1f}, numpy codec {arms['numpy']:.1f}", flush=True)
+
+
+def _replay_carry(setup, schedule):
+    """Plain local Adam steps (each leaf's step alone, as the PS step's
+    drain runs it) in which the leaves named in ``schedule[t]`` take step
+    t's update after step t + 1's backward, and the last step's after
+    the run. Returns (model, losses)."""
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training.optim import make_leaf_apply
+    from byteps_tpu_torch.training.train import named_leaves
+    dev, cfg, init, batch, attn = setup
+    model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    apply = make_leaf_apply(_adam(model.parameters()))
+    leaves = [("grad/" + n, p) for n, p in named_leaves(model.params())]
+    late, losses = [], []
+    for carried in schedule:
+        model.zero_grad(set_to_none=True)
+        loss = llama.loss_fn(model.params(), batch, cfg, attn)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads = [p.grad.clone() for _, p in leaves]
+        for p, g in late:
+            p.grad = g
+            apply.step(p)
+        late = []
+        for (name, p), g in zip(leaves, grads):
+            if name in carried:
+                late.append((p, g))
+            else:
+                p.grad = g
+                apply.step(p)
+    for p, g in late:
+        p.grad = g
+        apply.step(p)
+    return model, losses
+
+
+def phase_ps_cross_barrier(args, card: str, dev=None, cfg=None, B: int = 4,
+                           S: int = 2048) -> None:
+    """``ps_cross_barrier``: the dense host tier with
+    BYTEPS_CROSS_BARRIER=1 (the server reads it too). At
+    BYTEPS_STALENESS=0 it is the synchronous step bit for bit. At 1,
+    against a server capped at XB_THROTTLE_MBPS and slowed by XB_SLOW_MS
+    a request, the export after the backward, it must carry leaves
+    (``carried_leaves``), keep every loss finite, flush idempotently and
+    end bit for bit where a plain local replay of the recorded carry
+    schedule ends. Tokens/s at staleness 0 and 1 without the cap; the
+    run at 1 is held to the replay of its own schedule too."""
+    setup = _llama_setup(args, dev, cfg, B, S, 14)
+    n = SHORT_RUN_STEPS
+    xb = {"BYTEPS_CROSS_BARRIER": "1"}
+    sync = _host_run("cross-barrier: synchronous", card, setup, n, {}, B, S)
+    s0 = _host_run("cross-barrier staleness 0", card, setup, n,
+                   dict(xb, BYTEPS_STALENESS="0"), B, S)
+    _same_run("staleness 0 against the synchronous step", s0, sync)
+    thr = _host_run(f"cross-barrier staleness 1, server at "
+                    f"{XB_THROTTLE_MBPS} MB/s and {XB_SLOW_MS} ms a request, "
+                    f"keys after the backward", card, setup, n,
+                    dict(xb, BYTEPS_STALENESS="1",
+                         BYTEPS_SERVER_THROTTLE_MBPS=XB_THROTTLE_MBPS,
+                         BYTEPS_CHAOS_SLOW_SERVER=XB_SLOW_MS,
+                         BYTEPS_STREAM_EXPORT="0"),
+                    B, S, flush=True)
+    per_step = thr[1]["per_step"]
+    carried = sum(c["carried_leaves"] for c in per_step)
+    if carried == 0:
+        fail(f"cross-barrier staleness 1 carried no leaf: {per_step}")
+    schedule = [c["carried"] for c in per_step]
+    replay = _replay_carry(setup, schedule)
+    _same_run("staleness 1 against the replay of its carry schedule", thr,
+              (replay[0], {"losses": replay[1]}))
+    print(f"ps cross-barrier: staleness 0 bit-identical to the synchronous "
+          f"step; staleness 1 (server at {XB_THROTTLE_MBPS} MB/s, "
+          f"{XB_SLOW_MS} ms a request) carried "
+          f"{carried} leaves over {len(per_step)} steps "
+          f"({[list(s) for s in schedule]}; lags "
+          f"{[c['carry_lag'] for c in per_step]}), flush idempotent, "
+          f"parameters bit-identical to the local replay of that schedule",
+          flush=True)
+    s1 = _host_run("cross-barrier staleness 1", card, setup, n,
+                   dict(xb, BYTEPS_STALENESS="1"), B, S, flush=True)
+    replay = _replay_carry(setup, [c["carried"] for c in s1[1]["per_step"]])
+    _same_run("staleness 1 (no server cap) against the replay of its carry "
+              "schedule", s1, (replay[0], {"losses": replay[1]}))
+    del replay
+    rates = {k: _tokens_per_s(r[1]["times"], B * S)
+             for k, r in (("synchronous", sync), ("staleness 0", s0),
+                          ("staleness 1", s1))}
+    print(f"ps cross-barrier tokens/s on {card}, no server cap: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; staleness 1 carried "
+          f"{[c['carried_leaves'] for c in s1[1]['per_step']]}", flush=True)
+
+
+# ---------------------------------------------------------------------- #
 # the model zoo: BytePS's published workloads on the PS step, the
 # PyTorch adapter and the codec paths
 # ---------------------------------------------------------------------- #
@@ -3079,6 +3390,10 @@ def main() -> int:
     adapter = phase_torch_adapter(args, card)
     adapter_2w = phase_torch_adapter_2w(args, card)
     rowsparse = phase_ps_rowsparse(args, card)
+    phase_ps_host_lossless(args, card)
+    phase_ps_host_varint(args, card)
+    phase_native_codec(args, card)
+    phase_ps_cross_barrier(args, card)
     zoo = {k: v["launches"] for k, v in phase_zoo(args, card).items()
            if "launches" in v}
     # each kernel's count from a path that runs it, each path's counters

@@ -309,3 +309,48 @@ def _load_params(path: str):
                 node = node.setdefault(p, {})
             node[last] = z[k]
     return tree
+
+
+def run_mixed_stream(port: int, params_path: str, out_path: str,
+                     stream: str, timeout_s: str) -> None:
+    """The torch half of a mixed fleet of two PS workers: worker 1, one
+    process, two dense host-tier SGD steps of tiny() on row 1 of
+    ``dp_tokens`` with BYTEPS_STREAM_EXPORT=``stream``. A round that
+    never completes raises after ``timeout_s`` seconds
+    (BYTEPS_CLIENT_TIMEOUT_S), so the process ends either way."""
+    import dataclasses
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama as tl
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    _ps_env_for(port, num_workers=2, worker_id=1,
+                BYTEPS_STREAM_EXPORT=stream,
+                BYTEPS_CLIENT_TIMEOUT_S=timeout_s,
+                BYTEPS_NATIVE_CODEC="0")
+    params = _load_params(params_path)
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=DP_V, seq=DP_S),
+                              dtype=torch.float32)
+    bps.init(device="cpu")
+    try:
+        model = tl.Llama(cfg, device="cpu",
+                         params=tl.params_from_jax(params, device="cpu"))
+        step = make_ps_train_step(
+            lambda b: tl.loss_fn(model.params(), b, cfg),
+            torch.optim.SGD(model.parameters(), lr=DP_LR, momentum=DP_MU),
+            model.params())
+        batch = {"tokens": torch.from_numpy(dp_tokens()[1:2])}
+        out = {"losses": np.array([float(step(batch))
+                                   for _ in range(DP_STEPS)]),
+               "keys": np.array(sorted(
+                   f"{n}={c.declared_key}" for n, c in
+                   bps.get_state().registry._contexts.items())),
+               "streamed": np.array(step.counters["leaves_streamed"])}
+        for n, p in model.named_parameters():
+            out["p/" + n.replace(".", "/")] = p.detach().numpy().copy()
+        step.close()
+    finally:
+        bps.shutdown()
+    np.savez(out_path, **out)

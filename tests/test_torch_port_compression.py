@@ -41,7 +41,8 @@ def test_registry_onebit_and_not_yet_ported():
     st = make_compressor({"compressor": "onebit", "ef": "vanilla",
                           "momentum": "nesterov"}, 100)
     assert st.use_ef and st.momentum_mu == 0.9 and st.codec.scaled
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # lossless is a host (PS) tier codec only, as in the JAX package
+    with pytest.raises(ValueError, match="unknown compressor"):
         make_compressor({"compressor": "lossless"}, 100)
     rk = make_compressor({"compressor": "randomk", "k": "0.1",
                           "seed": "3"}, 100).codec

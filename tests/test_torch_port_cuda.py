@@ -772,6 +772,122 @@ def test_cross_barrier_poller_updates_on_the_params_card(dev, monkeypatch):
 
 
 # --------------------------------------------------------------------- #
+# cross-barrier staleness in the PS step on the card
+# --------------------------------------------------------------------- #
+
+def test_a_leaf_carried_and_landed_in_the_next_step_on_the_card(
+        dev, monkeypatch):
+    """Staleness 1 on the card, a slowed and throttled server, the keys
+    submitted after the backward: the weights (the carry-eligible back
+    half) are carried out of every odd step, and every even step waits
+    for its replies before its drain, so there they land twice: the
+    carried round, then their own, two copies into one ``p.grad``, each
+    followed by the leaf's optimizer step. A spin on the compute stream
+    before each carried optimizer step keeps its read of ``p.grad``
+    pending while the second copy is issued: a copy that did not wait
+    for it would overwrite the gradient under it. The parameters equal,
+    bit for bit, plain local Adam steps that apply each carried leaf's
+    update one step late, as recorded."""
+    import time
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import mlp
+    from byteps_tpu_torch.native import build
+    from byteps_tpu_torch.training import make_ps_train_step
+    from byteps_tpu_torch.training.optim import make_leaf_apply
+    from _torch_port_ps_util import _ps_env, ps_server
+
+    bounded(build.build_ps, timeout=240)
+    cfg = mlp.MLPConfig(in_dim=64, hidden=(256, 256, 256), n_classes=10)
+    init = mlp.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rs = np.random.RandomState(0)
+    batch = {"x": torch.from_numpy(rs.rand(32, 64).astype(np.float32)).to(
+        dev), "y": torch.from_numpy(rs.randint(0, 10, 32)).to(dev)}
+
+    def fresh():
+        model = mlp.MLP(cfg, dev, params={k: v.to(dev).clone()
+                                          for k, v in init.items()})
+        return model, torch.optim.Adam(model.parameters(), lr=1e-2)
+
+    for k, v in {"BYTEPS_FUSION_BYTES": "256", "BYTEPS_CROSS_BARRIER": "1",
+                 "BYTEPS_STALENESS": "1", "BYTEPS_CHAOS_SLOW_SERVER": "10",
+                 "BYTEPS_SERVER_THROTTLE_MBPS": "100",
+                 "BYTEPS_STREAM_EXPORT": "0"}.items():
+        monkeypatch.setenv(k, v)
+    model, opt = fresh()
+    at = {"step": 0, "carry": False}
+    with ps_server() as port:
+        _ps_env(monkeypatch, port)
+        bps.init(device=dev)
+        try:
+            step = make_ps_train_step(
+                lambda b: mlp.loss_fn(model.params(), b, cfg), opt,
+                model.params())
+            apply, apply_carry = step._leaf_apply.step, step._apply_carry
+            drain = step._drain
+
+            def held_back(p):
+                if at["carry"]:
+                    torch.cuda._sleep(1_000_000_000)    # ~0.5 s
+                apply(p)
+
+            def carried(*a):
+                at["carry"] = True
+                try:
+                    return apply_carry(*a)
+                finally:
+                    at["carry"] = False
+
+            def drain_after_the_replies(*a):
+                if at["step"] % 2 == 0:
+                    time.sleep(0.3)
+                return drain(*a)
+
+            step._leaf_apply.step = held_back
+            step._apply_carry = carried
+            step._drain = drain_after_the_replies
+
+            def run():
+                out = []
+                for i in range(8):
+                    at["step"] = i
+                    step(batch)
+                    out.append(step.counters["carried"])
+                step.flush()
+                return out
+
+            schedule = bounded(run)
+            step.close()
+        finally:
+            bps.shutdown()
+    again = [set(a) - set(b) for a, b in zip(schedule, schedule[1:])]
+    assert any(again), schedule     # a leaf carried, then landed twice
+    ref, ref_opt = fresh()
+    leaf = make_leaf_apply(ref_opt)
+    params = dict(ref.named_parameters())
+    late = {}
+    for names in schedule:
+        ref.zero_grad(set_to_none=True)
+        mlp.loss_fn(ref.params(), batch, cfg).backward()
+        grads = {n: p.grad.clone() for n, p in params.items()}
+        for n, g in late.items():
+            params[n].grad = g
+            leaf.step(params[n])
+        late = {}
+        for n, p in params.items():
+            if "grad/" + n in names:
+                late[n] = grads[n]
+            else:
+                p.grad = grads[n]
+                leaf.step(p)
+    for n, g in late.items():
+        params[n].grad = g
+        leaf.step(params[n])
+    for n, p in model.named_parameters():
+        assert torch.equal(p, params[n]), (n, schedule)
+
+
+# --------------------------------------------------------------------- #
 # the model zoo on the card
 # --------------------------------------------------------------------- #
 

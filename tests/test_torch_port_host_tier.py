@@ -4,7 +4,8 @@ COMPRESS and DECOMPRESS stages) against the JAX package.
 
 - two rounds of leaves split into ragged 8192-byte partitions (their
   tails and a small leaf under the 2048-byte threshold travel dense)
-  under onebit, randomk and dithering, each with error feedback, push
+  under onebit, randomk and dithering, each with error feedback,
+  lossless, and dithering at s = 3 on the varint wire, push
   the JAX host tier's wire bytes, key by key, bit for bit, and get its
   aggregate;
 - two train steps of Llama ``tiny()`` in fp32 under onebit + EF match
@@ -28,7 +29,10 @@ from test_torch_port_ps import jax_uses_port_lib, ps_lib  # noqa: F401
 
 KWS = [{"compressor": "onebit", "ef": "vanilla"},
        {"compressor": "randomk", "k": "0.05", "seed": "6", "ef": "vanilla"},
-       {"compressor": "dithering", "seed": "4", "ef": "vanilla"}]
+       {"compressor": "dithering", "seed": "4", "ef": "vanilla"},
+       {"compressor": "lossless"},
+       {"compressor": "dithering", "s": "3", "seed": "4", "ef": "vanilla",
+        "index_coding": "varint"}]
 
 
 def _record(client, wires):
@@ -92,7 +96,8 @@ def _port_host_rounds(monkeypatch, kw):
     return wires, outs
 
 
-@pytest.mark.parametrize("kw", KWS, ids=lambda kw: kw["compressor"])
+@pytest.mark.parametrize("kw", KWS, ids=lambda kw: kw["compressor"] + (
+    "-varint" if "index_coding" in kw else ""))
 def test_host_codec_rounds_push_the_jax_wire_bytes(kw, ps_lib, monkeypatch,
                                                    jax_uses_port_lib):
     j_wires, j_outs = _jax_host_rounds(monkeypatch, kw)

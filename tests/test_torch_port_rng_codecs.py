@@ -284,15 +284,6 @@ def test_port_host_codecs_write_the_jax_wire(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"compressor": "lossless", "ef": "vanilla"}, {"compressor": "lossless"},
-    {"compressor": "dithering", "index_coding": "varint"},
-], ids=lambda kw: "-".join(kw.values()))
-def test_host_codecs_not_yet_ported_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        thost.make_host_codec(kw, 10)
-
-
-@pytest.mark.parametrize("kw", [
     {"compressor": "onebit", "ef": "vanilla"},
     {"compressor": "randomk", "k": "16", "seed": "3", "ef": "vanilla"},
     {"compressor": "dithering", "s": "32", "seed": "9", "ef": "vanilla"},

@@ -80,7 +80,9 @@ def test_host_topk_bytes_match_the_jax_host_codec(kind, n, k):
     assert t.wire_bytes() == j.wire_bytes() == 8 * k
 
 
-def test_topk_registry_and_selection_order():
+def test_topk_registry_and_selection_order(monkeypatch):
+    # the numpy host codec (the default is the C++ one, native.py)
+    monkeypatch.setenv("BYTEPS_NATIVE_CODEC", "0")
     st = make_compressor({"compressor": "topk", "k": "0.1", "ef": "vanilla",
                           "approx": "1"}, 100)
     assert isinstance(st.codec, TopkCodec)

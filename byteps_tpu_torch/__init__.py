@@ -29,6 +29,15 @@ servers, and ``rank()``/``size()`` are global. ``byteps_tpu_torch.torch``
 is BytePS's PyTorch adapter (``DistributedOptimizer`` hooks,
 ``DistributedDataParallel``, ``CrossBarrier``).
 
+The PS fleet is elastic (``core/elastic.py``): ``add_server(address)``
+joins a server started at run time and moves keys onto it,
+``drain_server(index)`` moves a server's keys to the others and retires
+it, and ``suspend()``/``resume(num_workers, num_servers)`` reconnect with
+another topology and the same keys. With the servers run under
+BYTEPS_ENABLE_ASYNC=1, ``training.make_async_ps_train_step`` trains
+asynchronously: each worker pushes its weight delta and pulls the
+server's weights, with no barrier of the workers.
+
 The package imports ``torch`` and numpy and nothing of JAX.
 """
 
@@ -45,7 +54,8 @@ from .core.state import get_state
 from .core.types import DataType
 from .ops.push_pull import broadcast, push_pull
 
-__all__ = ["init", "shutdown", "rank", "size", "local_rank", "local_size",
+__all__ = ["init", "shutdown", "suspend", "resume", "add_server",
+           "drain_server", "rank", "size", "local_rank", "local_size",
            "push_pull", "broadcast", "declare_tensor", "push_pull_async",
            "push_pull_rowsparse", "push_pull_rowsparse_async", "poll",
            "synchronize"]
@@ -67,6 +77,38 @@ def init(device=None, store=None, rank: Optional[int] = None,
 
 def shutdown() -> None:
     get_state().shutdown()
+
+
+def suspend() -> None:
+    """Elastic suspend: close the PS client and leave the servers running;
+    the declared keys, the handle table and the ``dp`` group stay. A
+    round still in flight fails, and its handle raises."""
+    get_state().suspend()
+
+
+def resume(num_workers: int, num_servers: int,
+           global_rank: Optional[int] = None) -> None:
+    """Elastic resume with a new topology: the declared keys re-partition
+    in their order against ``num_servers`` (``core/state.py``)."""
+    get_state().resume(num_workers, num_servers, global_rank)
+
+
+def add_server(address: Optional[str] = None) -> int:
+    """Join a server started at run time: connect, the JOIN_PROBE
+    handshake, then keys move onto it (``core/elastic.py``). ``address``
+    defaults to ``scheduler_uri:scheduler_port + index``. Returns its
+    index. Call between steps; every worker of a fleet joins the same
+    server at the same step boundary."""
+    from .core import elastic
+    return elastic.join_server(get_state().require(), address)
+
+
+def drain_server(server: int) -> list:
+    """Move every key of server ``server`` to the others and retire it
+    from assignment; returns the moved keys. The server process keeps
+    running: stop it at leisure. Call between steps, on every worker."""
+    from .core import elastic
+    return elastic.drain_server(get_state().require(), server)
 
 
 def rank() -> int:

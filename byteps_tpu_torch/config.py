@@ -17,14 +17,16 @@ BYTEPS_FUSED_PUSHPULL, BYTEPS_WIRE_RETRY and BYTEPS_WIRE_BACKOFF_MS.
 Cross-barrier bounded staleness reads BYTEPS_CROSS_BARRIER and
 BYTEPS_STALENESS (byteps_tpu/config.py:188-189, 355-356), and the host
 codecs BYTEPS_NATIVE_CODEC (``native_codec_on``; the server reads the
-first two itself).
+first two itself). The elastic fleet and the asynchronous step read
+BYTEPS_FORCE_DISTRIBUTED, BYTEPS_RETIRED_SERVERS and BYTEPS_ENABLE_ASYNC
+(byteps_tpu/config.py:73, 205, 223).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 # Default partition size: 4 MB (global.cc:42,134-144).
 DEFAULT_PARTITION_BYTES = 4096000
@@ -113,6 +115,18 @@ class Config:
     cross_barrier: bool = False           # BYTEPS_CROSS_BARRIER
     staleness: int = 1                    # BYTEPS_STALENESS, 0..8
 
+    # --- the elastic fleet and asynchronous training ---
+    # the server folds each push straight into the weights it holds and
+    # answers every pull at once (server.cc:315-319); the workers run
+    # ``make_async_ps_train_step``
+    enable_async: bool = False            # BYTEPS_ENABLE_ASYNC
+    # server indices retired from assignment (drained, evicted, or a
+    # join whose probe failed), comma-separated: ``core/elastic.py``
+    # exports them so that a suspend/resume keeps them retired, since
+    # the positional host list and the client's connections cannot
+    # shrink
+    retired_servers: Tuple[int, ...] = ()  # BYTEPS_RETIRED_SERVERS
+
     # --- server ---
     server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
 
@@ -147,6 +161,11 @@ class Config:
             wire_backoff_ms=float(_env_str("BYTEPS_WIRE_BACKOFF_MS", "50")),
             cross_barrier=_env_bool("BYTEPS_CROSS_BARRIER", False),
             staleness=max(0, min(8, _env_int("BYTEPS_STALENESS", 1))),
+            enable_async=_env_bool("BYTEPS_ENABLE_ASYNC", False),
+            retired_servers=tuple(
+                int(tok) for tok in
+                os.environ.get("BYTEPS_RETIRED_SERVERS", "").split(",")
+                if tok.strip()),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
         )
 

@@ -21,10 +21,21 @@ on one server:
 - crash migration (``migrate_server``): a dead server's partitions move
   whole (a row-sparse key keeps its row-aligned table) to the
   least-loaded survivors, the same way on every worker, and the dead
-  server takes no new key.
+  server takes no new key;
+- the elastic fleet (byteps_tpu/core/registry.py:87-107, 249-288,
+  457-629): ``add_server`` grows the table by one assignable server,
+  ``plan_join`` moves the earliest-declared partitions of the most-loaded
+  servers onto it up to its fair share, ``plan_drain`` moves every
+  partition of a server to the least-loaded survivors (the move engine of
+  ``migrate_server``) and retires it, and ``rebalance`` applies such a
+  ``RebalancePlan`` only at the routing version it was computed at;
+  ``retire_server`` masks a slot that never took a key; ``redeclare_all``
+  re-partitions every declaration in order against a resumed topology.
+  Retired servers come in from ``Config.retired_servers``. Every plan is
+  computed from the declarations and loads alone, so a worker of either
+  package with the same declarations computes the same plan.
 
-Not yet ported: the elastic join and drain plans (``plan_join``,
-``plan_drain``, ``rebalance``) and the colocated mixed mode.
+Not ported: the colocated mixed mode and the codec plane's plan state.
 """
 
 from __future__ import annotations
@@ -94,6 +105,24 @@ class RebalanceMove:
     length: int
 
 
+@dataclasses.dataclass(frozen=True)
+class RebalancePlan:
+    """A join's or a drain's routing change, fenced by the routing
+    version it was computed at (byteps_tpu/core/registry.py:87); a death
+    moves keys through ``migrate_server``, on the same move engine.
+    ``retire``: the server leaves the assignable set once the moves apply
+    (a drain)."""
+
+    kind: str            # "join" | "drain"
+    server: int          # the joining or draining server
+    base_version: int
+    moves: tuple         # RebalanceMove, in declaration order
+    retire: bool = False
+
+    def keys(self) -> List[int]:
+        return [m.key for m in self.moves]
+
+
 class TensorRegistry:
     """Thread-safe name -> TensorContext table with stable key assignment.
     ``_contexts`` keeps declaration order, the order every migration plan
@@ -110,10 +139,12 @@ class TensorRegistry:
         # staging arena (core/arena.py): re-partitioning a tensor makes
         # its staged slot sizes stale, so the registry drops them
         self._arena = None
-        # servers that migrate_server declared dead, out of every later
-        # assignment, and the routing fence, bumped by each migration
-        # that moved keys
-        self._dead_servers: Set[int] = set()           # guarded-by: _lock
+        # servers out of every later assignment: dead (migrate_server),
+        # drained, or retired unused, and those the config names retired
+        # (a resume carries them); the routing fence, bumped by each
+        # routing change
+        self._dead_servers: Set[int] = set(
+            config.retired_servers)                    # guarded-by: _lock
         self._routing_version = 0                      # guarded-by: _lock
 
     def attach_arena(self, arena) -> None:
@@ -133,6 +164,35 @@ class TensorRegistry:
                 log.debug("declared tensor %s -> key %d", name,
                           ctx.declared_key)
             return ctx
+
+    def get(self, name: str) -> Optional[TensorContext]:
+        with self._lock:
+            return self._contexts.get(name)
+
+    def redeclare_all(self, new_config: Config) -> None:
+        """Elastic resume (global.cc:431-436): every declaration in its
+        order, re-partitioned and re-assigned against the new topology
+        from an empty load table, keeping each row-sparse alignment, so
+        the keys stay every worker's. Death verdicts lapse (a restarted
+        server may take its index again); the config's retired servers
+        stay out. The routing version advances. As in the JAX registry,
+        each context stays marked uninitialized, so its next
+        ``init_tensor`` partitions it once more, in the order the run
+        touches it."""
+        with self._lock:
+            self._config = new_config
+            num = max(1, new_config.num_servers)
+            self._server_load = [0] * num
+            self._dead_servers = {s for s in new_config.retired_servers
+                                  if s < num}
+            self._routing_version += 1
+            for ctx in self._contexts.values():
+                ctx.initialized = False
+                # the load table was reset: the old partitions must not
+                # be subtracted from it
+                ctx.partitions = []
+                if ctx.nbytes:
+                    self._partition_locked(ctx, ctx.nbytes, ctx.align_bytes)
 
     def init_tensor(self, name: str, nbytes: int,
                     dtype: Optional[DataType] = None,
@@ -299,7 +359,7 @@ class TensorRegistry:
             p = parts.get(m.key)
             if p is None or p.server != m.src:
                 raise RuntimeError(
-                    f"migration plan does not match the routing table: "
+                    f"rebalance plan does not match the routing table: "
                     f"key {m.key} expected on server {m.src}, found "
                     f"{'missing' if p is None else p.server}")
         for m in moves:
@@ -308,6 +368,107 @@ class TensorRegistry:
             self._server_load[m.dst] += p.length
             p.server = m.dst
         return [m.key for m in moves]
+
+    # ---- the elastic fleet (byteps_tpu/core/registry.py:457-629) ------ #
+
+    def add_server(self) -> int:
+        """Grow the server table by one assignable server with no load (a
+        join); ``plan_join`` then moves keys onto it. Returns its
+        index."""
+        with self._lock:
+            idx = self._config.num_servers
+            self._config = dataclasses.replace(self._config,
+                                               num_servers=idx + 1)
+            while len(self._server_load) < idx + 1:
+                self._server_load.append(0)
+            # a re-used index does not inherit an earlier death verdict
+            self._dead_servers.discard(idx)
+            return idx
+
+    def retire_server(self, server: int) -> None:
+        """Mask ``server`` out of assignment and move nothing: the slot of
+        a join that failed after the client connected it (the client's
+        table cannot shrink), so that the next join's index aligns."""
+        with self._lock:
+            self._dead_servers.add(server)
+
+    def plan_join(self, new_server: int) -> RebalancePlan:
+        """Move the earliest-declared partitions of the most-loaded other
+        server (the lowest index on a tie) onto ``new_server`` until it
+        holds at least its fair share (the alive servers' bytes over
+        their count). Pure: ``rebalance`` applies it."""
+        with self._lock:
+            num = max(1, self._config.num_servers)
+            _check(0 <= new_server < num, f"plan_join: server {new_server} "
+                   f"out of range [0, {num})")
+            _check(new_server not in self._dead_servers,
+                   f"plan_join: server {new_server} is retired")
+            alive = [s for s in range(num) if s not in self._dead_servers]
+            loads = list(self._server_load)
+            target = sum(loads[s] for s in alive) // max(1, len(alive))
+            donors = [s for s in alive if s != new_server]
+            moves: List[RebalanceMove] = []
+            moved: set = set()
+            while donors and loads[new_server] < target:
+                donor = max(donors, key=lambda s: (loads[s], -s))
+                cand = next((p for _, p in self._partitions_locked()
+                             if p.server == donor and p.key not in moved),
+                            None)
+                if cand is None:
+                    break
+                moves.append(RebalanceMove(cand.key, donor, new_server,
+                                           cand.length))
+                moved.add(cand.key)
+                loads[donor] -= cand.length
+                loads[new_server] += cand.length
+            return RebalancePlan("join", new_server, self._routing_version,
+                                 tuple(moves))
+
+    def plan_drain(self, server: int) -> RebalancePlan:
+        """Every partition of ``server`` to the least-loaded survivor, as
+        ``migrate_server`` moves a dead server's, and the server retired.
+        Pure: ``rebalance`` applies it. Raises for a retired server and
+        for the last survivor."""
+        with self._lock:
+            num = max(1, self._config.num_servers)
+            _check(0 <= server < num, f"plan_drain: server {server} out of "
+                   f"range [0, {num})")
+            if server in self._dead_servers:
+                raise RuntimeError(
+                    f"plan_drain: server {server} is already retired")
+            alive = [s for s in range(num)
+                     if s not in self._dead_servers and s != server]
+            if not alive:
+                raise RuntimeError(f"cannot drain server {server}: no other "
+                                   f"surviving server remains")
+            return RebalancePlan("drain", server, self._routing_version,
+                                 tuple(self._moves_off_locked(server, alive)),
+                                 retire=True)
+
+    def rebalance(self, plan: RebalancePlan) -> List[int]:
+        """Apply ``plan`` if the routing table is still at its version (a
+        plan computed before another change is refused: recompute it),
+        retire a drained server, and advance the version, even with no
+        move (the assignable set changed). Returns the moved keys, whose
+        init cache the caller drops."""
+        with self._lock:
+            if plan.base_version != self._routing_version:
+                raise RuntimeError(
+                    f"stale rebalance plan: computed at routing_version "
+                    f"{plan.base_version}, table is now at "
+                    f"{self._routing_version} — recompute the plan")
+            num = max(1, self._config.num_servers)
+            if not 0 <= plan.server < num:
+                raise ValueError(f"rebalance plan names server "
+                                 f"{plan.server}, out of range [0, {num})")
+            moved = self._apply_moves_locked(list(plan.moves))
+            if plan.retire:
+                self._dead_servers.add(plan.server)
+            self._routing_version += 1
+            log.info("registry: rebalance kind=%s server=%d moved=%d "
+                     "(routing_version=%d)", plan.kind, plan.server,
+                     len(moved), self._routing_version)
+            return moved
 
     def migrate_server(self, dead_server: int,
                        keys: Optional[set] = None) -> List[int]:

@@ -41,7 +41,8 @@ tensorflow/ops.cc:155-158), or the measured production order of the
 streamed export (``production_priority``), pinned per key at its first
 submission.
 
-Not yet ported: rowsparse submission and the codec plane.
+``keys_idle`` is the quiescence that the elastic join and drain
+(``core/elastic.py``) wait for. Not yet ported: the codec plane.
 """
 
 from __future__ import annotations
@@ -147,6 +148,15 @@ class ScheduledQueue:
             else:
                 self._inflight.pop(task.key, None)
             self._cv.notify_all()
+
+    def keys_idle(self, keys) -> bool:
+        """True when none of ``keys`` is queued or in flight
+        (byteps_tpu/core/scheduler.py:203)."""
+        ks = set(keys)
+        with self._cv:
+            if ks & self._inflight.keys():
+                return False
+            return not any(item[1] in ks for item in self._heap)
 
     def stop(self) -> None:
         """Stop, and fail the tasks that never ran."""
@@ -426,6 +436,16 @@ class PipelineScheduler:
         self._dispatcher = threading.Thread(
             target=self._dispatch, name="bps-sched-dispatch", daemon=True)
         self._dispatcher.start()
+
+    def keys_idle(self, keys) -> bool:
+        """No queued, in-flight or backoff-parked task of any of ``keys``:
+        the quiescence the elastic join and drain wait for before the
+        routing moves under them (byteps_tpu/core/scheduler.py:598)."""
+        ks = set(keys)
+        with self._retry_mu:
+            if any(t.key in ks for _, t in self._pending_retries.values()):
+                return False
+        return self._queue.keys_idle(ks)
 
     def _next_round(self, ctx: TensorContext) -> int:
         with self._prio_mu:

@@ -24,6 +24,16 @@ root sends SHUTDOWN, after a barrier of the group. The scheduler gets the
 registry, whose routing its failover migrates, and the wire knobs
 (BYTEPS_FUSED_PUSHPULL, BYTEPS_WIRE_RETRY, BYTEPS_WIRE_BACKOFF_MS); the
 flight recorder (``core/flight.py``) is armed afresh for each ``init``.
+
+Elastic suspend and resume (byteps_tpu/core/state.py:690-741):
+``suspend`` stops the scheduler and closes the client without stopping
+the servers, and keeps the registry's declarations, the handle table
+and the ``dp`` group; ``resume(num_workers, num_servers, global_rank)``
+writes the new topology into the environment (checking
+BYTEPS_SERVER_HOSTS first), connects a new client and scheduler, and
+re-partitions every declaration in order against the new server count
+(``registry.redeclare_all``), so the keys stay every worker's. A round
+still queued or in flight at the suspend fails, and its handle raises.
 """
 
 from __future__ import annotations
@@ -81,9 +91,13 @@ class GlobalState:
         self.registry = None
         self.arena = None
         self.scheduler = None
-        # the int handles of the asynchronous ops, in every mode
+        # the int handles of the asynchronous ops, in every mode; a
+        # suspend keeps them, so a handle from before it raises its error
+        # and its id is never handed out again
         self.handles = None
         self._version: Dict[str, int] = {}
+        # between suspend() and resume()
+        self.suspended = False
 
     @classmethod
     def get(cls) -> "GlobalState":
@@ -97,6 +111,9 @@ class GlobalState:
              world_size: Optional[int] = None,
              backend: Optional[str] = None) -> None:
         with self._lock:
+            if self.suspended:
+                raise RuntimeError("init() while suspended: call resume(), "
+                                   "or shutdown() first")
             if self.initialized:
                 log.warning("init() called while already initialized; "
                             "call shutdown() first to re-initialize")
@@ -145,6 +162,7 @@ class GlobalState:
                 self._init_ps()
             except BaseException:
                 self._stop_ps()
+                self.registry = None
                 dist.destroy_process_group()
                 raise
             self.initialized = True
@@ -157,6 +175,9 @@ class GlobalState:
         return self.config.num_servers > 0 and self.config.role == "worker"
 
     def _init_ps(self) -> None:
+        """Connect the PS client and build what rides on it. A registry
+        kept by ``suspend`` re-partitions its declarations against the
+        new topology instead of starting empty."""
         cfg = self.config
         if not self._ps_mode():
             return
@@ -166,9 +187,12 @@ class GlobalState:
         from .registry import TensorRegistry
         from .scheduler import PipelineScheduler
         self.arena = StagingArena(pin=self.device.type == "cuda")
-        self.registry = TensorRegistry(cfg)
+        if self.registry is None:
+            self.registry = TensorRegistry(cfg)
+            self._version = {}
+        else:
+            self.registry.redeclare_all(cfg)
         self.registry.attach_arena(self.arena)
-        self._version = {}
         flight.configure()
         self.ps_client = connect_from_config(cfg)
         self.scheduler = PipelineScheduler(
@@ -181,15 +205,72 @@ class GlobalState:
         sends the PS SHUTDOWN."""
         return self.local_rank == 0
 
-    def _stop_ps(self) -> None:
+    def _stop_ps(self, shutdown_servers: bool = True) -> None:
+        """Stop the scheduler and close the client (the root's SHUTDOWN
+        to the servers with ``shutdown_servers``); the registry stays."""
         if self.scheduler is not None:
             self.scheduler.stop()
         if self.ps_client is not None:
-            self.ps_client.close(shutdown_servers=self.is_root)
+            self.ps_client.close(
+                shutdown_servers=shutdown_servers and self.is_root)
         if self.arena is not None:
             self.arena.reset()
-        self.ps_client = self.scheduler = None
-        self.registry = self.arena = None
+        self.ps_client = self.scheduler = self.arena = None
+
+    def suspend(self) -> None:
+        """Elastic suspend (operations.cc:114-119): stop the scheduler,
+        close the client and leave the servers running; the declarations,
+        the handle table and the ``dp`` group stay for ``resume``."""
+        with self._lock:
+            if not self.initialized:
+                raise RuntimeError("suspend() before init()")
+            self._stop_ps(shutdown_servers=False)
+            self.initialized = False
+            self.suspended = True
+
+    def resume(self, num_workers: int, num_servers: int,
+               global_rank: Optional[int] = None) -> None:
+        """Elastic resume with a new topology (common/__init__.py:75-81,
+        byteps_tpu/core/state.py:712-741). An explicit BYTEPS_SERVER_HOSTS
+        must name at least ``num_servers`` servers, checked before any
+        variable changes (a refused resume leaves the environment as it
+        was), and is cut to the first ``num_servers`` when shrinking; grow
+        a live fleet with ``add_server`` instead. Then DMLC_NUM_WORKER,
+        DMLC_NUM_SERVER and BYTEPS_GLOBAL_RANK are set, a new client and
+        scheduler connect, and every declaration is re-partitioned in
+        order (BYTEPS_RETIRED_SERVERS, exported by ``core/elastic.py``,
+        stays retired)."""
+        with self._lock:
+            if not self.suspended:
+                raise RuntimeError("resume() without a suspend()")
+            env = os.environ
+            hosts = env.get("BYTEPS_SERVER_HOSTS", "")
+            addrs = [h.strip() for h in hosts.split(",") if h.strip()]
+            if hosts and num_servers > 0 and len(addrs) < num_servers:
+                raise ValueError(
+                    f"resume(num_servers={num_servers}) but "
+                    f"BYTEPS_SERVER_HOSTS names only {len(addrs)} "
+                    f"server(s) — set the full host list before resuming, "
+                    f"or join live servers with add_server()")
+            env["DMLC_NUM_WORKER"] = str(num_workers)
+            env["DMLC_NUM_SERVER"] = str(num_servers)
+            if hosts and num_servers > 0 and len(addrs) > num_servers:
+                env["BYTEPS_SERVER_HOSTS"] = ",".join(addrs[:num_servers])
+            if global_rank is not None:
+                env["BYTEPS_GLOBAL_RANK"] = str(global_rank)
+            refresh_level()
+            self.config = dataclasses.replace(
+                Config.from_env(), local_rank=self.local_rank,
+                local_size=self.local_size)
+            try:
+                self._init_ps()
+            except BaseException:
+                self._stop_ps(shutdown_servers=False)
+                raise
+            self.initialized = True
+            self.suspended = False
+            log.info("resume: %d worker(s), PS client of %d server(s)",
+                     num_workers, num_servers)
 
     def rank(self) -> int:
         """The global rank (byteps_tpu/core/state.py:759-767):
@@ -214,7 +295,7 @@ class GlobalState:
 
     def shutdown(self) -> None:
         with self._lock:
-            if not self.initialized:
+            if not (self.initialized or self.suspended):
                 return
             if self.ps_client is not None and self.local_size > 1:
                 # every rank's rounds are done before the root's SHUTDOWN
@@ -222,8 +303,8 @@ class GlobalState:
             self._stop_ps()
             if dist.is_initialized():
                 dist.destroy_process_group()
-            self.group = self.handles = None
-            self.initialized = False
+            self.group = self.handles = self.registry = None
+            self.initialized = self.suspended = False
 
     def require(self) -> "GlobalState":
         if not self.initialized:

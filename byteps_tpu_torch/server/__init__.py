@@ -1,6 +1,9 @@
 """The parameter server: the native C++ server of ``native/ps.cc``.
 
-Port of byteps_tpu/server/__init__.py, trimmed to ``run_server``. The
+Port of byteps_tpu/server/__init__.py, trimmed to ``run_server``, which
+runs the server in asynchronous mode under BYTEPS_ENABLE_ASYNC (each
+push folded into the weights the server holds, every pull answered at
+once; ``training.make_async_ps_train_step``). The
 server is ``ps.cc`` itself (engine threads, per-key stores, the
 aggregation rounds, the compressed tier that decompresses, sums and
 re-compresses); this module builds it with g++ at first use
@@ -40,11 +43,12 @@ def run_server(port: Optional[int] = None,
         port = config.scheduler_port + int(
             os.environ.get("BYTEPS_SERVER_ID", "0"))
     lib = _bind(ctypes.CDLL(build_ps()))
-    # synchronous rounds, no server-side scheduling, no debug key: the
-    # modes the port's train step runs
+    # synchronous rounds (asynchronous under BYTEPS_ENABLE_ASYNC), no
+    # server-side scheduling, no debug key: the modes the port's train
+    # steps run
     srv = lib.bps_server_create_dbg(
         port, max(1, config.num_workers), config.server_engine_threads,
-        0, 0, -1)
+        1 if config.enable_async else 0, 0, -1)
     if not srv:
         raise RuntimeError(f"failed to create the PS server on port {port}")
     try:

@@ -5,6 +5,11 @@ PS train step calls: the init push of a key and its init cache, the
 in-band codec install, the fused PUSHPULL with its completion reactor,
 the two-op path's asynchronous PUSH and blocking PULL, the per-server
 death probe that the scheduler's failover reads, the barrier and close;
+the elastic fleet's control ops (``add_server`` grows the connection
+table at run time, ``join_probe`` and ``drain_req`` over the server's
+JOIN_PROBE and DRAIN_REQ, byteps_tpu/server/client.py:458-692); the
+asynchronous mode's ``init_weights`` and ``push_delta_pull_weights``
+(:1128-1148);
 and ``get_or_init_ctx``/``ps_round_trip``, a host tensor's registry entry
 and its blocking round trip, ``rowsparse_submit``, the one row-sparse
 submission, and ``build_rowsparse_payload``, the one producer of the
@@ -98,6 +103,13 @@ def _load_lib() -> ctypes.CDLL:
     lib.bps_client_cq_abort.argtypes = [vp]
     lib.bps_client_comp_init.restype = i32
     lib.bps_client_comp_init.argtypes = [vp, i32, u64, ctypes.c_char_p]
+    # a control pull (JOIN_PROBE, DRAIN_REQ): server, op, reply buffer,
+    # its capacity and a timeout in seconds; returns the reply's length
+    lib.bps_client_ctrl.restype = i32
+    lib.bps_client_ctrl.argtypes = [vp, i32, i32, vp, u32, i32]
+    # a server connected at run time: returns its index
+    lib.bps_client_add_server.restype = i32
+    lib.bps_client_add_server.argtypes = [vp, ctypes.c_char_p]
     lib.bps_client_barrier.restype = i32
     lib.bps_client_barrier.argtypes = [vp]
     lib.bps_client_shutdown.restype = i32
@@ -225,7 +237,8 @@ class PSClient:
         if not self._handle:
             raise RuntimeError(
                 f"failed to connect to PS servers {servers!r}")
-        self._servers = list(servers)
+        # server addresses by index; add_server appends
+        self._servers = list(servers)  # guarded-by: _lock
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=num_threads, thread_name_prefix="bps-init")
         self._closed = False
@@ -243,11 +256,74 @@ class PSClient:
         self._reactor: Optional[threading.Thread] = None
         self._reactor_started = False  # guarded-by: _lock
 
+    def _num_servers(self) -> int:
+        with self._lock:
+            return len(self._servers)
+
     def _check_server(self, server: int) -> None:
         # the native connection table is indexed unchecked
-        if not 0 <= server < len(self._servers):
+        n = self._num_servers()
+        if not 0 <= server < n:
             raise ValueError(f"server index {server} out of range "
-                             f"[0, {len(self._servers)})")
+                             f"[0, {n})")
+
+    # ---- the elastic fleet's control ops ------------------------------ #
+
+    @property
+    def servers(self) -> List[str]:
+        """The server addresses, by index (``add_server`` appends)."""
+        with self._lock:
+            return list(self._servers)
+
+    def _ctrl(self, server: int, op: str, cap: int,
+              timeout_s: int = 5) -> Optional[bytes]:
+        """One control pull with its own timeout (a wedged server costs
+        ``timeout_s``, not the data plane's); the reply, or None when the
+        request failed."""
+        self._check_server(server)
+        if self._closed:
+            raise RuntimeError("control pull on a closed PSClient")
+        buf = (ctypes.c_uint8 * cap)()
+        n = self._lib.bps_client_ctrl(self._handle, server,
+                                      WIRE_CTRL_OPS[op], buf, cap, timeout_s)
+        return None if n < 0 else bytes(buf[:n])
+
+    def add_server(self, address: str) -> int:
+        """Connect a server started at run time and return its index, the
+        earlier server count (the native side publishes its connections
+        at once, so traffic to the others never sees a half-built table).
+        ``join_probe`` it before any key routes there."""
+        if self._closed:
+            raise RuntimeError("add_server on a closed PSClient")
+        idx = self._lib.bps_client_add_server(self._handle, address.encode())
+        if idx < 0:
+            raise RuntimeError(
+                f"failed to connect new PS server at {address!r}")
+        with self._lock:
+            while len(self._servers) <= idx:
+                self._servers.append(address)
+            self._servers[idx] = address
+        log.info("PS client: joined server %d at %s", idx, address)
+        return idx
+
+    def join_probe(self, server: int, timeout_s: int = 5) -> Optional[dict]:
+        """The join handshake (JOIN_PROBE): ``{"num_workers",
+        "draining"}`` of ``server``, or None where it does not answer."""
+        raw = self._ctrl(server, "JOIN_PROBE", 16, timeout_s)
+        if raw is None or len(raw) != 16:
+            return None
+        nw, draining = struct.unpack("<QQ", raw)
+        return {"num_workers": int(nw), "draining": bool(draining)}
+
+    def drain_req(self, server: int, timeout_s: int = 5) -> Optional[dict]:
+        """The drain's acknowledgement (DRAIN_REQ): the server latches its
+        draining flag and answers ``{"keys_held", "draining"}``, or None.
+        Asked after the keys have moved; it gates nothing."""
+        raw = self._ctrl(server, "DRAIN_REQ", 16, timeout_s)
+        if raw is None or len(raw) != 16:
+            return None
+        held, draining = struct.unpack("<QQ", raw)
+        return {"keys_held": int(held), "draining": bool(draining)}
 
     # ---- per-server health (the failover's probe) --------------------- #
 
@@ -256,12 +332,13 @@ class PSClient:
         TCP EOF of a crashed or killed server, seen by the recv loops
         within milliseconds), or the client is closed; the scheduler then
         migrates that server's keys (byteps_tpu/server/client.py:601)."""
-        if self._closed or not 0 <= server < len(self._servers):
+        if self._closed or not 0 <= server < self._num_servers():
             return True
         return bool(self._lib.bps_client_server_dead(self._handle, server))
 
     def dead_servers(self) -> List[int]:
-        return [s for s in range(len(self._servers)) if self.server_dead(s)]
+        return [s for s in range(self._num_servers())
+                if self.server_dead(s)]
 
     def invalidate_init(self, keys) -> None:
         """Forget that ``keys`` were init-pushed: a migrated key has no
@@ -333,6 +410,76 @@ class PSClient:
                     target=_run_into, daemon=True, name="bps-init-async",
                     args=(fut, self.init_key, p.server, p.key,
                           np.zeros(p.length, np.uint8), cmd)).start()
+
+    # ---- asynchronous training (BYTEPS_ENABLE_ASYNC) ------------------- #
+
+    def uninited(self, ctx: TensorContext) -> list:
+        """The partitions of ``ctx`` this client has not init-pushed at
+        their length: all of them on a new client, and those of a key
+        that a join or a drain moved (``invalidate_init``)."""
+        with self._lock:
+            return [p for p in ctx.partitions
+                    if self._inited_keys.get(p.key) != p.length]
+
+    def init_weights(self, ctx: TensorContext, flat: np.ndarray) -> None:
+        """Seed the async server's weights of ``ctx`` with ``flat``: the
+        init push, with its values, of every partition not yet
+        init-pushed (the first worker's wins; server.cc:266-295,
+        434-436). Blocks until every worker has made its init push, the
+        per-key barrier."""
+        cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, ctx.dtype)
+        view = np.ascontiguousarray(flat).reshape(-1).view(np.uint8)
+        missing = self.uninited(ctx)
+        futures = [self._pool.submit(self.init_key, p.server, p.key,
+                                     view[p.offset:p.offset + p.length], cmd)
+                   for p in missing]
+        for f in futures:
+            f.result()
+        with self._lock:
+            self._inited_keys.update({p.key: p.length for p in missing})
+
+    def push_delta_pull_weights(self, ctxs: Sequence[TensorContext],
+                                deltas: Sequence[np.ndarray]
+                                ) -> List[np.ndarray]:
+        """Asynchronous data parallelism (server.cc:315-319): push this
+        worker's weight delta of each key, which the server adds into its
+        weights with no barrier of the workers, and return the weights it
+        then holds, one array a key. Every partition of every key goes
+        out at once as one fused PUSHPULL, which the server answers after
+        the partition's fold, so the reply holds this delta; the call
+        waits once for them all."""
+        if self._closed:
+            raise RuntimeError("push_delta_pull_weights on a closed "
+                               "PSClient")
+        done = threading.Semaphore(0)
+        errors: List[Optional[Exception]] = []
+
+        def on_done(got: int, err, p) -> None:
+            if err is None and got != p.length:
+                err = RuntimeError(f"weights reply for key={p.key} is "
+                                   f"{got} bytes, expected {p.length}")
+            errors.append(err)
+            done.release()
+
+        outs, sent = [], 0
+        for ctx, delta in zip(ctxs, deltas, strict=True):
+            delta = np.ascontiguousarray(delta).reshape(-1)
+            out = np.empty_like(delta)
+            outs.append(out)
+            cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, ctx.dtype)
+            src, dst = delta.view(np.uint8), out.view(np.uint8)
+            for p in ctx.partitions:
+                lo, hi = p.offset, p.offset + p.length
+                self.zpushpull_async(p.server, p.key, src[lo:hi],
+                                     dst[lo:hi], cmd,
+                                     lambda g, e, p=p: on_done(g, e, p))
+                sent += 1
+        for _ in range(sent):
+            done.acquire()
+        err = next((e for e in errors if e is not None), None)
+        if err is not None:
+            raise err
+        return outs
 
     def comp_init(self, server: int, key: int, kwargs_wire: str) -> None:
         """Install a server-side codec for ``key`` (the reference's

@@ -10,6 +10,10 @@ adapter (``"grad/"``, ``"ddp_grad/"``, ``"bcast_param/"`` + name,
 ``"broadcast_object/len"``), so a fleet may mix workers of both.
 
 - ``init``/``shutdown``/``rank``/``size``/``local_rank``/``local_size``;
+- ``suspend``/``resume``, the elastic pair: the hooks of a
+  ``DistributedOptimizer`` or ``DistributedDataParallel`` made before a
+  suspend push to the resumed fleet, and a round started before it
+  raises where it is waited for;
 - the async ops on the package's int handles: ``push_pull_async``,
   ``poll``, ``synchronize`` (the aggregate written back into the
   tensor), ``push_pull``, ``push_pull_inplace``;
@@ -36,9 +40,9 @@ travels as its bits (BFLOAT16, summed through f32 by the server), with
 no f32 round trip.
 
 One process per PS worker (a ``dp`` group of one); a larger group
-raises (ROADMAP.md §A). Without servers and with one worker everything
-is the identity (``size() == 1``). Not ported: ``suspend``/``resume``
-(elastic, ROADMAP.md §A item 8).
+raises, as the JAX adapter's hooks also submit each gradient straight
+from its one process. Without servers and with one worker everything is
+the identity (``size() == 1``).
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ from byteps_tpu_torch.ops.push_pull import broadcast_pickled
 from byteps_tpu_torch.torch.compression import Compression
 
 __all__ = [
-    "init", "shutdown", "rank", "size", "local_rank", "local_size",
+    "init", "shutdown", "suspend", "resume", "rank", "size", "local_rank",
+    "local_size",
     "push_pull", "push_pull_async", "push_pull_inplace", "poll",
     "synchronize", "DistributedOptimizer", "DistributedDataParallel",
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
@@ -76,6 +81,20 @@ def init(device=None, **kwargs) -> None:
 def shutdown() -> None:
     _stop_export()
     _bps.shutdown()
+
+
+def suspend() -> None:
+    """``byteps_tpu_torch.suspend``, after the export thread has handed
+    over what it holds: a round started before the suspend then fails
+    with the scheduler, and raises where it is waited for."""
+    _stop_export()
+    _bps.suspend()
+
+
+def resume(num_workers: int, num_servers: int,
+           global_rank: Optional[int] = None) -> None:
+    """``byteps_tpu_torch.resume``: the same keys on the new topology."""
+    _bps.resume(num_workers, num_servers, global_rank)
 
 
 def rank() -> int:
@@ -492,9 +511,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return _start_round(grad, name, self._staging, self._compression)
 
     def synchronize(self) -> None:
-        for p, (pending, ctx, sparse) in list(self._pending.items()):
-            _land(p, pending.wait(), self._compression, ctx, sparse)
-        self._pending.clear()
+        pending, self._pending = self._pending, {}
+        for p, (rnd, ctx, sparse) in pending.items():
+            _land(p, rnd.wait(), self._compression, ctx, sparse)
 
     def step(self, closure=None):
         self.synchronize()
@@ -553,9 +572,9 @@ class DistributedDataParallel(torch.nn.Module):
         return hook
 
     def sync_gradients(self) -> None:
-        for p, (pending, ctx, sparse) in list(self._pending.items()):
-            _land(p, pending.wait(), Compression.none, ctx, sparse)
-        self._pending.clear()
+        pending, self._pending = self._pending, {}
+        for p, (rnd, ctx, sparse) in pending.items():
+            _land(p, rnd.wait(), Compression.none, ctx, sparse)
 
     def forward(self, *args, **kwargs):
         return self.module(*args, **kwargs)

@@ -1,8 +1,9 @@
 """Train-step construction.
 
-Port of byteps_tpu/jax/train.py: ``make_train_step`` (:37-85) and
+Port of byteps_tpu/jax/train.py: ``make_train_step`` (:37-85),
 ``make_ps_train_step`` (:562-1920), its device-compressed tier (:875-895)
-and its host tier (:928-1874). The JAX steps are compiled programs over
+and its host tier (:928-1874), and ``make_async_ps_train_step``
+(:1921-2005). The JAX steps are compiled programs over
 the mesh; here they are eager: forward and backward on the local batch,
 the gradient round, then the optimizer. The returned loss is the mean
 over the ``dp`` group, like the JAX step's ``pmean``.
@@ -158,6 +159,88 @@ def make_ps_train_step(loss_fn: Callable, optimizer, params,
                             sharded_apply, local_shard_export, rowsparse)
     return _device_tier_step(loss_fn, optimizer, names, tensors,
                              compression, min_compress_bytes, rowsparse)
+
+
+def make_async_ps_train_step(loss_fn: Callable, optimizer, params):
+    """The asynchronous data-parallel step (BYTEPS_ENABLE_ASYNC;
+    byteps_tpu/jax/train.py:1921-2005, BytePS's torch/__init__.py:188-216
+    and server.cc:315-319): each step is the local step (forward,
+    backward, the ``dp`` mean, ``optimizer.step()``), then for each leaf
+    the weight delta (the new weights minus the old, on the card) goes to
+    the server, which adds it into the weights it holds with no barrier
+    of the workers, and the server's weights come back into the
+    parameter. The workers never wait for each other; their staleness is
+    the price.
+
+    The servers must run with BYTEPS_ENABLE_ASYNC=1. Each leaf's key is
+    ``"asyncw/" + path`` and is seeded with the worker's weights before
+    its first update (``PSClient.init_weights``: the first worker's init
+    wins, so start the workers from the same or broadcast weights). A
+    partition is seeded again wherever the client has no init of it: on
+    a resumed client, and on the new server of a key that a join or a
+    drain moved, from the weights the worker last pulled (with several
+    workers, a peer's delta folded into the old server after that pull
+    is lost to the new one; the JAX step instead fails the push there,
+    ROADMAP.md §C.13). Every leaf's delta goes out at once, and the step
+    waits once for all the weights. In a dp group the root alone pushes
+    and pulls, and broadcasts the weights. Without a PS the step is the
+    plain local step (the JAX step adds the delta back to
+    the old weights instead, within an ulp of it). The optimizer's state
+    stays the worker's own.
+
+    Returns ``step(batch) -> loss`` (a detached scalar, the dp mean);
+    ``step.counters["bytes_pushed"]`` and ``["bytes_pulled"]`` are the
+    last step's delta and weight bytes."""
+    from ..core.state import get_state
+    from ..core.types import host_array, host_tensor
+
+    named = named_leaves(params)
+    names = ["asyncw/" + n for n, _ in named]
+    tensors = [t for _, t in named]
+    counters: Dict[str, int] = {"bytes_pushed": 0, "bytes_pulled": 0}
+
+    def step(batch):
+        state = get_state().require()
+        with on_card(state.device):
+            return _step(state, batch)
+
+    def _step(state, batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss, grads = _dp_mean_grads(loss_fn, batch, tensors, state.group)
+        client = state.ps_client
+        old = [t.detach().clone() for t in tensors] \
+            if client is not None else None
+        for t, g in zip(tensors, grads):
+            t.grad = g
+        optimizer.step()
+        if client is None:
+            return loss
+        # every rank declares the keys alike, in flatten order
+        ctxs = [_declare(state, name, t.numel(), t.dtype)
+                for name, t in zip(names, tensors)]
+        if state.is_root:
+            for ctx, w in zip(ctxs, old):
+                if client.uninited(ctx):
+                    client.init_weights(ctx, host_array(w.reshape(-1))[0])
+            deltas = [host_array((t.detach() - o).reshape(-1))
+                      for t, o in zip(tensors, old)]
+            pulled = client.push_delta_pull_weights(
+                ctxs, [d for d, _ in deltas])
+            with torch.no_grad():
+                for t, w, (_, wire) in zip(tensors, pulled, deltas):
+                    t.copy_(host_tensor(w, wire).reshape(t.shape))
+            nbytes = sum(d.nbytes for d, _ in deltas)
+            counters.update(bytes_pushed=nbytes, bytes_pulled=nbytes)
+        else:
+            counters.update(bytes_pushed=0, bytes_pulled=0)
+        if dist.get_world_size(state.group) > 1:
+            with torch.no_grad():
+                for t in tensors:
+                    dist.broadcast(t.data, src=0, group=state.group)
+        return loss
+
+    step.counters = counters
+    return step
 
 
 # names already warned about by _route_rowsparse
@@ -440,16 +523,32 @@ class HostTierStep:
     Cross-barrier bounded staleness (BYTEPS_CROSS_BARRIER with
     BYTEPS_STALENESS > 0 on the fused PUSHPULL: the scheduler's
     ``xb_window``; byteps_tpu/jax/train.py:1322-1360, 1515-1575,
-    1686-1710): with the per-leaf apply, no host codec and one process,
-    the step returns once every key but the carry-eligible ones
-    (``_carry_set``: dense whole-leaf keys of the back half of the model)
-    has landed; those land too if their reply is already in, and are
-    otherwise carried: their slots (two per leaf, alternating by step
-    parity) stay leased, and the next step lands them and runs their
-    optimizer steps after its own export, before its own drain. Their
-    parameters stay one update behind meanwhile. ``flush()`` lands what
-    is still carried. The server must run with the same two variables.
-    Not ported: the ledger and health planes.
+    1686-1710): with the per-leaf apply and no host codec, the step
+    returns once every key but the carry-eligible ones (``_carry_set``:
+    dense whole-leaf keys of the back half of the model) has landed;
+    those land too if their reply is already in, and are otherwise
+    carried: their slots (two per leaf, alternating by step parity) stay
+    leased, and the next step lands them and runs their optimizer steps
+    after its own export, before its own drain. Their parameters stay
+    one update behind meanwhile. ``flush()`` lands what is still
+    carried. The server must run with the same two variables. In a dp
+    group the root, the one rank that pushes whole leaves and so sees
+    their replies, decides what lands and what is carried: the drain
+    broadcasts each landed key's index and then the end of the step's
+    landing, so every rank carries the same leaves (with the same slot
+    parity); the next step, and ``flush()``, which every rank calls,
+    land them on every rank in the same order, each aggregate broadcast
+    from the root. Not ported: the ledger and health planes.
+
+    Across fleet changes: after a ``suspend``/``resume`` the step meets
+    a new client and makes its host-codec registry, shard keys and
+    streamed keys' inits again on it; after a join or a drain (a new
+    routing version) it inits the moved keys on their new servers
+    (``ensure_init``, or at once for the streamed and shard keys). A
+    carried round is still on the wire when a join or a drain starts:
+    the elastic call waits for it to land on its old server, as the JAX
+    package's quiescence does, and the next step lands it as usual; a
+    suspend fails it, and the next step raises its error.
 
     ``spans`` (off by default): forward_backward (step start to the
     backward's end on the device), export (the first leaf handed over to
@@ -502,6 +601,7 @@ class HostTierStep:
         # completion: the apply's tail is measured from it
         self.last_completion = 0.0
         self._client = None
+        self._routing = None          # the registry's routing version seen
         self._registry = None         # CompressedRegistry of the client
         # the per-leaf step, or None for one optimizer.step() after the
         # drain
@@ -792,6 +892,11 @@ class HostTierStep:
                 self._registry = CompressedRegistry(
                     state.ps_client, state.config.num_workers,
                     self.compression, self._mcb(state))
+        routing = (id(state.registry), state.registry.routing_version)
+        if self._routing != routing:
+            # a new client, a resume's re-partition, a join or a drain:
+            # the shard plan's keys init again (on their new servers)
+            self._routing, self._shard_key = routing, None
         sharded = state.config.sharded_apply if self.sharded_apply is None \
             else self.sharded_apply
         leaf_apply = self._leaf_apply if sharded else None
@@ -805,7 +910,7 @@ class HostTierStep:
         self._declare_streamed(state, shards)
         before = state.scheduler.counters()
         self.counters["rowsparse_bytes"] = 0
-        carry = self._carry_set(state, fusion, shards, n_dp, leaf_apply)
+        carry = self._carry_set(state, fusion, shards, leaf_apply)
         self._xb_seq += 1
         if carry is not None:
             self._xb_par ^= 1
@@ -842,18 +947,19 @@ class HostTierStep:
         return loss
 
     def _carry_set(self, state, fusion: int, shards: Dict[int, dict],
-                   n_dp: int, leaf_apply) -> Optional[frozenset]:
+                   leaf_apply) -> Optional[frozenset]:
         """The leaves whose round may land after the step returns (None:
         cross-barrier staleness is off). It is on with the scheduler's
         staleness credit (BYTEPS_CROSS_BARRIER, BYTEPS_STALENESS > 0, the
-        fused PUSHPULL), the per-leaf apply, no host codec and one
-        process. Eligible are the dense whole-leaf keys of the back half
-        of the model in flatten order, at least ``fusion`` bytes each,
-        outside the shard plan and the row-sparse wire
-        (byteps_tpu/jax/train.py:1322-1360): the next forward reads the
-        front half first."""
+        fused PUSHPULL), the per-leaf apply and no host codec, in a dp
+        group of any size (the JAX step's gate, byteps_tpu/jax/train.py
+        :1338, has no dp limit either). Eligible are the dense whole-leaf
+        keys of the back half of the model in flatten order, at least
+        ``fusion`` bytes each, outside the shard plan and the row-sparse
+        wire (byteps_tpu/jax/train.py:1322-1360): the next forward reads
+        the front half first."""
         if (state.scheduler.xb_window <= 0 or leaf_apply is None
-                or self._registry is not None or n_dp > 1):
+                or self._registry is not None):
             return None
         def eligible(i: int) -> bool:
             nb = self.tensors[i].numel() * self.tensors[i].element_size()
@@ -867,22 +973,35 @@ class HostTierStep:
         """Land the last step's carried rounds: each aggregate into its
         parameter's gradient and that leaf's optimizer step, in place,
         from the values the carry left (the parameter and its optimizer
-        state as the carried step found them). Returns (the copies'
+        state as the carried step found them). In a dp group every rank
+        lands the same leaves in the same order, each aggregate copied to
+        the card on the root and broadcast from it. Returns (the copies'
         events, the carried slots, the leaves drained, the step
         boundaries they crossed)."""
         carry, self._carry = self._carry, None
         if carry is None:
             return [], [], 0, None
-        compute = torch.cuda.current_stream(state.device) if cuda else None
+        dev, group = state.device, state.group
+        n = dist.get_world_size(group)
+        compute = torch.cuda.current_stream(dev) if cuda else None
         events: List = []
         try:
             for i, handle, lease, wire in carry["entries"]:
-                state.handles.wait_and_clear(handle.id)   # raises its error
+                if handle is not None:
+                    state.handles.wait_and_clear(handle.id)  # raises its error
                 p = self.tensors[i]
                 if p.grad is None:
                     p.grad = torch.empty_like(p)
-                self._h2d(lease.tensor.view(wire), p.grad.view(-1), compute,
-                          events)
+                if n > 1:
+                    buf = torch.empty(p.numel(), dtype=wire, device=dev)
+                    if state.is_root:
+                        self._h2d(lease.tensor.view(wire), buf, compute,
+                                  events, fresh=True)
+                    dist.broadcast(buf, src=0, group=group)
+                    p.grad.view(-1).copy_(buf)
+                else:
+                    self._h2d(lease.tensor.view(wire), p.grad.view(-1),
+                              compute, events)
                 self._leaf_apply.step(p)
                 if compute is not None:
                     # this step's own round of the leaf may land in the
@@ -893,21 +1012,23 @@ class HostTierStep:
             # step raises, as a failed drain does
             self._void_carry(state, carry)
             raise
-        return (events, [e[2] for e in carry["entries"]],
+        return (events, [e[2] for e in carry["entries"] if e[2] is not None],
                 len(carry["entries"]), self._xb_seq - carry["step"])
 
     def _void_carry(self, state, carry: Optional[dict]) -> None:
         if carry is not None:
             for _, handle, lease, _ in carry["entries"]:
-                state.handles.discard(handle.id)
-                lease.abandon()
+                if handle is not None:
+                    state.handles.discard(handle.id)
+                if lease is not None:
+                    lease.abandon()
 
     def flush(self) -> None:
         """Drain the cross-barrier carry: each carried leaf's aggregate
         lands and its optimizer step runs, in place. Call it after the
-        last step of a run (or before a checkpoint); a second call, or
-        one with nothing carried, does nothing (byteps_tpu/jax/train.py
-        :1874-1917)."""
+        last step of a run (or before a checkpoint), on every rank of a dp
+        group; a second call, or one with nothing carried, does nothing
+        (byteps_tpu/jax/train.py:1874-1917)."""
         if self._carry is None:
             return
         from ..core.state import get_state
@@ -1097,8 +1218,9 @@ class HostTierStep:
         optimizer step; returns the copy events that the next step waits
         for before reusing the slots. One process copies each aggregate
         from its slot into ``p.grad``. In a dp group the root takes its
-        keys in completion order and broadcasts each one's index, so every
-        rank lands the same key next: a whole-leaf key or bucket is copied
+        keys in completion order and broadcasts each one's index (and -1
+        when the rest stay carried), so every rank lands the same key
+        next: a whole-leaf key or bucket is copied
         to the card on the root and broadcast from it; a leaf of the shard
         plan is landed shard by shard, each rank its own, and all-gathered.
         Every rank then steps the leaf, so the parameters stay the same on
@@ -1130,15 +1252,21 @@ class HostTierStep:
         pending = set(range(len(ready)))
         events, last_done = [], rnd.t_backward_end
         h2d_ms = apply_ms = 0.0
-        while pending - carry_wi or (pending and not done.empty()):
+        while pending:
             if root:
-                wi, t_done = done.get()
-                last_done = max(last_done, t_done)
+                wi = -1     # the rest are carried
+                if pending - carry_wi or not done.empty():
+                    wi, t_done = done.get()
+                    last_done = max(last_done, t_done)
             if n > 1:
+                # the root's decision, so every rank lands and carries
+                # the same keys
                 if root:
                     idx.fill_(wi)
                 dist.broadcast(idx, src=0, group=group)
                 wi = int(idx.item())
+            if wi < 0:
+                break
             pending.discard(wi)
             members, handle, lease, shard, wire = ready[wi]
             if handle is not None:
@@ -1260,7 +1388,7 @@ def _declare(state, name: str, n: int, dtype: torch.dtype,
     from ..core.types import DataType
     return state.registry.init_tensor(
         name, n * torch.empty((), dtype=dtype).element_size(),
-        DataType.from_np(_np_dtype(dtype)), align_bytes=align)
+        DataType.of_torch(dtype), align_bytes=align)
 
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:

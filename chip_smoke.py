@@ -124,6 +124,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -2789,6 +2790,727 @@ def phase_ps_cross_barrier(args, card: str, dev=None, cfg=None, B: int = 4,
 
 
 # ---------------------------------------------------------------------- #
+# the elastic fleet, asynchronous training, the carry over a dp group
+# ---------------------------------------------------------------------- #
+
+ELASTIC_STEPS = 8
+# the step after which each event comes (1-based): a join, a drain, a
+# suspend and resume
+ELASTIC_JOIN, ELASTIC_DRAIN, ELASTIC_RESUME = 2, 4, 6
+
+
+def _spawn_fleet(n: int, extra_env=None):
+    """``n`` ``python -m byteps_tpu_torch.server`` processes on free
+    ports, up: (ports, processes)."""
+    ports, procs = [], []
+    for _ in range(n):
+        port = _free_port()
+        while port in ports:
+            port = _free_port()
+        ports.append(port)
+        procs.append(_spawn_ps_server(port, extra_env))
+    for port in ports:
+        _wait_port(port)
+    return ports, procs
+
+
+def _stop_fleet(procs, label: str) -> None:
+    """Wait for each server's exit after its workers' SHUTDOWN; kill the
+    ones still up (a server that a resume left holds its connection)."""
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            print(f"{label}: a server still up after the shutdown was "
+                  f"killed", flush=True)
+
+
+def _peak_gb(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else float("nan")
+
+
+def phase_ps_elastic(args, card: str, dev=None, cfg=None, B: int = 4,
+                     S: int = 2048) -> dict:
+    """``ps_elastic``: the dense host-tier step (Adam) of Llama small()
+    at full width, one worker, against two ``python -m
+    byteps_tpu_torch.server`` processes, for ELASTIC_STEPS steps. After
+    step ELASTIC_JOIN a third server is spawned and joined
+    (``bps.add_server``): its load must be above 0. After step
+    ELASTIC_DRAIN server 0 is drained (``bps.drain_server(0)``): its load
+    must be 0. After step ELASTIC_RESUME, ``suspend()`` and
+    ``resume(1, 3)`` onto the exported host list and retired set. The
+    parameters and losses must end bit for bit where as many plain local
+    Adam steps leave them. Then the adapter, ``DistributedOptimizer(Adam)``
+    on a fleet of two, across a suspend and a resume after step 2 of 4,
+    bit for bit against plain local Adam too. Prints the keys each event
+    moved, the events' times and the tokens/s of the steps that follow no
+    event. Returns the host-tier run's launches."""
+    import torch
+    import byteps_tpu_torch as bps
+    import byteps_tpu_torch.torch as bpt
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    setup = _llama_setup(args, dev, cfg, B, S, 15)
+    dev, cfg, init, batch, attn = setup
+    on_card = dev.type == "cuda"
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    ref = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    ref_losses = _local_steps(
+        ref, lambda m: llama.loss_fn(m.params(), batch, cfg, attn),
+        ELASTIC_STEPS)
+    ref_params = [p.detach().clone() for p in ref.parameters()]
+    del ref
+    counters = _counters()
+    events = {}
+    with restored_env():
+        ports, procs = _spawn_fleet(2)
+        _fleet_env(ports, True, tempfile.gettempdir())
+        try:
+            bps.init(device=dev)
+            try:
+                state = bps.get_state()
+                model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+                step = make_ps_train_step(
+                    lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+                    _adam(model.parameters()), model.params())
+                for fn in counters.values():
+                    fn.launches = 0
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                losses, times = [], []
+                for i in range(1, ELASTIC_STEPS + 1):
+                    if on_card:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses.append(bounded(lambda: float(step(batch)),
+                                          f"ps_elastic step {i}"))
+                    times.append(time.perf_counter() - t0)
+                    if i == ELASTIC_JOIN:
+                        # the fleet's servers hold their ports: a free
+                        # one is a new one
+                        (port,), (proc,) = _spawn_fleet(1)
+                        procs.append(proc)
+                        t0 = time.perf_counter()
+                        idx = bps.add_server(f"127.0.0.1:{port}")
+                        events["join"] = (time.perf_counter() - t0) * 1e3
+                        load = state.registry.server_loads()[idx]
+                        moved = sum(p.server == idx for c in
+                                    state.registry.contexts_in_order()
+                                    for p in c.partitions)
+                        events["join_keys"] = moved
+                        if idx != 2 or load <= 0:
+                            fail(f"ps_elastic: the joined server {idx} holds "
+                                 f"{load} bytes")
+                    elif i == ELASTIC_DRAIN:
+                        t0 = time.perf_counter()
+                        moved = bps.drain_server(0)
+                        events["drain"] = (time.perf_counter() - t0) * 1e3
+                        events["drain_keys"] = len(moved)
+                        load = state.registry.server_loads()[0]
+                        if load != 0 or not moved:
+                            fail(f"ps_elastic: server 0 holds {load} bytes "
+                                 f"after its drain moved {len(moved)} keys")
+                    elif i == ELASTIC_RESUME:
+                        retired = os.environ.get("BYTEPS_RETIRED_SERVERS")
+                        t0 = time.perf_counter()
+                        bps.suspend()
+                        bps.resume(1, 3)
+                        events["resume"] = (time.perf_counter() - t0) * 1e3
+                        state = bps.get_state()
+                        if state.registry.dead_servers() != [0] or \
+                                retired != "0":
+                            fail(f"ps_elastic: resumed with retired "
+                                 f"{state.registry.dead_servers()} "
+                                 f"(exported {retired!r})")
+                launches = {k: fn.launches for k, fn in counters.items()}
+                peak = _peak_gb(dev)
+                step.close()
+            finally:
+                bounded(bps.shutdown, "PS shutdown (ps_elastic)")
+        finally:
+            _stop_fleet(procs, "ps_elastic")
+    differ = _differ(list(model.parameters()), ref_params)
+    if differ or losses != ref_losses:
+        fail(f"ps_elastic: parameters or losses differ from "
+             f"{ELASTIC_STEPS} plain local Adam steps: losses {losses} vs "
+             f"{ref_losses}; elements differing per leaf {differ}")
+    if on_card and launches["flash_attn_fwd"] != 24 * ELASTIC_STEPS:
+        fail(f"flash_attn_fwd: {launches['flash_attn_fwd']} launches in "
+             f"{ELASTIC_STEPS} ps_elastic steps")
+    del model, step
+    after_event = {ELASTIC_JOIN + 1, ELASTIC_DRAIN + 1, ELASTIC_RESUME + 1}
+    steady = [t for i, t in enumerate(times, 1)
+              if i > 1 and i not in after_event]
+    print(f"ps_elastic: the join moved {events['join_keys']} partitions "
+          f"onto server 2 in {events['join']:.1f} ms, the drain "
+          f"{events['drain_keys']} off server 0 in {events['drain']:.1f} "
+          f"ms, suspend + resume(1, 3) took {events['resume']:.1f} ms; "
+          f"parameters after {ELASTIC_STEPS} steps bit-identical to plain "
+          f"local Adam; steps {['%.1f' % (t * 1e3) for t in times]} ms; "
+          f"{B * S / (sum(steady) / len(steady)):.1f} tokens/s over the "
+          f"steps after no event on {card}; peak memory {peak:.2f} GB",
+          flush=True)
+
+    # the adapter across a suspend and a resume
+    n = 4
+    ref = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    ref_losses = _local_steps(ref, lambda m: _model_loss(m, batch, attn), n)
+    ref_params = [p.detach().clone() for p in ref.parameters()]
+    del ref
+    with restored_env():
+        ports, procs = _spawn_fleet(2)
+        _fleet_env(ports, True, tempfile.gettempdir())
+        try:
+            bpt.init(device=dev)
+            try:
+                model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+                opt = bpt.DistributedOptimizer(
+                    _adam(model.parameters()),
+                    named_parameters=model.named_parameters())
+
+                def body():
+                    opt.zero_grad()
+                    loss = _model_loss(model, batch, attn)
+                    loss.backward()
+                    opt.step()
+                    return float(loss.detach())
+
+                losses = []
+                for i in range(n):
+                    losses.append(bounded(body, f"ps_elastic adapter {i}"))
+                    if i == 1:
+                        t0 = time.perf_counter()
+                        bpt.suspend()
+                        bpt.resume(1, 2)
+                        t_res = (time.perf_counter() - t0) * 1e3
+            finally:
+                bounded(bpt.shutdown, "adapter shutdown (ps_elastic)")
+        finally:
+            _stop_fleet(procs, "ps_elastic adapter")
+    differ = _differ(list(model.parameters()), ref_params)
+    if differ or losses != ref_losses:
+        fail(f"ps_elastic adapter: parameters or losses differ from {n} "
+             f"local Adam steps across the suspend/resume: {differ}")
+    print(f"ps_elastic adapter: DistributedOptimizer(Adam) across suspend "
+          f"+ resume(1, 2) after step 2 ({t_res:.1f} ms), parameters after "
+          f"{n} steps bit-identical to plain local Adam", flush=True)
+    return launches
+
+
+ASYNC_STEPS = 4
+ASYNC_2W_STEPS = 3
+
+
+def phase_ps_async(args, card: str, dev=None, cfg=None, B: int = 4,
+                   S: int = 2048, dev_type: str = "cuda",
+                   cfg_name: str = "small") -> dict:
+    """``ps_async``: ``make_async_ps_train_step`` (Adam) of Llama small()
+    at full width against one ``python -m byteps_tpu_torch.server`` run
+    with BYTEPS_ENABLE_ASYNC=1, ASYNC_STEPS steps: each step's weight
+    delta goes up and the server's weights come back, so the parameters
+    must end bit for bit where a local replay leaves them that adds each
+    step's delta to the weights in f32, as the server does. Then two
+    worker processes on the card against one async server of two
+    workers, ASYNC_2W_STEPS steps each on its own batch: every loss
+    finite, 24 B1 launches a step on each, and after both are done a
+    zero-delta pull gives both the same weights, which lie within the
+    rounding bound of the seed plus both workers' deltas
+    (``_fold_check``). Prints tokens/s, the bytes a step moves and the
+    fleet's tokens/s. Returns the one-worker run's launches."""
+    import torch
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training import make_async_ps_train_step
+
+    setup = _llama_setup(args, dev, cfg, B, S, 16)
+    dev, cfg, init, batch, attn = setup
+    on_card = dev.type == "cuda"
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    # the replay: local Adam, the weights then the old ones plus the delta
+    ref = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+    opt = _adam(ref.parameters())
+    ref_losses = []
+    for _ in range(ASYNC_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = llama.loss_fn(ref.params(), batch, cfg, attn)
+        loss.backward()
+        ref_losses.append(float(loss.detach()))
+        old = [p.detach().clone() for p in ref.parameters()]
+        opt.step()
+        with torch.no_grad():
+            for p, o in zip(ref.parameters(), old):
+                p.copy_(o + (p - o))
+    ref_params = [p.detach().clone() for p in ref.parameters()]
+    del ref, opt, old
+    counters = _counters()
+    with restored_env():
+        ports, procs = _spawn_fleet(1, {"BYTEPS_ENABLE_ASYNC": "1"})
+        _fleet_env(ports, True, tempfile.gettempdir())
+        try:
+            bps.init(device=dev)
+            try:
+                model = llama.Llama(cfg, device=dev, params=_tree_clone(init))
+                step = make_async_ps_train_step(
+                    lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+                    _adam(model.parameters()), model.params())
+                for fn in counters.values():
+                    fn.launches = 0
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                losses, times = _timed_loop(
+                    ASYNC_STEPS, lambda: float(step(batch)), on_card,
+                    "ps_async")
+                launches = {k: fn.launches for k, fn in counters.items()}
+                peak = _peak_gb(dev)
+                moved = dict(step.counters)
+            finally:
+                bounded(bps.shutdown, "PS shutdown (ps_async)")
+        finally:
+            _stop_fleet(procs, "ps_async")
+    differ = _differ(list(model.parameters()), ref_params)
+    if differ or losses != ref_losses:
+        fail(f"ps_async: parameters or losses differ from the local replay "
+             f"of the deltas: losses {losses} vs {ref_losses}; elements "
+             f"differing per leaf {differ}")
+    if on_card and launches["flash_attn_fwd"] != 24 * ASYNC_STEPS:
+        fail(f"flash_attn_fwd: {launches['flash_attn_fwd']} launches in "
+             f"{ASYNC_STEPS} ps_async steps")
+    del model, step
+    print(f"ps_async: {_tokens_per_s(times, B * S):.1f} tokens/s over steps "
+          f"1..{ASYNC_STEPS - 1} on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in times]} ms; bytes a step: "
+          f"{moved['bytes_pushed']} of deltas up, {moved['bytes_pulled']} "
+          f"of weights down; peak memory {peak:.2f} GB; parameters "
+          f"bit-identical to the local replay of the deltas", flush=True)
+    _async_fleet(args, card, dev_type, cfg_name, B, S)
+    return launches
+
+
+def _async_2w_worker(w: int, port: int, seed: int, cfg_name: str, B: int,
+                     S: int, dev: str, barrier, tmp: str, q) -> None:
+    import faulthandler
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S * 2, exit=True)
+    try:
+        q.put((w, _async_2w_body(w, port, seed, cfg_name, B, S, dev,
+                                 barrier, tmp)))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((w, {"error": traceback.format_exc()}))
+
+
+def _async_2w_body(w, port, seed, cfg_name, B, S, dev, barrier, tmp):
+    """One worker of the async fleet. Its optimizer's hooks sum, in f32,
+    the deltas that each step pushes (and their magnitudes); after both
+    workers are done, a zero delta pulls the server's weights, each
+    worker saves its sums under ``tmp``, and worker 0 holds the weights
+    to the seed plus both workers' deltas (``_fold_check``)."""
+    import hashlib
+
+    import torch
+    sys.path.insert(0, ROOT)
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.core.types import host_array, host_tensor
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import make_async_ps_train_step
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "DMLC_NUM_WORKER": "2", "DMLC_NUM_SERVER": "1",
+        "DMLC_WORKER_ID": str(w), "DMLC_ROLE": "worker",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "BYTEPS_CLIENT_TIMEOUT_S": str(PS_TIMEOUT_S)})
+    cfg = _dp2_cfg(cfg_name)
+    attn = FA.make_flash_attn()
+    # the same weights on both workers: the first init wins anyway
+    model = llama.Llama(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 30))
+    batch = _dp2_tokens(cfg, w, seed, B, S, dev)
+    params = list(model.parameters())
+    seed_w = [p.detach().to(torch.float32, copy=True) for p in params]
+    sums = {"delta": [torch.zeros_like(x) for x in seed_w],
+            "abs": [torch.zeros_like(x) for x in seed_w]}
+    before = []
+    opt = _adam(params)
+
+    def snap(*_):
+        before[:] = [p.detach().clone() for p in params]
+
+    def add(*_):
+        # the step pushes exactly these: the new weights minus the old
+        with torch.no_grad():
+            for p, o, d, a in zip(params, before, sums["delta"],
+                                  sums["abs"]):
+                x = (p.detach() - o).float()
+                d += x
+                a += x.abs()
+
+    opt.register_step_pre_hook(snap)
+    opt.register_step_post_hook(add)
+    out = {}
+    bps.init(device=dev)
+    try:
+        step = make_async_ps_train_step(
+            lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+            opt, model.params())
+        FA.flash_attention_fwd.launches = 0
+        out["losses"], out["times"] = _timed_loop(
+            ASYNC_2W_STEPS, lambda: float(step(batch)), on_card,
+            f"ps_async worker {w}")
+        out["launches"] = FA.flash_attention_fwd.launches
+        barrier.wait(PS_TIMEOUT_S)
+        # both are done: a zero delta pulls the weights both folded into
+        state = bps.get_state()
+        ctxs = [state.registry.get("asyncw/" + n.replace(".", "/"))
+                for n, _ in model.named_parameters()]
+        zeros = [host_array(torch.zeros(p.numel(), dtype=p.dtype))
+                 for p in params]
+        got = state.ps_client.push_delta_pull_weights(
+            ctxs, [z for z, _ in zeros])
+        h = hashlib.sha256()
+        for g in got:
+            h.update(g.tobytes())
+        out["weights"] = h.hexdigest()
+        barrier.wait(PS_TIMEOUT_S)
+    finally:
+        bounded(bps.shutdown, f"ps_async shutdown (worker {w})")
+    torch.save({k: [x.cpu() for x in v] for k, v in sums.items()},
+               os.path.join(tmp, f"deltas_{w}.pt"))
+    barrier.wait(PS_TIMEOUT_S)
+    if w == 0:
+        peer = torch.load(os.path.join(tmp, "deltas_1.pt"))
+        weights = [host_tensor(g, wire).to(dev).float()
+                   for g, (_, wire) in zip(got, zeros)]
+        out.update(_fold_check(weights, seed_w, sums, peer,
+                               2 * ASYNC_2W_STEPS,
+                               torch.finfo(cfg.dtype).eps / 2))
+    return out
+
+
+def _fold_check(weights, seed_w, mine, peer, folds: int, u: float) -> dict:
+    """The async server's weights against the seed plus every delta of
+    both workers, element by element. The server folds each delta into
+    weights of the model's dtype, rounding to nearest once a fold, so
+    each fold errs by at most ``u`` (half the dtype's epsilon) of the
+    weights it leaves, and no weights along the way exceed ``mag`` = |the
+    seed| + both workers' summed |delta|: the tolerance is ``folds * u *
+    (1 + folds * u) * mag``, plus 8 f32 roundings of ``mag`` for this
+    reference's own f32 sums. Returns the elements over it (the gate),
+    the worst error as a share of it, and the share of elements where a
+    lost worker's deltas (worker 1's) would exceed it."""
+    import torch
+    over, worst, lost, total = 0, 0.0, 0, 0
+    for i, (got, w0) in enumerate(zip(weights, seed_w)):
+        peer_d = peer["delta"][i].to(w0.device)
+        mag = w0.abs() + mine["abs"][i] + peer["abs"][i].to(w0.device)
+        tol = (folds * u * (1 + folds * u) + 8 * 2.0 ** -24) * mag
+        err = (got.reshape(w0.shape) - (w0 + mine["delta"][i] + peer_d)
+               ).abs()
+        over += int((err > tol).sum())
+        ratio = err / tol.clamp_min(torch.finfo(torch.float32).tiny)
+        worst = max(worst, float(ratio.max()))
+        lost += int((peer_d.abs() > tol).sum())
+        total += w0.numel()
+    return {"fold_over": over, "fold_worst": worst,
+            "fold_lost_visible": lost / total}
+
+
+def _async_fleet(args, card: str, dev_type: str, cfg_name: str, B: int,
+                 S: int) -> None:
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    dev = "cuda:0" if dev_type == "cuda" else "cpu"
+    port = _free_port()
+    server = _spawn_ps_server(port, {"DMLC_NUM_WORKER": "2",
+                                     "BYTEPS_ENABLE_ASYNC": "1"})
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    barrier = ctx.Barrier(2)
+    tmp = tempfile.mkdtemp(prefix="bps_async_")
+    procs, res = [], {}
+    try:
+        _wait_port(port)
+        procs = [ctx.Process(target=_async_2w_worker, args=(
+            w, port, args.seed, cfg_name, B, S, dev, barrier, tmp, q))
+            for w in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + PS_TIMEOUT_S * 2
+        while len(res) < 2:
+            try:
+                w, r = q.get(timeout=2.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead or time.time() > deadline:
+                    fail(f"ps_async fleet: no result from worker(s) "
+                         f"{sorted(set(range(2)) - set(res))}; exit codes "
+                         f"{[p.exitcode for p in procs]}")
+                continue
+            res[w] = r
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        _stop_fleet([server], "ps_async fleet")
+        shutil.rmtree(tmp, ignore_errors=True)
+    for w, r in sorted(res.items()):
+        if "error" in r:
+            fail(f"ps_async fleet worker {w} raised:\n{r['error']}")
+    a, b = res[0], res[1]
+    if a["weights"] != b["weights"]:
+        fail("ps_async fleet: the zero-delta pulls gave the workers "
+             "different weights")
+    if a["fold_over"]:
+        fail(f"ps_async fleet: {a['fold_over']} elements of the server's "
+             f"weights lie outside the rounding bound of seed + both "
+             f"workers' deltas (worst {a['fold_worst']:.3f} of the bound)")
+    if dev_type == "cuda" and (a["launches"] != 24 * ASYNC_2W_STEPS
+                               or b["launches"] != 24 * ASYNC_2W_STEPS):
+        fail(f"ps_async fleet: flash_attn_fwd launches {a['launches']}, "
+             f"{b['launches']} in {ASYNC_2W_STEPS} steps")
+    steady = [max(x, y) for x, y in zip(a["times"][1:], b["times"][1:])]
+    tok_s = 2 * B * S / (sum(steady) / len(steady))
+    print(f"ps_async fleet (two workers, one card, one async server): "
+          f"{tok_s:.1f} tokens/s for the fleet over steps "
+          f"1..{ASYNC_2W_STEPS - 1} on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in steady]} ms; losses {a['losses']} "
+          f"and {b['losses']}; flash launches a worker {a['launches']}, "
+          f"{b['launches']}; the last zero-delta pull the same weights on "
+          f"both, within the rounding bound of seed + both workers' deltas "
+          f"(worst {a['fold_worst']:.4f} of it; worker 1's deltas alone "
+          f"exceed it on {100 * a['fold_lost_visible']:.1f}% of elements)",
+          flush=True)
+
+
+XB_DP2_STEPS = 3
+
+
+def _xb_dp2_rank(rank, world, dev, port, coord, seed, cfg_name, B, S, q):
+    import faulthandler
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S * 2, exit=True)
+    try:
+        q.put((rank, _xb_dp2_body(rank, world, dev, port, coord, seed,
+                                  cfg_name, B, S)))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def _xb_dp2_body(rank, world, dev, port, coord, seed, cfg_name, B, S):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.training import (broadcast_parameters,
+                                           make_ps_train_step)
+    from byteps_tpu_torch.training.optim import make_leaf_apply
+    from byteps_tpu_torch.training.train import named_leaves
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+        "DMLC_WORKER_ID": "0", "DMLC_ROLE": "worker",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "BYTEPS_LOCAL_RANK": str(rank), "BYTEPS_LOCAL_SIZE": str(world),
+        "BYTEPS_COORD_PORT": str(coord),
+        "BYTEPS_CLIENT_TIMEOUT_S": str(PS_TIMEOUT_S),
+        "BYTEPS_CROSS_BARRIER": "1", "BYTEPS_STALENESS": "1",
+        "BYTEPS_STREAM_EXPORT": "0"})
+    cfg = _dp2_cfg(cfg_name)
+    attn = FA.make_flash_attn()
+    model = llama.Llama(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 40))
+    init = _tree_clone(model.params())
+    batches = [_dp2_tokens(cfg, r, seed + 40, B, S, dev)
+               for r in range(world)]
+    out = {}
+    bps.init(device=dev, backend="gloo")
+    try:
+        group = bps.get_state().group
+        broadcast_parameters(model.parameters(), root_rank=0)
+        step = make_ps_train_step(
+            lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+            _adam(model.parameters()), model.params())
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        carried = []
+
+        def body():
+            loss = float(step(batches[rank]))
+            carried.append(list(step.counters["carried"]))
+            return loss
+
+        FA.flash_attention_fwd.launches = 0
+        out["losses"], out["times"] = _timed_loop(
+            XB_DP2_STEPS, body, on_card, f"xb dp2 rank {rank}")
+        out["launches"] = FA.flash_attention_fwd.launches
+        bounded(step.flush, f"xb dp2 flush (rank {rank})")
+        out["flushed"] = step._carry is None
+        out["carried"] = carried
+        out["peak_gb"] = _peak_gb(dev)
+        same = True
+        for p in model.parameters():
+            root_p = p.detach().clone()
+            dist.broadcast(root_p, src=0, group=group)
+            same = same and torch.equal(root_p, p.detach())
+        out["same_as_root"] = same
+        step.close()
+    finally:
+        bounded(bps.shutdown, f"xb dp2 shutdown (rank {rank})")
+    if rank == 0:
+        # the local replay on the ranks' mean gradient: the leaves named
+        # in carried[t] take step t's update after step t + 1's backward
+        ref = llama.Llama(cfg, device=dev, params=init)
+        apply = make_leaf_apply(_adam(ref.parameters()))
+        leaves = [("grad/" + n, p) for n, p in named_leaves(ref.params())]
+        late = []
+        for names in carried:
+            per_rank = []
+            for b in batches:
+                ref.zero_grad(set_to_none=True)
+                llama.loss_fn(ref.params(), b, cfg, attn).backward()
+                per_rank.append([p.grad for _, p in leaves])
+            grads = []
+            for gs in zip(*per_rank):
+                total = gs[0].clone()
+                for g in gs[1:]:
+                    total += g
+                grads.append(total / world)
+            for p, g in late:
+                p.grad = g
+                apply.step(p)
+            late = []
+            for (name, p), g in zip(leaves, grads):
+                if name in names:
+                    late.append((p, g))
+                else:
+                    p.grad = g
+                    apply.step(p)
+        for p, g in late:
+            p.grad = g
+            apply.step(p)
+        out["replay_differ"] = _differ(list(model.parameters()),
+                                       list(ref.parameters()))
+    return out
+
+
+def phase_ps_cross_barrier_dp2(args, card: str, dev_type: str = "cuda",
+                               cfg_name: str = "small", B: int = 4,
+                               S: int = 2048) -> dict:
+    """``ps_cross_barrier_dp2``: the dense host tier of Llama small() with
+    a dp group of two processes on the one card (gloo, as ``ps_dp2``
+    runs on one card) and cross-barrier staleness 1, against a ``python
+    -m byteps_tpu_torch.server`` capped as ``ps_cross_barrier``'s capped
+    run is (XB_THROTTLE_MBPS, XB_SLOW_MS a request, the keys after the
+    backward), so ``lm_head`` is carried. The root decides the carry:
+    both ranks must carry the same leaves in every step, carry at least
+    one, land them in the next step and at ``flush()``, and end with the
+    same parameters, bit for bit those of a local replay of the carry
+    schedule on the ranks' mean gradient. Returns rank 0's B1 launches,
+    24 a step on each rank."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    dev = "cuda:0" if dev_type == "cuda" else "cpu"
+    port = _free_port()
+    server = _spawn_ps_server(port, {
+        "BYTEPS_CROSS_BARRIER": "1", "BYTEPS_STALENESS": "1",
+        "BYTEPS_SERVER_THROTTLE_MBPS": XB_THROTTLE_MBPS,
+        "BYTEPS_CHAOS_SLOW_SERVER": XB_SLOW_MS})
+    coord = _free_port()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs, res = [], {}
+    try:
+        _wait_port(port)
+        procs = [ctx.Process(target=_xb_dp2_rank, args=(
+            r, 2, dev, port, coord, args.seed, cfg_name, B, S, q))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + PS_TIMEOUT_S * 2
+        while len(res) < 2:
+            try:
+                rank, r = q.get(timeout=2.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead or time.time() > deadline:
+                    fail(f"ps_cross_barrier_dp2: no result from rank(s) "
+                         f"{sorted(set(range(2)) - set(res))}; exit codes "
+                         f"{[p.exitcode for p in procs]}")
+                continue
+            res[rank] = r
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        _stop_fleet([server], "ps_cross_barrier_dp2")
+    for rank, r in sorted(res.items()):
+        if "error" in r:
+            fail(f"ps_cross_barrier_dp2 rank {rank} raised:\n{r['error']}")
+    a, b = res[0], res[1]
+    if a["carried"] != b["carried"]:
+        fail(f"ps_cross_barrier_dp2: the ranks carried different leaves: "
+             f"{a['carried']} and {b['carried']}")
+    if not any(a["carried"]):
+        fail(f"ps_cross_barrier_dp2: nothing carried: {a['carried']}")
+    if not (a["flushed"] and b["flushed"]):
+        fail("ps_cross_barrier_dp2: flush() left a carry")
+    if not (a["same_as_root"] and b["same_as_root"]):
+        fail("ps_cross_barrier_dp2: the ranks' parameters differ")
+    if a["replay_differ"]:
+        fail(f"ps_cross_barrier_dp2: the parameters differ from the local "
+             f"replay of the carry schedule {a['carried']}: elements per "
+             f"leaf {a['replay_differ']}")
+    if a["losses"] != b["losses"]:
+        fail(f"ps_cross_barrier_dp2: losses {a['losses']} and {b['losses']}")
+    if dev_type == "cuda" and (a["launches"] != 24 * XB_DP2_STEPS
+                               or b["launches"] != 24 * XB_DP2_STEPS):
+        fail(f"ps_cross_barrier_dp2: flash_attn_fwd launches "
+             f"{a['launches']}, {b['launches']} in {XB_DP2_STEPS} steps")
+    steady = [max(x, y) for x, y in zip(a["times"][1:], b["times"][1:])]
+    tok_s = 2 * B * S / (sum(steady) / len(steady))
+    print(f"ps_cross_barrier_dp2 (gloo, both ranks on {dev}; server at "
+          f"{XB_THROTTLE_MBPS} MB/s and {XB_SLOW_MS} ms a request, keys "
+          f"after the backward): carried {a['carried']} on both ranks; "
+          f"{tok_s:.1f} tokens/s for the group over steps "
+          f"1..{XB_DP2_STEPS - 1} on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in steady]} ms; flash launches a "
+          f"rank {a['launches']}, {b['launches']}; peak memory "
+          f"{a['peak_gb']:.2f} / {b['peak_gb']:.2f} GB; parameters "
+          f"bit-identical on both ranks and to the local replay of the "
+          f"schedule on the mean gradient", flush=True)
+    return {"flash_attn_fwd": a["launches"]}
+
+
+# ---------------------------------------------------------------------- #
 # the model zoo: BytePS's published workloads on the PS step, the
 # PyTorch adapter and the codec paths
 # ---------------------------------------------------------------------- #
@@ -3394,6 +4116,9 @@ def main() -> int:
     phase_ps_host_varint(args, card)
     phase_native_codec(args, card)
     phase_ps_cross_barrier(args, card)
+    elastic = phase_ps_elastic(args, card)
+    ps_async = phase_ps_async(args, card)
+    xb_dp2 = phase_ps_cross_barrier_dp2(args, card)
     zoo = {k: v["launches"] for k, v in phase_zoo(args, card).items()
            if "launches" in v}
     # each kernel's count from a path that runs it, each path's counters
@@ -3420,7 +4145,9 @@ def main() -> int:
         "collective codecs": coll, "ps topk": ps_topk,
         "ps failover": failover, "torch adapter": adapter,
         "torch adapter, two workers (worker 0)": adapter_2w,
-        "ps rowsparse": rowsparse, "zoo": zoo}), flush=True)
+        "ps rowsparse": rowsparse, "ps elastic": elastic,
+        "ps async": ps_async, "ps cross-barrier dp2 (rank 0)": xb_dp2,
+        "zoo": zoo}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     print(f"chip_smoke: every phase passed, "

@@ -354,3 +354,114 @@ def run_mixed_stream(port: int, params_path: str, out_path: str,
     finally:
         bps.shutdown()
     np.savez(out_path, **out)
+
+
+# the cross-barrier carry over a dp group of two: an MLP, each rank its
+# own batch, a server that sleeps and throttles, the keys after the
+# backward (tests/test_torch_port_cross_barrier.py)
+XB_DP_HIDDEN = (256, 256, 256)
+XB_DP_STEPS = 8
+
+
+def xb_dp_setup(rank: int):
+    """(config, initial weights, this rank's batch) of the dp carry run;
+    the weights are every rank's."""
+    import torch
+
+    from byteps_tpu_torch.models import mlp
+    cfg = mlp.MLPConfig(in_dim=64, hidden=XB_DP_HIDDEN, n_classes=10)
+    init = {k: v.numpy() for k, v in mlp.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu").items()}
+    rs = np.random.RandomState(100 + rank)
+    batch = {"x": torch.from_numpy(rs.rand(32, 64).astype(np.float32)),
+             "y": torch.from_numpy(rs.randint(0, 10, 32).astype(np.int64))}
+    return cfg, init, batch
+
+
+def run_dp_carry(rank: int, world: int, store_path: str, port: int,
+                 out_path: str) -> None:
+    """One rank of a dp group of two under cross-barrier staleness 1:
+    XB_DP_STEPS host-tier Adam steps, then ``flush()``; writes each step's
+    carried leaves, the losses and the parameters."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import mlp
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    _ps_env_for(port, BYTEPS_FUSION_BYTES="256", BYTEPS_CROSS_BARRIER="1",
+                BYTEPS_STALENESS="1", BYTEPS_STREAM_EXPORT="0")
+    os.environ.pop("BYTEPS_SHARD_MIN_BYTES", None)
+    cfg, init, batch = xb_dp_setup(rank)
+    bps.init(device="cpu", store=dist.FileStore(store_path, world),
+             rank=rank, world_size=world)
+    out = {}
+    try:
+        model = mlp.MLP(cfg, "cpu", params=mlp.params_from_jax(init, "cpu"))
+        step = make_ps_train_step(
+            lambda b: mlp.loss_fn(model.params(), b, cfg),
+            torch.optim.Adam(model.parameters(), lr=1e-2),
+            model.params())
+        losses, carried = [], []
+        for _ in range(XB_DP_STEPS):
+            losses.append(float(step(batch)))
+            carried.append(";".join(step.counters["carried"]))
+        step.flush()
+        out["flushed_carry"] = np.array(step._carry is None)
+        step.close()
+        out["losses"] = np.array(losses)
+        out["carried"] = np.array(carried)
+        for n, p in model.named_parameters():
+            out["p/" + n] = p.detach().numpy().copy()
+    finally:
+        bps.shutdown()
+    np.savez(out_path, **out)
+
+
+# a mixed fleet's join: the port's worker 1 of two
+ELASTIC_MIXED = (("em/a", 5000), ("em/b", 2048), ("em/c", 9000),
+                 ("em/d", 300), ("em/e", 4100))
+
+
+def elastic_mixed_inputs(worker: int):
+    rs = np.random.RandomState(40 + worker)
+    return [rs.randn(n).astype(np.float32) for _, n in ELASTIC_MIXED]
+
+
+def elastic_table(registry):
+    """The routing table as strings: name, key, then each partition's key,
+    offset, length and server."""
+    return [f"{c.name}={c.declared_key}:" + ",".join(
+        f"{p.key}/{p.offset}/{p.length}/{p.server}" for p in c.partitions)
+        for c in registry.contexts_in_order()]
+
+
+def run_elastic_mixed(ports, out_path: str) -> None:
+    """Worker 1 of a JAX + port fleet: a round of every tensor on server
+    0, a join of server 1 at the round boundary, a second round; writes
+    both rounds' aggregates and the routing table after the join."""
+    import os
+
+    import byteps_tpu_torch as bps
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    _ps_env_for(ports[0], num_workers=2, worker_id=1,
+                BYTEPS_PARTITION_BYTES="8192", BYTEPS_SERVER_HOSTS=addrs[0])
+    os.environ.pop("BYTEPS_RETIRED_SERVERS", None)
+    bps.init(device="cpu")
+    out = {}
+    try:
+        xs = elastic_mixed_inputs(1)
+        for r in range(2):
+            if r == 1:
+                out["join"] = np.array(bps.add_server(addrs[1]))
+                out["table"] = np.array(elastic_table(
+                    bps.get_state().registry))
+            for (name, _), x in zip(ELASTIC_MIXED, xs):
+                out[f"{r}/{name}"] = bps.synchronize(
+                    bps.push_pull_async(x, name))
+    finally:
+        bps.shutdown()
+    np.savez(out_path, **out)

@@ -17,7 +17,11 @@
   the parameters equal, bit for bit, a plain local replay of the carry
   schedule the step recorded: each carried leaf's update applied one
   step late; ``flush()`` twice is ``flush()`` once, and ``close()``
-  without ``flush()`` lands the carry too.
+  without ``flush()`` lands the carry too; so does a run with a server
+  joined after a step that carried and a drain two steps later;
+- a dp group of two gloo processes: the root decides the carry, both
+  ranks carry the same leaves and end bit for bit on the replay of the
+  schedule on the ranks' mean gradient.
 """
 
 
@@ -324,3 +328,157 @@ def test_flush_is_idempotent_and_a_no_op_without_a_carry(monkeypatch):
                                       steps=2, flush=True)
         assert np.isfinite(losses).all()
         assert all(c["carry_drained"] in (0, None) for c in per_step)
+
+
+def _dp_replay(schedule):
+    """The dp group's run replayed in one process: each step's gradient
+    the mean of the two ranks' (the group's all-reduce, then the division
+    by 2), and the leaves named in ``schedule[t]`` updated one step
+    late, as ``_replay`` does."""
+    import _torch_port_worker as W
+    cfg, init, _ = W.xb_dp_setup(0)
+    batches = [W.xb_dp_setup(r)[2] for r in range(2)]
+    model = mlp.MLP(cfg, "cpu", params=mlp.params_from_jax(init, "cpu"))
+    apply = make_leaf_apply(_adam(model.parameters()))
+    params = dict(model.named_parameters())
+    late = {}
+    for carried in schedule:
+        per_rank = []
+        for b in batches:
+            model.zero_grad(set_to_none=True)
+            mlp.loss_fn(model.params(), b, cfg).backward()
+            per_rank.append({n: p.grad.clone() for n, p in params.items()})
+        grads = {n: (per_rank[0][n] + per_rank[1][n]).div_(2)
+                 for n in params}
+        for n, g in late.items():
+            params[n].grad = g
+            apply.step(params[n])
+        late = {}
+        for n, p in params.items():
+            if "grad/" + n in carried:
+                late[n] = grads[n]
+            else:
+                p.grad = grads[n]
+                apply.step(p)
+    for n, g in late.items():
+        params[n].grad = g
+        apply.step(params[n])
+    return {n: p.detach().numpy() for n, p in params.items()}
+
+
+def test_dp_group_of_two_carries_alike_and_equals_the_replay(
+        monkeypatch, tmp_path):
+    """A dp group of two gloo processes at staleness 1 against a slowed,
+    throttled server, the keys after the backward: the root decides the
+    carry, and both ranks carry the same leaves in every step, land them
+    in the next (``flush()`` the last), and end bit for bit on the same
+    parameters, those of a local replay of the carry schedule on the
+    ranks' mean gradient."""
+    import multiprocessing as mp
+
+    import _torch_port_worker as W
+    for k in XB_VARS:
+        monkeypatch.delenv(k, raising=False)
+    # the server reads these as it starts
+    for k, v in {"BYTEPS_CROSS_BARRIER": "1", "BYTEPS_STALENESS": "1",
+                 "BYTEPS_CHAOS_SLOW_SERVER": "10",
+                 "BYTEPS_SERVER_THROTTLE_MBPS": "100"}.items():
+        monkeypatch.setenv(k, v)
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    with ps_server() as port:
+        procs = [ctx.Process(target=W.run_dp_carry, args=(
+            r, 2, str(tmp_path / "store"), port, outs[r])) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=120)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        assert [p.exitcode for p in procs] == [0, 0]
+    a, b = (dict(np.load(o)) for o in outs)
+    np.testing.assert_array_equal(a["carried"], b["carried"])
+    schedule = [set(c.split(";")) - {""} for c in a["carried"]]
+    assert sum(map(len, schedule)) > 0, schedule
+    assert set().union(*schedule) <= {"grad/w0", "grad/w1", "grad/w2",
+                                      "grad/w3"}
+    assert bool(a["flushed_carry"]) and bool(b["flushed_carry"])
+    np.testing.assert_array_equal(a["losses"], b["losses"])
+    assert np.isfinite(a["losses"]).all()
+    want = _dp_replay(schedule)
+    for n, w in want.items():
+        np.testing.assert_array_equal(a["p/" + n], b["p/" + n], err_msg=n)
+        np.testing.assert_array_equal(a["p/" + n], w, err_msg=n)
+
+
+def test_a_join_waits_for_the_carried_round_and_the_replay_holds(
+        monkeypatch):
+    # the join and the drain write the fleet into os.environ: restored
+    # with monkeypatch's records of the same names
+    for name in ("BYTEPS_RETIRED_SERVERS", "BYTEPS_SERVER_HOSTS",
+                 "DMLC_NUM_SERVER"):
+        monkeypatch.setenv(name, "")
+    """At staleness 1, a server joined after a step that carried (the
+    join's quiescence waits for the carried round to land on its old
+    server; the next step lands it as usual) and a drain of server 0 two
+    steps later: the run still equals the local replay of its carry
+    schedule, bit for bit."""
+    import threading
+
+    from byteps_tpu_torch.core import elastic
+    from byteps_tpu_torch.server import run_server
+    from _torch_port_ps_util import _free_port
+    cfg, init, batch = _setup(hidden=(256, 256, 256))
+    for k in XB_VARS:
+        monkeypatch.delenv(k, raising=False)
+    env = {"BYTEPS_FUSION_BYTES": "256", "BYTEPS_CROSS_BARRIER": "1",
+           "BYTEPS_STALENESS": "1", "BYTEPS_CHAOS_SLOW_SERVER": "10",
+           "BYTEPS_SERVER_THROTTLE_MBPS": "100",
+           "BYTEPS_STREAM_EXPORT": "0"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ports = [_free_port(), _free_port()]
+    servers = [threading.Thread(target=run_server, args=(
+        p, Config(num_workers=1, num_servers=1)), daemon=True)
+        for p in ports]
+    for t in servers:
+        t.start()
+    _ps_env(monkeypatch, ports[0])
+    monkeypatch.setenv("BYTEPS_SERVER_HOSTS", f"127.0.0.1:{ports[0]}")
+    model = mlp.MLP(cfg, "cpu", params=mlp.params_from_jax(init, "cpu"))
+    bps.init(device="cpu")
+    try:
+        step = make_ps_train_step(
+            lambda b: mlp.loss_fn(model.params(), b, cfg),
+            _adam(model.parameters()), model.params())
+        per_step = []
+
+        def run():
+            for i in range(6):
+                step(batch)
+                per_step.append(dict(step.counters))
+                if i == 1:
+                    elastic.join_server(bps.get_state(),
+                                        f"127.0.0.1:{ports[1]}")
+                if i == 3:
+                    bps.drain_server(0)
+            step.flush()
+
+        bounded(run)
+        step.close()
+        got = {n: p.detach().numpy().copy()
+               for n, p in model.named_parameters()}
+    finally:
+        bps.shutdown()
+    for t in servers:
+        t.join(10)
+        assert not t.is_alive()
+    # the join came after a step that carried
+    assert per_step[1]["carried_leaves"] > 0, per_step
+    want = _replay(cfg, init, batch, [c["carried"] for c in per_step])
+    for n, a in want.items():
+        np.testing.assert_array_equal(got[n], a, err_msg=n)

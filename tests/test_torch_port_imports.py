@@ -47,8 +47,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_ps_path_modules_are_checked():
-    """The parameter-server slice's modules, the model zoo and the host
-    codecs (lossless, the native codec) are among the files above."""
+    """The parameter-server slice's modules, the model zoo, the host
+    codecs (lossless, the native codec), the elastic fleet and the
+    asynchronous step's modules are among the files above."""
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("config", "core/arena", "core/registry", "core/scheduler",
                 "core/types", "native/build", "ops/compression/host",
@@ -59,7 +60,9 @@ def test_the_ps_path_modules_are_checked():
                 "training/__init__", "models/__init__", "models/common",
                 "models/llama", "models/mlp", "models/vgg",
                 "models/resnet", "models/bert", "models/moe",
-                "ops/compression/lossless", "ops/compression/native"):
+                "ops/compression/lossless", "ops/compression/native",
+                "core/elastic", "core/flight", "core/state",
+                "__init__"):
         assert f"byteps_tpu_torch/{mod}.py" in files, mod
 
 

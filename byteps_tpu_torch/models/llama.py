@@ -14,6 +14,11 @@ and numerics, so the JAX package's weights carry across
 - ``cfg.remat`` recomputes each block in the backward
   (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
   does; the attention forward then runs twice per block and step.
+  ``cfg.remat_policy`` names a ``jax.checkpoint_policies`` policy
+  (``utils/remat.py``) whose saved outputs are not recomputed;
+- ``cfg.xent_chunks`` > 0 takes the cross entropy per vocab chunk
+  (``chunked_next_token_xent``), so the [B, S, V] logits are never
+  resident at once.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.state import resolve_device
+from ..utils.remat import check_policy, remat_call
 
 BLOCK_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -48,6 +54,17 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
     remat: bool = True               # recompute each block in backward
+    # a jax.checkpoint_policies name (utils/remat.py), e.g.
+    # "dots_with_no_batch_dims_saveable": the projections' outputs are
+    # saved, the rest of the block recomputed; None = full recompute
+    remat_policy: Optional[str] = None
+    # > 0: loss_fn takes the cross entropy per vocab chunk, each chunk's
+    # logits recomputed in the backward (chunked_next_token_xent); the
+    # vocab must divide evenly, or the dense path is used
+    xent_chunks: int = 0
+
+    def __post_init__(self):
+        check_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -257,6 +274,45 @@ def next_token_xent(logits: torch.Tensor,
     return torch.mean(lse - picked)
 
 
+def chunked_next_token_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
+                            targets: torch.Tensor,
+                            n_chunks: int) -> torch.Tensor:
+    """Mean next-token cross entropy without the [B, S, V] logits: per
+    vocab chunk, ``hidden @ W_c`` in ``hidden``'s dtype, cast to f32, its
+    logsumexp and the target's logit (-inf where the target lies in
+    another chunk), under a checkpoint that saves nothing, so the chunk's
+    logits are recomputed in the backward; the chunks combine by a
+    logsumexp of their logsumexps and a max of their picks (the target
+    lies in exactly one). Port of byteps_tpu/models/llama.py:214-251."""
+    V = lm_head.shape[1]
+    Vc = V // n_chunks
+    targets = targets.long()
+
+    def chunk_lse_pick(h, wc, base):
+        logits = (h @ wc.to(h.dtype)).to(torch.float32)       # [B, S, Vc]
+        lse_c = torch.logsumexp(logits, dim=-1)
+        inrange = (targets >= base) & (targets < base + Vc)
+        loc = torch.clamp(targets - base, 0, Vc - 1)
+        picked = torch.gather(logits, -1, loc[..., None])[..., 0]
+        return lse_c, torch.where(inrange, picked,
+                                  torch.full((), float("-inf"),
+                                             device=picked.device))
+
+    lses, picks = [], []
+    for c in range(n_chunks):
+        wc = lm_head[:, c * Vc:(c + 1) * Vc]
+        if torch.is_grad_enabled():
+            lse_c, pick_c = checkpoint(chunk_lse_pick, hidden, wc, c * Vc,
+                                       use_reentrant=False)
+        else:
+            lse_c, pick_c = chunk_lse_pick(hidden, wc, c * Vc)
+        lses.append(lse_c)
+        picks.append(pick_c)
+    lse = torch.logsumexp(torch.stack(lses, 0), dim=0)
+    picked = torch.amax(torch.stack(picks, 0), dim=0)
+    return torch.mean(lse - picked)
+
+
 def split_batch(batch: Dict[str, torch.Tensor]) -> tuple:
     """(inputs, targets) from a pre-shifted {'inputs','targets'} batch or
     a raw {'tokens'} batch (shifted here)."""
@@ -276,7 +332,7 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         p = {k: v[layer] for k, v in blk.items()}
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(fn, x, p, cos, sin, use_reentrant=False)
+            x = remat_call(fn, x, p, cos, sin, policy=cfg.remat_policy)
         else:
             x = fn(x, p, cos, sin)
     return _rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -292,6 +348,11 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             cfg: LlamaConfig, attn_impl=None) -> torch.Tensor:
     """Next-token cross entropy of {'tokens': [B, S+1]} or a pre-shifted
-    {'inputs', 'targets'} batch."""
+    {'inputs', 'targets'} batch; per vocab chunk when ``cfg.xent_chunks``
+    divides the vocab."""
     inputs, targets = split_batch(batch)
+    if cfg.xent_chunks > 0 and cfg.vocab_size % cfg.xent_chunks == 0:
+        hidden = forward_hidden(params, inputs, cfg, attn_impl)
+        return chunked_next_token_xent(hidden, params["lm_head"], targets,
+                                       cfg.xent_chunks)
     return next_token_xent(forward(params, inputs, cfg, attn_impl), targets)

@@ -1,8 +1,10 @@
 """The training adapter: ``DistributedOptimizer``,
 ``broadcast_parameters`` and ``broadcast_object``, and the train steps
-(``make_train_step`` over the ``dp`` group, ``make_ps_train_step``
+(``make_train_step`` over the ``dp`` group, ``make_zero_train_step``
+with the optimizer state sharded over it (ZeRO-1), ``make_ps_train_step``
 through the parameter server, ``make_async_ps_train_step`` with
-asynchronous servers).
+asynchronous servers), and ``fused_adam_step``, the hand-fused Adam
+step.
 
 Port of byteps_tpu/jax/__init__.py:49-96 (``distributed_optimizer``,
 ``optax.chain(comm, tx)``) onto a ``torch.optim`` optimizer: ``step()``
@@ -26,12 +28,16 @@ import torch.distributed as dist
 from ..core.state import get_state
 from ..ops.compression import CompressionTransform
 from ..ops.push_pull import all_reduce_, broadcast, broadcast_pickled
-from .train import (make_async_ps_train_step, make_ps_train_step,
-                    make_train_step, named_leaves)
+from .optim import fused_adam_step
+from .train import (ZeroState, init_zero_state, make_async_ps_train_step,
+                    make_ps_train_step, make_train_step,
+                    make_zero_train_step, named_leaves)
 
 __all__ = ["DistributedOptimizer", "distributed_optimizer",
            "broadcast_parameters", "broadcast_object", "make_train_step",
-           "make_ps_train_step", "make_async_ps_train_step"]
+           "make_ps_train_step", "make_async_ps_train_step",
+           "make_zero_train_step", "init_zero_state", "ZeroState",
+           "fused_adam_step"]
 
 
 class DistributedOptimizer:

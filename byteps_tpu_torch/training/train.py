@@ -1,6 +1,7 @@
 """Train-step construction.
 
 Port of byteps_tpu/jax/train.py: ``make_train_step`` (:37-85),
+``make_zero_train_step`` and ``init_zero_state`` (:108-170, :2008-2020),
 ``make_ps_train_step`` (:562-1920), its device-compressed tier (:875-895)
 and its host tier (:928-1874), and ``make_async_ps_train_step``
 (:1921-2005). The JAX steps are compiled programs over
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import hashlib
 import queue
 import threading
@@ -46,6 +48,90 @@ def make_train_step(loss_fn: Callable, optimizer):
         if group is not None and dist.get_world_size(group) > 1:
             dist.all_reduce(loss, group=group)
             loss /= dist.get_world_size(group)
+        return loss
+
+    return step
+
+
+@dataclasses.dataclass
+class ZeroState:
+    """One rank's ZeRO-1 optimizer state: ``shards[i]`` is this rank's
+    flat 1/N shard of leaf ``names[i]`` (``named_leaves`` order, padded
+    as ``shard_layout`` pads), and ``optimizer`` steps over the shards,
+    so each per-element state buffer is 1/N of its leaf."""
+
+    names: List[str]
+    shards: List[torch.Tensor]
+    optimizer: torch.optim.Optimizer
+    group: Any
+
+    def state_bytes(self) -> int:
+        """Bytes of the optimizer's per-element state on this rank (its
+        scalars, such as Adam's step, left out)."""
+        return sum(t.numel() * t.element_size()
+                   for st in self.optimizer.state.values()
+                   for t in st.values()
+                   if isinstance(t, torch.Tensor) and t.dim() > 0)
+
+
+def init_zero_state(params, make_optimizer: Callable, group=None
+                    ) -> ZeroState:
+    """The ZeRO-1 state of ``params`` (a nested dict of tensors or an
+    ``nn.Module``): every leaf reduce-scattered (mean) over the group
+    into this rank's flat shard, and ``make_optimizer(shards)`` over them
+    (``tx.init(shards)`` in the JAX package)."""
+    if group is None:
+        from ..core.state import get_state
+        group = get_state().require().group
+    leaves = named_leaves(params)
+    with torch.no_grad():
+        shards = [torch.nn.Parameter(scatter_leaf(p.detach(), group,
+                                                  average=True))
+                  for _, p in leaves]
+    return ZeroState([n for n, _ in leaves], shards, make_optimizer(shards),
+                     group)
+
+
+def make_zero_train_step(loss_fn: Callable, params, zero_state: ZeroState):
+    """The ZeRO-1 step over ``zero_state.group``: ``loss_fn(batch) ->
+    scalar`` on the local batch (a closure over ``params``). Each step
+    runs the backward, reduce-scatters (mean) the gradients into the
+    shards' ``.grad``, copies this rank's slice of the replicated
+    parameters into the shards (the JAX step reduce-scatters them, as it
+    keeps no shards; the mean of equal values is that slice), runs
+    ``optimizer.step()`` over the shards and all-gathers them back into
+    the parameter tensors in place, so a module's parameters stay the same
+    objects and stay replicated. Returns ``step(batch) -> loss``, the loss
+    meaned over the group."""
+    group = zero_state.group
+    leaves = named_leaves(params)
+    if [n for n, _ in leaves] != zero_state.names:
+        raise ValueError("make_zero_train_step: the parameters are not the "
+                         "leaves of zero_state")
+    tensors = [p for _, p in leaves]
+    shards = zero_state.shards
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+
+    def step(batch):
+        loss = loss_fn(batch)
+        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        with torch.no_grad():
+            for p, g, s in zip(tensors, grads, shards):
+                s.grad = scatter_leaf(g if g is not None
+                                      else torch.zeros_like(p), group,
+                                      average=True)
+                k = s.numel()
+                s.copy_(padded_flat(p, n)[rank * k:(rank + 1) * k])
+            del grads
+            zero_state.optimizer.step()
+            for p, s in zip(tensors, shards):
+                s.grad = None
+                p.copy_(gather_leaf(s, p, group))
+        loss = loss.detach().clone()
+        if n > 1:
+            dist.all_reduce(loss, group=group)
+            loss /= n
         return loss
 
     return step

@@ -97,10 +97,20 @@ result line:
     at staleness 0 bit for bit the synchronous step; at staleness 1
     against a server capped at 2,000 MB/s it carries leaves, flushes
     idempotently and ends bit for bit where a local replay of its carry
-    schedule ends; tokens/s at staleness 0 and 1 without the cap.
+    schedule ends; tokens/s at staleness 0 and 1 without the cap;
+20. ``train_variants``: the plain local fwd + bwd + Adam step on one card
+    under bench.py's four step variants (full remat, the
+    ``dots_with_no_batch_dims_saveable`` remat policy, the chunked-vocab
+    cross entropy in 8 chunks, ``fused_adam_step`` with one launch of the
+    fused Adam kernel a leaf), their gates and tokens/s;
+21. ``zero``: the ZeRO-1 step (optimizer state sharded over the group)
+    with Adam, on one card and, where the machine has two, on two ranks
+    over NCCL, bit for bit a replay of Adam on the mean gradient.
 
-Phases 3 and 5 also hold the two kernels that round as XLA on the CPU
-does (``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
+Phase 3 also holds the fused Adam kernel to its twin (p, m and v bit for
+bit) and times it beside ``torch.optim.Adam(fused=True)``. Phases 3 and
+5 also hold the two kernels that round as XLA on the CPU does
+(``fma_scalar``: the EF LR rescale and the momentum; ``xla_sum``:
 XLA's tree sum of the onebit scale and the L2 norm) to their twins:
 ``xla_sum`` in its three modes (plain, |x|, x * x) at lengths whose tree
 pads levels 1 and 2 on the left, on x and on a view one float past it,
@@ -208,7 +218,7 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     from byteps_tpu_torch.native import build
-    names = ["onebit", "flash_attn_fwd", "counter_rng"]
+    names = ["onebit", "flash_attn_fwd", "counter_rng", "fused_adam"]
     ps = {}
 
     def build_ps():
@@ -3946,6 +3956,488 @@ def phase_zoo(args, card: str, dev=None, tiny: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# the one-device step variants (remat policies, chunked cross entropy,
+# the fused Adam step) and ZeRO-1
+# ---------------------------------------------------------------------- #
+
+VARIANT_STEPS = 4
+ZERO_STEPS = 4
+# an Adam update of the embedding: read p, g, v as f32 and m as bf16,
+# write p, v and m
+ADAM_BYTES_PER_ELEMENT = 24
+
+
+def phase_fused_adam(dev, gen) -> dict:
+    """The fused Adam kernel (``csrc/fused_adam.cu``) bit for bit with its
+    twin on p, m and v after one update, at the embedding's length, at a
+    ragged one and on views one element in (the scalar path); then timed
+    at the embedding's shape beside the twin and
+    ``torch.optim.Adam(fused=True)`` stepping that one parameter (which
+    keeps m in f32: 28 bytes an element)."""
+    import torch
+    from byteps_tpu_torch.ops import fused_adam as FA
+
+    worst = 0.0
+    for n in (EMBED_N, RAGGED_N):
+        p = torch.randn(n + 1, generator=gen, device=dev) * 0.02
+        m = (torch.randn(n + 1, generator=gen, device=dev) * 1e-3).to(
+            torch.bfloat16)
+        v = torch.rand(n + 1, generator=gen, device=dev) * 1e-6
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        for view in (slice(0, n), slice(1, n + 1)):
+            for count in (1, 1000):
+                bc1, bc2 = FA.bias_corrections(count, 0.9, 0.999)
+                got = [t[view].clone() for t in (p, m, v)]
+                want = [t[view].clone() for t in (p, m, v)]
+                FA.fused_adam_leaf(got[0], g, got[1], got[2], 1e-3, 0.9,
+                                   0.999, 1e-8, bc1, bc2)
+                FA.fused_adam_leaf_plain(want[0], g, want[1], want[2], 1e-3,
+                                         0.9, 0.999, 1e-8, bc1, bc2)
+                torch.cuda.synchronize()
+                for a, b, name in zip(got, want, "pmv"):
+                    err = float((a.float() - b.float()).abs().max())
+                    worst = max(worst, err)
+                    if not torch.equal(a, b):
+                        fail(f"fused_adam differs from its twin on {name} "
+                             f"at n={n}, view {view}, count {count}: "
+                             f"{int((a != b).sum())} elements, max abs err "
+                             f"{err}")
+    print(f"fused_adam: bit-exact with its twin on p, m and v at n in "
+          f"{(EMBED_N, RAGGED_N)}, aligned and one element in, counts 1 "
+          f"and 1000", flush=True)
+    n = EMBED_N
+    p = torch.randn(n, generator=gen, device=dev) * 0.02
+    g = torch.randn(n, generator=gen, device=dev) * 1e-2
+    m = torch.zeros(n, dtype=torch.bfloat16, device=dev)
+    v = torch.zeros(n, device=dev)
+    bc1, bc2 = FA.bias_corrections(1, 0.9, 0.999)
+    ms = cuda_graph_ms(lambda: FA.fused_adam_leaf(p, g, m, v, 1e-3, 0.9,
+                                                  0.999, 1e-8, bc1, bc2))
+    plain_ms = cuda_ms(lambda: FA.fused_adam_leaf_plain(
+        p, g, m, v, 1e-3, 0.9, 0.999, 1e-8, bc1, bc2), 5)
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = g.clone()
+    lib = torch.optim.Adam([lib_p], lr=1e-3, fused=True)
+    library_ms = cuda_ms(lib.step, 20)
+    entry = dict(
+        name="fused_adam", route="cuda",
+        source="byteps_tpu_torch/csrc/fused_adam.cu",
+        replaces="byteps_tpu/jax/optim.py:36", max_abs_err=worst, ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=ADAM_BYTES_PER_ELEMENT * n / PEAK_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=library_ms)
+    print(f"fused_adam n={n}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms at 24 B an element, library "
+          f"torch.optim.Adam(fused=True) {library_ms:.4f} ms at 28 B an "
+          f"element)", flush=True)
+    return entry
+
+
+def _grads_at(model, cfg, batch, attn) -> tuple:
+    """The loss and every gradient of ``model`` under ``cfg``, nothing
+    left in ``.grad``."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    loss = llama.loss_fn(model.params(), batch, cfg, attn)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach(), grads
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() /
+                 b.float().norm().clamp_min(1e-30))
+
+
+def phase_train_variants(args, card: str, dev=None, cfg=None, B: int = 4,
+                         S: int = 2048) -> dict:
+    """The plain local fwd + bwd + Adam step of ``bench.py``'s
+    ``phase_train`` on one card, no PS and no compression, Llama small()
+    (flash attention, seeded), under its four variants for VARIANT_STEPS
+    steps each from the same weights: ``remat`` (full recompute,
+    ``torch.optim.Adam(1e-3)``), ``remat_dots_nb``
+    (``remat_policy="dots_with_no_batch_dims_saveable"``), ``chunked8``
+    (``xent_chunks=8`` over remat) and ``fused_adam``
+    (``fused_adam_step`` over remat_dots_nb's config). Tokens/s over steps
+    1.. and peak memory of each. Gates: every loss finite; from the same
+    weights and batch, remat_dots_nb's loss and every gradient equal
+    remat's bit for bit; chunked8's loss within 1e-5 relative of remat's
+    and each gradient within 1e-4 relative L2 in f32, and in bf16 the
+    loss within 1e-3 and each gradient at most 1.3 times as far from the
+    f32 gradient as remat's; fused_adam's first update
+    bit for bit its twin on the same gradients (caught by hooks on the
+    leaves); 24 B1 launches a step on every variant and one fused Adam
+    launch a leaf a step. fused_adam's peak leaves out its gate (steps
+    1..). With ``--profile``, one more step of each variant under
+    ``profile_step``, after its counts are read. Returns each variant's
+    launches."""
+    import dataclasses
+
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.ops import fused_adam as FAD
+    from byteps_tpu_torch.training import fused_adam_step
+
+    dev = torch.device(dev) if dev is not None else torch.device("cuda", 0)
+    on_card = dev.type == "cuda"
+    cfg = cfg if cfg is not None else llama.LlamaConfig.small()
+    cfg = dataclasses.replace(cfg, remat=True)
+    configs = {
+        "remat": cfg,
+        "remat_dots_nb": dataclasses.replace(
+            cfg, remat_policy="dots_with_no_batch_dims_saveable"),
+        "chunked8": dataclasses.replace(cfg, xent_chunks=8)}
+    configs["fused_adam"] = configs["remat_dots_nb"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    model = llama.Llama(cfg, device=dev, generator=gen)
+    init = [p.detach().clone() for p in model.parameters()]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    attn = FA.make_flash_attn()
+    n_leaves = len(init)
+
+    def reset():
+        """The initial weights, no gradients: a variant's peak holds
+        nothing of the one before."""
+        with torch.no_grad():
+            for p, x in zip(model.parameters(), init):
+                p.copy_(x)
+                p.grad = None
+
+    # the gates from the same weights and batch
+    ref_loss, ref = _grads_at(model, configs["remat"], batch, attn)
+    loss, grads = _grads_at(model, configs["remat_dots_nb"], batch, attn)
+    bad = [i for i, (a, b) in enumerate(zip(grads, ref))
+           if not torch.equal(a, b)]
+    if not torch.equal(loss, ref_loss) or bad:
+        fail(f"train_variants: remat_dots_nb's loss {float(loss)} or "
+             f"gradients {bad} differ from remat's ({float(ref_loss)})")
+    del grads
+    # chunked8 against remat. In f32 the two differ by the order of the
+    # logsumexps alone: loss within 1e-5 relative, every gradient within
+    # 1e-4 relative L2 (the card read 0 and 2.4e-6 at most). In bf16 each
+    # chunk's share of the hidden state's gradient is rounded to bf16
+    # before the shares (which largely cancel) are added, as in the JAX
+    # function (its bf16 run on the CPU shows the same gap at the head), so
+    # there each gradient's distance from the f32 one may be at most 1.3
+    # times remat's own (the card read 1.14 times at most), and the loss
+    # within 1e-3 relative
+    f32 = {k: dataclasses.replace(configs[k], dtype=torch.float32)
+           for k in ("remat", "chunked8")}
+    loss32, truth = _grads_at(model, f32["remat"], batch, attn)
+    c_loss32, grads = _grads_at(model, f32["chunked8"], batch, attn)
+    loss_rel32 = abs(float(c_loss32) - float(loss32)) / abs(float(loss32))
+    rels32 = [_rel_l2(a, b) for a, b in zip(grads, truth)]
+    del grads
+    loss, grads = _grads_at(model, configs["chunked8"], batch, attn)
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    rels = [_rel_l2(a, b) for a, b in zip(grads, ref)]
+    own = [_rel_l2(a, t) for a, t in zip(ref, truth)]
+    mine = [_rel_l2(a, t) for a, t in zip(grads, truth)]
+    print(f"train_variants: from the same weights, remat_dots_nb's loss and "
+          f"all {n_leaves} gradients equal remat's bit for bit. chunked8 in "
+          f"f32: loss {float(c_loss32):.6f} against {float(loss32):.6f} "
+          f"(relative {loss_rel32:.3e}), gradients' relative L2 at most "
+          f"{max(rels32):.3e}; in bf16: loss {float(loss):.6f} against "
+          f"{float(ref_loss):.6f} (relative {loss_rel:.3e}), gradients' "
+          f"relative L2 from remat's {['%.3e' % x for x in rels]}; from the "
+          f"f32 gradients chunked8 {['%.3e' % x for x in mine]}, remat "
+          f"{['%.3e' % x for x in own]}", flush=True)
+    if loss_rel32 > 1e-5 or max(rels32) >= 1e-4 or loss_rel > 1e-3 or any(
+            m > 1.3 * o for m, o in zip(mine, own)):
+        fail(f"train_variants: chunked8 off remat: f32 loss {loss_rel32:.3e}"
+             f", gradients {rels32}; bf16 loss {loss_rel:.3e}, distance "
+             f"from the f32 gradients {mine} against remat's {own}")
+    del truth
+    del grads, ref
+
+    out = {}
+    for name, c in configs.items():
+        reset()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        FA.flash_attention_fwd.launches = 0
+        FAD.fused_adam_leaf.launches = 0
+        if name == "fused_adam":
+            init_fn, fstep = fused_adam_step(
+                lambda p, b, c=c: llama.loss_fn(p, b, c, attn))
+            state = init_fn(model.params())
+            caught = {}
+            hooks = [p.register_hook(
+                lambda g, i=i: caught.__setitem__(i, g.clone()))
+                for i, p in enumerate(model.parameters())]
+            holder = {"state": state}
+
+            def body():
+                _, holder["state"], l = fstep(model.params(),
+                                              holder["state"], batch)
+                for h in hooks:
+                    h.remove()
+                hooks.clear()
+                return float(l)
+        else:
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+            def body(c=c, opt=opt):
+                opt.zero_grad(set_to_none=True)
+                loss = llama.loss_fn(model.params(), batch, c, attn)
+                loss.backward()
+                opt.step()
+                return float(loss.detach())
+        if name == "fused_adam":
+            losses, times = _timed_loop(1, body, on_card, f"variant {name}")
+            # the first update against the twin on the caught gradients
+            bc1, bc2 = FAD.bias_corrections(1, 0.9, 0.999)
+            bad = []
+            for i, (p, x) in enumerate(zip(model.parameters(), init)):
+                t, m = x.clone(), torch.zeros_like(x, dtype=torch.bfloat16)
+                FAD.fused_adam_leaf_plain(t, caught[i], m,
+                                          torch.zeros_like(x), 1e-3, 0.9,
+                                          0.999, 1e-8, bc1, bc2)
+                if not torch.equal(p.detach(), t):
+                    bad.append(i)
+            if len(caught) != n_leaves or bad:
+                fail(f"train_variants: fused_adam's first update differs "
+                     f"from its twin on leaves {bad} ({len(caught)} "
+                     f"gradients caught)")
+            # the peak of the steps, not of the gate's copies
+            caught.clear()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            more, t_more = _timed_loop(VARIANT_STEPS - 1, body, on_card,
+                                       f"variant {name}")
+            losses, times = losses + more, times + t_more
+        else:
+            losses, times = _timed_loop(VARIANT_STEPS, body, on_card,
+                                        f"variant {name}")
+        launches = {"flash_attn_fwd": FA.flash_attention_fwd.launches,
+                    "fused_adam": FAD.fused_adam_leaf.launches}
+        want = {"flash_attn_fwd": 24 * VARIANT_STEPS if on_card else 0,
+                "fused_adam": (n_leaves * VARIANT_STEPS
+                               if name == "fused_adam" and on_card else 0)}
+        if launches != want:
+            fail(f"train_variants {name}: launches {launches}, not {want}")
+        tok_s = _tokens_per_s(times, B * S)
+        print(f"train_variants {name}: {tok_s:.1f} tokens/s over steps "
+              f"1..{VARIANT_STEPS - 1} on {card}; steps "
+              f"{['%.1f' % (t * 1e3) for t in times]} ms; losses "
+              f"{['%.6f' % x for x in losses]}; peak memory "
+              f"{_peak_gb(dev):.2f} GB; launches {launches}", flush=True)
+        if args.profile:
+            bounded(lambda: profile_step(lambda _: body(), batch,
+                                         args.profile, f"variant_{name}"),
+                    "profiled step")
+        out[name] = launches
+        body = opt = state = holder = None
+    del model, init
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zero_run(cfg, dev, rank: int, world: int, seed: int, B: int, S: int,
+              group) -> dict:
+    """ZeRO_STEPS ZeRO-1 steps of Llama ``cfg`` with Adam(1e-3) on this
+    rank's batch inside an ``init``ed group, then a replay of plain Adam
+    over the whole leaves on the group's mean gradient from the same
+    weights: the elements that differ, times, losses, B1 launches, the
+    optimizer state's bytes and the peak memory."""
+    import torch
+    import torch.distributed as dist
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.ops.push_pull import shard_layout
+    from byteps_tpu_torch.training import (init_zero_state,
+                                           make_zero_train_step)
+
+    on_card = dev.type == "cuda"
+    model = llama.Llama(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 31))
+    init = _tree_clone(model.params())
+    attn = FA.make_flash_attn()
+    batch = _dp2_tokens(cfg, rank, seed, B, S, dev)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    objects = list(model.parameters())
+    zs = init_zero_state(model.params(), _adam)
+    step = make_zero_train_step(
+        lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+        model.params(), zs)
+    FA.flash_attention_fwd.launches = 0
+    losses, times = _timed_loop(ZERO_STEPS, lambda: float(step(batch)),
+                                on_card, f"zero (rank {rank})")
+    launches = FA.flash_attention_fwd.launches
+    peak = _peak_gb(dev)
+    state_bytes = zs.state_bytes()
+    want_bytes = 2 * 4 * sum(shard_layout(p.numel(), world)[0]
+                             for p in model.parameters())
+    same_objects = all(a is b for a, b in zip(objects, model.parameters()))
+    del step, zs
+    ref = llama.Llama(cfg, device=dev, params=init)
+    opt = _adam(ref.parameters())
+    for _ in range(ZERO_STEPS):
+        opt.zero_grad(set_to_none=True)
+        llama.loss_fn(ref.params(), batch, cfg, attn).backward()
+        for p in ref.parameters():
+            dist.all_reduce(p.grad, group=group)
+            p.grad /= world
+        opt.step()
+    differ = _differ(model.parameters(), ref.parameters())
+    return dict(losses=losses, times=times, launches=launches, peak=peak,
+                state_bytes=state_bytes, want_bytes=want_bytes,
+                n_bytes=sum(p.numel() * 4 for p in model.parameters()),
+                differ=differ, same_objects=same_objects)
+
+
+def _zero_check(label: str, r: dict, on_card: bool) -> None:
+    if r["differ"]:
+        fail(f"{label}: the parameters differ from the replay of Adam on "
+             f"the mean gradient: elements per leaf {r['differ']}")
+    if not r["same_objects"]:
+        fail(f"{label}: the step replaced the module's parameter objects")
+    if r["state_bytes"] != r["want_bytes"]:
+        fail(f"{label}: optimizer state {r['state_bytes']} B, not "
+             f"{r['want_bytes']} (two f32 moments of one shard a leaf)")
+    if on_card and r["launches"] != 24 * ZERO_STEPS:
+        fail(f"{label}: {r['launches']} B1 launches in {ZERO_STEPS} steps, "
+             f"not 24 a step")
+
+
+def _zero_rank(rank, world, dev, port, seed, cfg_name, B, S, q) -> None:
+    """One rank of ``zero``'s group (a spawned process): NCCL, a card a
+    rank, from BYTEPS_LOCAL_RANK / BYTEPS_LOCAL_SIZE / BYTEPS_COORD_PORT;
+    puts (rank, result) on ``q``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S, exit=True)
+    try:
+        import torch
+        sys.path.insert(0, ROOT)
+        import byteps_tpu_torch as bps
+
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        os.environ.pop("DMLC_NUM_SERVER", None)
+        os.environ.update({"BYTEPS_LOCAL_RANK": str(rank),
+                           "BYTEPS_LOCAL_SIZE": str(world),
+                           "BYTEPS_COORD_PORT": str(port)})
+        bps.init(device=dev)
+        try:
+            r = _zero_run(_dp2_cfg(cfg_name), dev, rank, world, seed, B, S,
+                          bps.get_state().group)
+        finally:
+            bps.shutdown()
+        q.put((rank, r))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def _zero_report(label: str, card: str, runs: list, B: int, S: int) -> None:
+    world = len(runs)
+    steady = [max(ts) for ts in zip(*(r["times"][1:] for r in runs))]
+    tok_s = world * B * S / (sum(steady) / len(steady))
+    r = runs[0]
+    print(f"{label}: {tok_s:.1f} tokens/s for the group over steps "
+          f"1..{ZERO_STEPS - 1} on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in steady]} ms; losses "
+          f"{['%.6f' % x for x in r['losses']]}; optimizer state "
+          f"{r['state_bytes']} B a rank against {2 * r['n_bytes']} B of "
+          f"whole-leaf Adam ({r['state_bytes'] / (2 * r['n_bytes']):.4f}); "
+          f"peak memory {max(x['peak'] for x in runs):.2f} GB; B1 launches "
+          f"a step a rank {r['launches'] / ZERO_STEPS:.0f}; parameters bit "
+          f"for bit the replay of Adam on the mean gradient", flush=True)
+
+
+def phase_zero(args, card: str, dev_type: str = "cuda",
+               cfg_name: str = "small", B: int = 4, S: int = 2048) -> dict:
+    """ZeRO-1 (``init_zero_state``, ``make_zero_train_step``) on Llama
+    small() with Adam(1e-3), ZERO_STEPS steps: in this process on one
+    card (a group of one over NCCL: the collectives run, degenerate),
+    then, where the machine has two cards, two ranks on two cards over
+    NCCL (spawned). Each run's parameters must end bit for bit where a
+    replay of ``torch.optim.Adam`` over the whole leaves on the group's
+    mean gradient leaves them, the module's parameter objects kept, the
+    optimizer state two f32 moments of one 1/N shard a leaf. Returns the
+    one-card run's launches."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import torch
+    import byteps_tpu_torch as bps
+
+    on_card = dev_type == "cuda"
+    with restored_env():
+        os.environ.pop("DMLC_NUM_SERVER", None)
+        for k in ("BYTEPS_LOCAL_RANK", "BYTEPS_LOCAL_SIZE"):
+            os.environ.pop(k, None)
+        bps.init(device=None if on_card else "cpu")
+        try:
+            dev = bps.get_state().device
+            one = _zero_run(_dp2_cfg(cfg_name), dev, 0, 1, args.seed, B, S,
+                            bps.get_state().group)
+        finally:
+            bps.shutdown()
+    _zero_check("zero (one card)", one, on_card)
+    _zero_report(f"zero, one process ({dev_type})", card, [one], B, S)
+    if on_card:
+        torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count() if on_card else 0
+    if on_card and n_cards < 2:
+        print(f"zero two ranks: NOT RUN on this machine ({n_cards} card): "
+              f"the group over NCCL takes one rank per card, and gloo has "
+              f"no reduce-scatter or all-gather of card tensors", flush=True)
+        return {"flash_attn_fwd": one["launches"]}
+    devs = ["cuda:0", "cuda:1"] if on_card else ["cpu", "cpu"]
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_zero_rank, args=(
+        r, 2, devs[r], port, args.seed, cfg_name, B, S, q))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        deadline = time.time() + PS_TIMEOUT_S
+        while len(res) < 2:
+            try:
+                rank, r = q.get(timeout=2.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead or time.time() > deadline:
+                    fail(f"zero two ranks: no result from rank(s) "
+                         f"{sorted(set(range(2)) - set(res))}; exit codes "
+                         f"{[p.exitcode for p in procs]}")
+                continue
+            res[rank] = r
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank, r in sorted(res.items()):
+        if "error" in r:
+            fail(f"zero rank {rank} raised:\n{r['error']}")
+        _zero_check(f"zero rank {rank}", r, on_card)
+    if res[0]["losses"] != res[1]["losses"]:
+        fail(f"zero two ranks: the group's losses differ: "
+             f"{res[0]['losses']}, {res[1]['losses']}")
+    _zero_report(f"zero, two ranks ({devs[0]}, {devs[1]})", card,
+                 [res[0], res[1]], B, S)
+    return {"flash_attn_fwd": one["launches"]}
+
+
 def _shapes(model):
     """A model's parameter shapes as the nested dict its params() has."""
     def walk(node):
@@ -4070,6 +4562,10 @@ def main() -> int:
     ap.add_argument("--zoo-only", action="store_true",
                     help="build, then run only the zoo phase; no result "
                          "line")
+    ap.add_argument("--zero-only", action="store_true",
+                    help="build, then run only the zero phase (its two "
+                         "ranks on a machine with several cards); no "
+                         "result line")
     args = ap.parse_args()
     if args.steps < 3:
         fail("--steps must be at least 3")
@@ -4092,6 +4588,9 @@ def main() -> int:
     if args.zoo_only:
         phase_zoo(args, card)
         return 0
+    if args.zero_only:
+        phase_zero(args, card)
+        return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = phase_onebit(dev, gen)
@@ -4099,9 +4598,12 @@ def main() -> int:
     kernels.extend(phase_dither(dev, gen, args.seed))
     kernels.append(phase_randomk(dev, args.seed))
     kernels.extend(phase_xla_rounding(dev, gen))
+    kernels.append(phase_fused_adam(dev, gen))
     phase_small_model(dev)
     launches = phase_train(args, card)
     onebit_run = dict(launches)
+    variants = phase_train_variants(args, card)
+    zero = phase_zero(args, card)
     coll = phase_collective_codecs(args, card)
     ps = phase_ps_train(args, card)
     phase_ps_host(args, card)
@@ -4132,6 +4634,8 @@ def main() -> int:
     for name in ("dithering_levels", "dithering_dequantize"):
         launches[name] = coll["dithering"][name]
     launches["randomk_indices"] = coll["randomk"]["randomk_indices"]
+    # the fused Adam kernel from train_variants' fused_adam run (12 a step)
+    launches["fused_adam"] = variants["fused_adam"]["fused_adam"]
     # and the zoo's paths beside them, each counted from 0 on its own: B2,
     # B3, xla_sum and fma_scalar from BERT-large's collective onebit, B4
     # and the dequantization from VGG-16's device-tier dithering
@@ -4147,7 +4651,7 @@ def main() -> int:
         "torch adapter, two workers (worker 0)": adapter_2w,
         "ps rowsparse": rowsparse, "ps elastic": elastic,
         "ps async": ps_async, "ps cross-barrier dp2 (rank 0)": xb_dp2,
-        "zoo": zoo}), flush=True)
+        "zoo": zoo, "train variants": variants, "zero": zero}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     print(f"chip_smoke: every phase passed, "

@@ -465,3 +465,137 @@ def run_elastic_mixed(ports, out_path: str) -> None:
     finally:
         bps.shutdown()
     np.savez(out_path, **out)
+
+
+# ``make_zero_train_step`` on a dp group of two: Llama tiny() in f32
+ZERO_V, ZERO_S, ZERO_LR = 64, 32, 0.05
+ZERO_ADAM_STEPS, ZERO_SGD_STEPS = 3, 2
+ODD_SHAPES = {"odd": (7, 3), "vec": (5,)}
+
+
+def zero_tokens():
+    """Row r is rank r's batch (device r's of the JAX mesh)."""
+    return np.random.RandomState(5).randint(
+        0, ZERO_V, (2, ZERO_S + 1)).astype(np.int32)
+
+
+def odd_tree_inputs():
+    """A tree with leaves of odd sizes (padded shards) and, per rank, the
+    weights of a quadratic loss over it."""
+    rng = np.random.RandomState(7)
+    params = {k: rng.randn(*s).astype(np.float32)
+              for k, s in ODD_SHAPES.items()}
+    weights = [{k: rng.randn(*s).astype(np.float32)
+                for k, s in ODD_SHAPES.items()} for _ in range(2)]
+    return params, weights
+
+
+def _replay_adam(tensors, loss_of, steps, group):
+    """Adam over the whole leaves on the group's mean gradient."""
+    import torch
+    import torch.distributed as dist
+
+    opt = torch.optim.Adam(tensors, lr=1e-3)
+    for _ in range(steps):
+        loss = loss_of()
+        grads = torch.autograd.grad(loss, tensors)
+        for t, g in zip(tensors, grads):
+            dist.all_reduce(g, group=group)
+            t.grad = g / dist.get_world_size(group)
+        opt.step()
+
+
+def run_zero(rank: int, world: int, store_path: str, params_path: str,
+             out_path: str) -> None:
+    """One rank of the ZeRO-1 runs: Adam on Llama tiny() and on a tree of
+    odd-sized leaves, each beside a replay of Adam on the mean gradient
+    over the whole leaves; SGD + momentum on tiny() for the comparison
+    with JAX. Saves parameters, losses, shard and state sizes."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import llama as tl
+    from byteps_tpu_torch.training import (init_zero_state,
+                                           make_zero_train_step)
+
+    init = _load_params(params_path)
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=ZERO_V,
+                                                  seq=ZERO_S),
+                              dtype=torch.float32)
+    batch = {"tokens": torch.from_numpy(zero_tokens()[rank: rank + 1])}
+    bps.init(device="cpu", store=dist.FileStore(store_path, world),
+             rank=rank, world_size=world)
+    out = {}
+    try:
+        group = bps.get_state().group
+
+        def llama():
+            return tl.Llama(cfg, device="cpu",
+                            params=tl.params_from_jax(init, device="cpu"))
+
+        # Adam on Llama: ZeRO against the replay
+        model = llama()
+        params_before = [p for p in model.parameters()]
+        zs = init_zero_state(model.params(),
+                             lambda s: torch.optim.Adam(s, lr=1e-3))
+        step = make_zero_train_step(
+            lambda b: tl.loss_fn(model.params(), b, cfg), model.params(), zs)
+        out["adam/losses"] = np.array([float(step(batch))
+                                       for _ in range(ZERO_ADAM_STEPS)])
+        out["adam/same_objects"] = np.array(all(
+            a is b for a, b in zip(params_before, model.parameters())))
+        replay = llama()
+        _replay_adam(list(replay.parameters()),
+                     lambda: tl.loss_fn(replay.params(), batch, cfg),
+                     ZERO_ADAM_STEPS, group)
+        for (n, p), q in zip(model.named_parameters(), replay.parameters()):
+            key = n.replace(".", "/")
+            out["adam/p/" + key] = p.detach().numpy().copy()
+            out["adam/replay/" + key] = q.detach().numpy().copy()
+        out["adam/names"] = np.array(zs.names)
+        out["adam/shard_len"] = np.array([s.numel() for s in zs.shards])
+        out["adam/state_len"] = np.array([
+            [zs.optimizer.state[s]["exp_avg"].numel(),
+             zs.optimizer.state[s]["exp_avg_sq"].numel()]
+            for s in zs.shards])
+        out["adam/state_bytes"] = np.array(zs.state_bytes())
+
+        # Adam on a tree of odd-sized leaves
+        p0, weights = odd_tree_inputs()
+        w = {k: torch.from_numpy(v) for k, v in weights[rank].items()}
+
+        def odd_loss(tree):
+            return sum(torch.sum(w[k] * tree[k] * tree[k]) for k in tree)
+
+        tree = {k: torch.from_numpy(v.copy()).requires_grad_()
+                for k, v in p0.items()}
+        zs = init_zero_state(tree, lambda s: torch.optim.Adam(s, lr=1e-3))
+        step = make_zero_train_step(lambda b: odd_loss(tree), tree, zs)
+        for _ in range(ZERO_ADAM_STEPS):
+            step(None)
+        ref = {k: torch.from_numpy(v.copy()).requires_grad_()
+               for k, v in p0.items()}
+        _replay_adam([ref[k] for k in sorted(ref)], lambda: odd_loss(ref),
+                     ZERO_ADAM_STEPS, group)
+        for k in tree:
+            out["odd/p/" + k] = tree[k].detach().numpy().copy()
+            out["odd/replay/" + k] = ref[k].detach().numpy().copy()
+        for n, s in zip(zs.names, zs.shards):
+            out["odd/shard/" + n] = s.detach().numpy().copy()
+
+        # SGD + momentum on Llama, for JAX
+        model = llama()
+        zs = init_zero_state(model.params(), lambda s: torch.optim.SGD(
+            s, lr=ZERO_LR, momentum=0.9))
+        step = make_zero_train_step(
+            lambda b: tl.loss_fn(model.params(), b, cfg), model.params(), zs)
+        out["sgd/losses"] = np.array([float(step(batch))
+                                      for _ in range(ZERO_SGD_STEPS)])
+        for n, p in model.named_parameters():
+            out["sgd/p/" + n.replace(".", "/")] = p.detach().numpy().copy()
+    finally:
+        bps.shutdown()
+    np.savez(out_path, **out)

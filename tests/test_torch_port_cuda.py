@@ -981,3 +981,73 @@ def test_moe_route_on_the_card_equals_the_cpu(dev):
     for a, b in zip(got[:2], want[:2]):           # dispatch, combine
         assert torch.equal(a.cpu(), b)
     torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 4099, 32000 * 768])
+def test_fused_adam_kernel_bit_exact_with_twin(dev, n):
+    """One launch a leaf, bit for bit the twin at an odd length, lengths
+    that are not a multiple of the 4-element vector and the embedding's,
+    over 3 updates with growing counts; and on views one element in,
+    which take the scalar path."""
+    from byteps_tpu_torch.ops import fused_adam as FA
+
+    g0 = torch.Generator(device=dev).manual_seed(n)
+    p = torch.randn(n + 1, generator=g0, device=dev) * 0.1
+    m = (torch.randn(n + 1, generator=g0, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    v = torch.rand(n + 1, generator=g0, device=dev) * 1e-6
+    for view in (slice(0, n), slice(1, n + 1)):
+        got = [t[view].clone() for t in (p, m, v)]
+        want = [t[view].clone() for t in (p, m, v)]
+        for count in (1, 2, 1000):
+            g = torch.randn(n, generator=g0, device=dev) * 1e-2
+            bc1, bc2 = FA.bias_corrections(count, 0.9, 0.999)
+            before = FA.fused_adam_leaf.launches
+            FA.fused_adam_leaf(got[0], g, got[1], got[2], 1e-3, 0.9, 0.999,
+                               1e-8, bc1, bc2)
+            assert FA.fused_adam_leaf.launches == before + 1
+            FA.fused_adam_leaf_plain(want[0], g, want[1], want[2], 1e-3,
+                                     0.9, 0.999, 1e-8, bc1, bc2)
+            torch.cuda.synchronize()
+            for a, b, name in zip(got, want, "pmv"):
+                assert torch.equal(a, b), (name, count, view,
+                                           int((a != b).sum()))
+
+
+def test_fused_adam_step_on_the_card_equals_its_twin(dev):
+    """``fused_adam_step`` on Llama ``tiny()`` in f32 on the card: one
+    launch a leaf a step, and the weights where the twin leaves them on
+    the gradients the step computed (caught by hooks on the leaves)."""
+    import dataclasses
+
+    from byteps_tpu_torch.models import llama as tl
+    from byteps_tpu_torch.ops import fused_adam as FA
+    from byteps_tpu_torch.training import fused_adam_step
+
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=64, seq=64),
+                              dtype=torch.float32)
+    model = tl.Llama(cfg, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, 64, (2, 65), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    params = model.params()
+    leaves = list(model.parameters())
+    twin = [p.detach().clone() for p in leaves]
+    moments = [(torch.zeros_like(p, dtype=torch.bfloat16),
+                torch.zeros_like(p)) for p in leaves]
+    grads = {}
+    hooks = [p.register_hook(lambda g, i=i: grads.__setitem__(i, g.clone()))
+             for i, p in enumerate(leaves)]
+    init, step = fused_adam_step(lambda p, b: tl.loss_fn(p, b, cfg))
+    state = init(params)
+    before = FA.fused_adam_leaf.launches
+    step(params, state, {"tokens": tokens})
+    assert FA.fused_adam_leaf.launches == before + len(leaves)
+    for h in hooks:
+        h.remove()
+    bc1, bc2 = FA.bias_corrections(1, 0.9, 0.999)
+    for i, (t, (m, v)) in enumerate(zip(twin, moments)):
+        FA.fused_adam_leaf_plain(t, grads[i], m, v, 1e-3, 0.9, 0.999, 1e-8,
+                                 bc1, bc2)
+    for p, t in zip(leaves, twin):
+        assert torch.equal(p.detach(), t)

@@ -19,7 +19,9 @@ BYTEPS_STALENESS (byteps_tpu/config.py:188-189, 355-356), and the host
 codecs BYTEPS_NATIVE_CODEC (``native_codec_on``; the server reads the
 first two itself). The elastic fleet and the asynchronous step read
 BYTEPS_FORCE_DISTRIBUTED, BYTEPS_RETIRED_SERVERS and BYTEPS_ENABLE_ASYNC
-(byteps_tpu/config.py:73, 205, 223).
+(byteps_tpu/config.py:73, 205, 223). The multi-process runtime of
+``parallel/distributed.py`` reads BYTEPS_NUM_PROCESS, BYTEPS_PROCESS_ID
+and BYTEPS_COORD_PORT (byteps_tpu/config.py:314-316, 403-406).
 """
 
 from __future__ import annotations
@@ -130,6 +132,11 @@ class Config:
     # --- server ---
     server_engine_threads: int = 4        # BYTEPS_SERVER_ENGINE_THREAD
 
+    # --- the multi-process runtime (parallel/distributed.py) ---
+    num_processes: int = 1                # BYTEPS_NUM_PROCESS
+    process_id: int = 0                   # BYTEPS_PROCESS_ID (default: worker_id)
+    coord_port: int = 0                   # BYTEPS_COORD_PORT (0 = scheduler_port + 512)
+
     @staticmethod
     def from_env() -> "Config":
         return Config(
@@ -167,6 +174,10 @@ class Config:
                 os.environ.get("BYTEPS_RETIRED_SERVERS", "").split(",")
                 if tok.strip()),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
+            num_processes=_env_int("BYTEPS_NUM_PROCESS", 1),
+            process_id=_env_int("BYTEPS_PROCESS_ID",
+                                _env_int("DMLC_WORKER_ID", 0)),
+            coord_port=_env_int("BYTEPS_COORD_PORT", 0),
         )
 
 

@@ -9,7 +9,10 @@ passes (such as a ``FileStore`` in a test's temporary directory), or, for
 a group of one, an in-memory store.
 
 Topology comes from the BytePS variables ``BYTEPS_LOCAL_RANK`` and
-``BYTEPS_LOCAL_SIZE`` (default 0 and 1).
+``BYTEPS_LOCAL_SIZE`` (default 0 and 1). A default group that exists
+when ``init`` runs (``parallel/distributed.py`` ``ensure_initialized``)
+is the job's one group: ``init`` takes it, with its rank and size, and
+``shutdown`` leaves it to its maker.
 
 PS mode (byteps_tpu/core/state.py:410-424): with ``DMLC_NUM_SERVER`` > 0
 and the worker role, ``init`` also connects the parameter-server client
@@ -84,6 +87,7 @@ class GlobalState:
         self.config = Config()
         self.device: Optional[torch.device] = None
         self.group = None            # the dp process group
+        self._owns_group = True      # made by init, destroyed by shutdown
         self.local_rank = 0
         self.local_size = 1
         # PS mode (num_servers > 0, worker role); None otherwise
@@ -121,6 +125,11 @@ class GlobalState:
             refresh_level()
             self.config = Config.from_env()
             env = os.environ
+            # a default group made before (parallel/distributed.py
+            # ensure_initialized) is the job's one group: take it
+            self._owns_group = not dist.is_initialized()
+            if not self._owns_group:
+                rank, world_size = dist.get_rank(), dist.get_world_size()
             self.local_rank = rank if rank is not None else \
                 int(env.get("BYTEPS_LOCAL_RANK", "0") or 0)
             self.local_size = world_size if world_size is not None else \
@@ -147,14 +156,15 @@ class GlobalState:
                 store = dist.HashStore()   # one process: no socket
             if store is not None:
                 kw["store"] = store
-            else:
+            elif self._owns_group:
                 port = env.get("BYTEPS_COORD_PORT", "")
                 if not port:
                     raise RuntimeError(
                         "BYTEPS_LOCAL_SIZE > 1 needs BYTEPS_COORD_PORT "
                         "for the loopback rendezvous")
                 kw["init_method"] = f"tcp://127.0.0.1:{port}"
-            dist.init_process_group(**kw)
+            if self._owns_group:
+                dist.init_process_group(**kw)
             self.group = dist.group.WORLD
             from .scheduler import HandleManager
             self.handles = HandleManager()
@@ -163,7 +173,8 @@ class GlobalState:
             except BaseException:
                 self._stop_ps()
                 self.registry = None
-                dist.destroy_process_group()
+                if self._owns_group:
+                    dist.destroy_process_group()
                 raise
             self.initialized = True
             log.info("init: rank %d/%d on %s (%s)%s", self.local_rank,
@@ -301,7 +312,7 @@ class GlobalState:
                 # every rank's rounds are done before the root's SHUTDOWN
                 dist.barrier(group=self.group)
             self._stop_ps()
-            if dist.is_initialized():
+            if dist.is_initialized() and self._owns_group:
                 dist.destroy_process_group()
             self.group = self.handles = self.registry = None
             self.initialized = self.suspended = False

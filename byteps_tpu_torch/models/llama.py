@@ -18,7 +18,10 @@ and numerics, so the JAX package's weights carry across
   (``utils/remat.py``) whose saved outputs are not recomputed;
 - ``cfg.xent_chunks`` > 0 takes the cross entropy per vocab chunk
   (``chunked_next_token_xent``), so the [B, S, V] logits are never
-  resident at once.
+  resident at once;
+- over a mesh (``parallel/``): ``sp_axis`` splits the sequence (ring
+  attention by default, or Ulysses), ``forward_pp``/``loss_fn_pp``
+  pipeline the layers over ``pp``.
 """
 
 from __future__ import annotations
@@ -322,37 +325,115 @@ def split_batch(batch: Dict[str, torch.Tensor]) -> tuple:
 
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
-                   cfg: LlamaConfig, attn_impl=None) -> torch.Tensor:
-    """tokens [B, S] -> final normed hidden [B, S, d] in cfg.dtype."""
+                   cfg: LlamaConfig, attn_impl=None,
+                   sp_axis: Optional[str] = None) -> torch.Tensor:
+    """tokens [B, S] -> final normed hidden [B, S, d] in cfg.dtype.
+
+    ``sp_axis``: with the sequence split over that mesh axis (inside
+    ``with mesh:``), RoPE takes global positions, this rank's chunk
+    starting at axis_index * S, and the attention defaults to ring
+    attention over the axis (local attention would never cross a
+    shard's border)."""
     B, S = tokens.shape
     x = params["embed"].to(cfg.dtype)[tokens.long()]
-    cos, sin = rope_cache(cfg, S, x.device)
-    blk = params["blocks"]
+    if sp_axis is not None:
+        from ..parallel.collectives import axis_index
+        if attn_impl is None:
+            from ..parallel.ring_attention import make_ring_attn
+            attn_impl = make_ring_attn(axis=sp_axis, causal=True)
+        cos, sin = rope_cache(cfg, S, x.device,
+                              offset=axis_index(sp_axis) * S)
+    else:
+        cos, sin = rope_cache(cfg, S, x.device)
+    x = _layers(x, params["blocks"], cos, sin, cfg, attn_impl)
+    return _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _layers(x, blk, cos, sin, cfg: LlamaConfig, attn_impl=None):
+    """The stacked blocks ``blk`` (leading dim: layers) over x, each
+    recomputed in the backward under ``cfg.remat``."""
     fn = functools.partial(_block, cfg=cfg, attn_impl=attn_impl)
-    for layer in range(cfg.n_layers):
+    for layer in range(blk["wq"].shape[0]):
         p = {k: v[layer] for k, v in blk.items()}
         if cfg.remat and torch.is_grad_enabled():
             x = remat_call(fn, x, p, cos, sin, policy=cfg.remat_policy)
         else:
             x = fn(x, p, cos, sin)
-    return _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
-            attn_impl=None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] in cfg.dtype."""
-    x = forward_hidden(params, tokens, cfg, attn_impl)
+            attn_impl=None, sp_axis: Optional[str] = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, vocab] in cfg.dtype (``sp_axis``:
+    see ``forward_hidden``)."""
+    x = forward_hidden(params, tokens, cfg, attn_impl, sp_axis)
     return x @ params["lm_head"].to(cfg.dtype)
 
 
+def forward_pp(params: Dict[str, Any], tokens: torch.Tensor,
+               cfg: LlamaConfig, *, num_microbatches: int,
+               pp_axis: str = "pp") -> torch.Tensor:
+    """Pipeline-parallel forward, inside ``with mesh:``, with
+    ``params["blocks"]`` this stage's n_layers / P layers
+    (``parallel.sharding.llama_pp_param_specs``) and the rest whole.
+    Returns logits valid ONLY on the last stage (zeros elsewhere). The
+    blocks take the dense attention, as JAX's do."""
+    from ..parallel.pipeline import pipeline_forward
+
+    B, S = tokens.shape
+    cos, sin = rope_cache(cfg, S, params["embed"].device)
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+
+    def layer_fn(h, p_layer):
+        return _block(h, p_layer, cos, sin, cfg, None)
+
+    out = pipeline_forward(x, params["blocks"], layer_fn,
+                           num_microbatches=num_microbatches, axis=pp_axis,
+                           remat=cfg.remat)
+    h = _rmsnorm(out, params["final_norm"], cfg.norm_eps)
+    return h @ params["lm_head"].to(cfg.dtype)
+
+
+def loss_fn_pp(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+               cfg: LlamaConfig, *, num_microbatches: int,
+               pp_axis: str = "pp") -> torch.Tensor:
+    """Pipeline-parallel next-token loss, the same on every stage.
+
+    Gradients: the blocks' come out for this stage's layers; those of
+    the replicated leaves (embed, final_norm, lm_head) are each stage's
+    part, to be summed over ``pp_axis``
+    (``parallel.pipeline.replicated_grad_correction``)."""
+    from ..parallel.pipeline import last_stage_value
+
+    inputs, targets = split_batch(batch)
+    logits = forward_pp(params, inputs, cfg,
+                        num_microbatches=num_microbatches, pp_axis=pp_axis)
+    return last_stage_value(next_token_xent(logits, targets), pp_axis)
+
+
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            cfg: LlamaConfig, attn_impl=None) -> torch.Tensor:
+            cfg: LlamaConfig, attn_impl=None,
+            sp_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy of {'tokens': [B, S+1]} or a pre-shifted
-    {'inputs', 'targets'} batch; per vocab chunk when ``cfg.xent_chunks``
-    divides the vocab."""
+    {'inputs', 'targets'} batch (required under ``sp_axis``, where the
+    shift must happen before the split); per vocab chunk when
+    ``cfg.xent_chunks`` divides the vocab. Under ``sp_axis`` the loss is
+    the mean over the axis (``pmean``): each rank's gradient then is its
+    own part, and their mean is the gradient of the whole."""
+    if "inputs" not in batch and sp_axis is not None:
+        raise ValueError(
+            "sequence parallelism requires a pre-shifted batch "
+            "({'inputs', 'targets'}): shifting a sharded 'tokens' "
+            "locally would gap the global sequence")
     inputs, targets = split_batch(batch)
     if cfg.xent_chunks > 0 and cfg.vocab_size % cfg.xent_chunks == 0:
-        hidden = forward_hidden(params, inputs, cfg, attn_impl)
-        return chunked_next_token_xent(hidden, params["lm_head"], targets,
+        hidden = forward_hidden(params, inputs, cfg, attn_impl, sp_axis)
+        loss = chunked_next_token_xent(hidden, params["lm_head"], targets,
                                        cfg.xent_chunks)
-    return next_token_xent(forward(params, inputs, cfg, attn_impl), targets)
+    else:
+        loss = next_token_xent(forward(params, inputs, cfg, attn_impl,
+                                       sp_axis), targets)
+    if sp_axis is not None:
+        from ..parallel.collectives import pmean
+        loss = pmean(loss, sp_axis)
+    return loss

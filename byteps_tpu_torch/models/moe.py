@@ -18,8 +18,12 @@ k-major claims its expert's next position, by an int32 exclusive
 cumsum; a position at or past the capacity is dropped (a zero row, as
 ``one_hot`` of an out-of-range index is).
 
-Expert parallelism (``ep_axis``: the two all_to_alls and
-``ep_grad_correction``) waits for the port of ``parallel/``.
+Expert parallelism: with ``ep_axis`` (a mesh axis, inside ``with
+mesh:``), the experts dim of the expert leaves is split over the axis
+(``parallel.sharding.moe_param_specs``) and two tiled all-to-alls move
+the dispatched slots to their experts' ranks and back;
+``ep_grad_correction`` turns each rank's gradient into the gradient of
+the ranks' mean loss.
 """
 
 from __future__ import annotations
@@ -235,18 +239,28 @@ def moe_layer(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: MoEConfig,
               ep_axis: Optional[str] = None):
     """The MoE FFN of x [B, S, d] with one layer's params ``p``: route,
     dispatch, the experts, combine. Returns (output [B, S, d],
-    aux_loss)."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is not ported yet: it comes with "
-            "the port of byteps_tpu/parallel/")
+    aux_loss).
+
+    With ``ep_axis`` (inside ``with mesh:``), p's expert leaves hold this
+    rank's E / P experts: the dispatched slots [E, C, d] travel to their
+    experts' ranks by an all-to-all (each expert then sees P * C slots,
+    C from every rank) and the experts' outputs come back by the inverse
+    one."""
     B, S, d = x.shape
     dt = cfg.dtype
     x_flat = x.reshape(B * S, d)
     dispatch, combine, aux = _route(x_flat, p["router"], cfg,
                                     capacity(cfg, B * S))
     h = torch.einsum("tec,td->ecd", dispatch.to(dt), x_flat)
-    out_e = _expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], dt)
+    if ep_axis is None:
+        out_e = _expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], dt)
+    else:
+        from ..parallel.collectives import all_to_all
+        h = all_to_all(h, ep_axis, split_axis=0,
+                       concat_axis=1)                 # [E_local, P*C, d]
+        out_e = _expert_ffn(h, p["w_gate"], p["w_up"], p["w_down"], dt)
+        out_e = all_to_all(out_e, ep_axis, split_axis=1,
+                           concat_axis=0)             # [E, C, d]
     out = torch.einsum("tec,ecd->td", combine.to(dt), out_e)
     return out.reshape(B, S, d), aux
 
@@ -255,23 +269,20 @@ def moe_layer(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: MoEConfig,
 # full model
 # --------------------------------------------------------------------- #
 
-def _moe_block(x, p, cos, sin, cfg: MoEConfig):
+def _moe_block(x, p, cos, sin, cfg: MoEConfig,
+               ep_axis: Optional[str] = None):
     """Attention (Llama's sublayer) + the MoE FFN; p: one layer's
     params."""
     x = L.attn_sublayer(x, p, cos, sin, cfg.as_llama())
     h = L._rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    ffn, aux = moe_layer(h, p, cfg)
+    ffn, aux = moe_layer(h, p, cfg, ep_axis)
     return x + ffn, aux
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig,
             ep_axis: Optional[str] = None):
     """tokens [B, S] -> (logits [B, S, vocab] in cfg.dtype, the mean aux
-    loss over the layers)."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (ep_axis) is not ported yet: it comes with "
-            "the port of byteps_tpu/parallel/")
+    loss over the layers); ``ep_axis``: see ``moe_layer``."""
     B, S = tokens.shape
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     cos, sin = L.rope_cache(cfg.as_llama(), S, x.device)
@@ -280,18 +291,45 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: MoEConfig,
     for layer in range(cfg.n_layers):
         p = {k: v[layer] for k, v in blk.items()}
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(_moe_block, x, p, cos, sin, cfg,
+            x, aux = checkpoint(_moe_block, x, p, cos, sin, cfg, ep_axis,
                                 use_reentrant=False)
         else:
-            x, aux = _moe_block(x, p, cos, sin, cfg)
+            x, aux = _moe_block(x, p, cos, sin, cfg, ep_axis)
         auxes.append(aux)
     x = L._rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"].to(cfg.dtype), torch.mean(torch.stack(auxes))
 
 
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def ep_grad_correction(grads: Dict[str, Any], axis: str) -> Dict[str, Any]:
+    """Each rank's gradient of its own loss to the gradient of the ranks'
+    mean loss, under expert parallelism: the expert leaves already hold
+    the sum over the ranks (the dispatch all-to-all's transpose brings
+    every rank's cotangents to the expert's owner) and take the 1 / P of
+    the mean; every other leaf is this rank's part and takes the
+    ``pmean`` over ``axis``."""
+    from ..parallel.collectives import axis_size, pmean
+
+    def fix(path, leaf):
+        if path & set(EXPERT_LEAVES):
+            return leaf / axis_size(axis)
+        return pmean(leaf, axis)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path | {k}) for k, v in node.items()}
+        return fix(path, node)
+
+    with torch.no_grad():
+        return walk(grads, frozenset())
+
+
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             cfg: MoEConfig, ep_axis: Optional[str] = None) -> torch.Tensor:
-    """Next-token cross entropy + the router aux loss."""
+    """Next-token cross entropy + the router aux loss; ``ep_axis``: see
+    ``moe_layer`` and ``ep_grad_correction``."""
     inputs, targets = L.split_batch(batch)
     logits, aux = forward(params, inputs, cfg, ep_axis)
     return L.next_token_xent(logits, targets) + cfg.router_aux_weight * aux

@@ -1,0 +1,260 @@
+"""The collectives of ``jax.lax`` that the JAX package's parallel code
+calls inside ``shard_map``, over the named axes of the active mesh.
+
+Counterparts of ``jax.lax.psum``, ``pmean``, ``ppermute``,
+``all_to_all(split_axis, concat_axis, tiled=True)``, ``axis_index`` and
+``axis_size``. ``axis`` is a mesh axis name, resolved through the active
+mesh (``parallel/mesh.py``) to this rank's process group along it.
+
+Each collective is a ``torch.autograd.Function`` whose backward is JAX's
+transpose of it under ``shard_map(..., check_vma=False)``, the setting
+of every JAX caller the port is held to:
+
+- ``psum``: the cotangent is ``psum``'d (so ``pmean``'s is ``psum``'d and
+  divided by the axis size);
+- ``ppermute``: the cotangent travels the inverse permutation;
+- ``all_to_all``: the cotangent travels the inverse all-to-all (split and
+  concat axes swapped).
+
+So every rank must reach every backward collective, in the same order:
+the callers keep their graphs alike on every rank (``where`` rather than
+a branch on the rank), as SPMD code is.
+
+Transport: NCCL (one rank a card) takes every collective on the card's
+tensors. Gloo takes ``all_reduce`` of card tensors but no all-to-all,
+point-to-point or all-gather of them, so under a gloo group a card
+tensor goes through an explicit host copy for those three: chosen by
+the group's backend (``via_host``), never by catching a failure. That is
+the transport of ranks that share one card.
+
+Byte counters beside each function, as the kernel wrappers keep
+``.launches``: the bytes this rank sends, counted in the forward and in
+the backward (the transpose counts on the counter of the collective it
+runs), at the least a collective of its kind moves:
+
+- ``psum.bytes``: 2 (n - 1) / n of the tensor (a ring all-reduce);
+- ``all_to_all.bytes``: (n - 1) / n of the tensor (the chunks that leave);
+- ``ppermute.bytes``: the tensor, where this rank sends to another one.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..ops.push_pull import tree_map
+from .mesh import active_mesh
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate along ``axis``."""
+    return active_mesh().axis_index(axis)
+
+
+def axis_size(axis: str) -> int:
+    """The size of ``axis`` of the active mesh."""
+    mesh = active_mesh()
+    if axis not in mesh.shape:
+        raise ValueError(f"axis {axis!r} is not an axis of {mesh}")
+    return mesh.shape[axis]
+
+
+def _group(axis: str):
+    return active_mesh().group(axis)
+
+
+def via_host(t: torch.Tensor, group) -> bool:
+    """Whether a card tensor's all-to-all, point-to-point or all-gather
+    goes through a host copy: under a gloo group."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def transport(group) -> str:
+    """The transport of ``group``'s collectives of card tensors, in
+    words."""
+    if dist.get_backend(group) == "gloo":
+        return ("gloo: all_reduce of the card tensors, all_to_all, "
+                "ppermute and all_gather through host copies")
+    return f"{dist.get_backend(group)}: every collective on the card tensors"
+
+
+# ----------------------------------------------------------------------- #
+# the transports, without autograd
+# ----------------------------------------------------------------------- #
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    out = x.detach().clone()
+    if n > 1:
+        dist.all_reduce(out, group=group)
+    psum.bytes += 2 * (n - 1) * out.numel() * out.element_size() // n
+    return out
+
+
+def _exchange(flat: torch.Tensor, out: torch.Tensor, send: Sequence[int],
+              recv: Sequence[int], group) -> None:
+    """``all_to_all_single`` of 1-D ``flat`` into ``out`` with the split
+    sizes ``send`` and ``recv`` (elements, by group rank). The bytes go
+    as bytes, whatever the type (gloo has no arithmetic to do here and
+    not every type)."""
+    size = flat.element_size()
+    send = [s * size for s in send]
+    recv = [r * size for r in recv]
+    flat, out = flat.view(torch.uint8), out.view(torch.uint8)
+    if via_host(flat, group):
+        host_out = torch.empty(out.shape, dtype=out.dtype)
+        dist.all_to_all_single(host_out, flat.cpu(), recv, send,
+                               group=group)
+        out.copy_(host_out)
+    else:
+        dist.all_to_all_single(out, flat, recv, send, group=group)
+
+
+def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+                group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not split into {n}")
+    all_to_all.bytes += (n - 1) * x.numel() * x.element_size() // n
+    if n == 1:
+        return x.detach().clone()
+    chunks = torch.stack(x.detach().chunk(n, split_axis)).contiguous()
+    out = torch.empty_like(chunks)
+    each = chunks.numel() // n
+    _exchange(chunks.reshape(-1), out.reshape(-1), [each] * n, [each] * n,
+              group)
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+def _ppermute(x: torch.Tensor, pairs: Tuple[Tuple[int, int], ...],
+              group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst = [d for s, d in pairs if s == me]
+    src = [s for s, d in pairs if d == me]
+    size = x.numel()
+    if dst and dst[0] != me:
+        ppermute.bytes += size * x.element_size()
+    if n == 1:
+        return x.detach().clone() if src else torch.zeros_like(x)
+    send = [size if dst and j == dst[0] else 0 for j in range(n)]
+    recv = [size if src and j == src[0] else 0 for j in range(n)]
+    flat = x.detach().contiguous().reshape(-1)
+    out = torch.zeros_like(flat) if src else flat.new_empty(0)
+    _exchange(flat if dst else flat[:0], out, send, recv, group)
+    return out.reshape(x.shape) if src else torch.zeros_like(x)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in rank order (no
+    autograd; for gathering shards outside the step)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.detach().clone()
+    src = x.detach().contiguous()
+    flat = src.reshape(-1).view(torch.uint8)
+    if via_host(src, group):
+        parts = [torch.empty_like(flat, device="cpu") for _ in range(n)]
+        dist.all_gather(parts, flat.cpu(), group=group)
+        parts = [p.to(x.device) for p in parts]
+    else:
+        parts = [torch.empty_like(flat) for _ in range(n)]
+        dist.all_gather(parts, flat, group=group)
+    return torch.cat([p.view(src.dtype).reshape(src.shape) for p in parts],
+                     dim=dim)
+
+
+# ----------------------------------------------------------------------- #
+# autograd: each backward is JAX's transpose
+# ----------------------------------------------------------------------- #
+
+class _Psum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Ppermute(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return _ppermute(x, pairs, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.pairs)
+        return _ppermute(g, inverse, ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (_all_to_all(g, concat_axis, split_axis, ctx.group), None,
+                None, None)
+
+
+def psum(x: Any, axis: str) -> Any:
+    """The sum over ``axis`` of ``x`` (a tensor, or a tree of them)."""
+    group = _group(axis)
+    return tree_map(lambda t: _Psum.apply(t, group), x)
+
+
+def pmean(x: Any, axis: str) -> Any:
+    """The mean over ``axis``: ``psum`` divided by the axis size."""
+    n = axis_size(axis)
+    return tree_map(lambda t: t / n, psum(x, axis))
+
+
+def ppermute(x: torch.Tensor, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``x`` sent from ``src`` to ``dst`` for each pair of ``perm`` (axis
+    coordinates); zeros where no pair names this rank as ``dst``."""
+    pairs = tuple((int(s), int(d)) for s, d in perm)
+    if len({s for s, _ in pairs}) != len(pairs) or \
+            len({d for _, d in pairs}) != len(pairs):
+        raise ValueError(f"ppermute: {pairs} is not a permutation")
+    return _Ppermute.apply(x, pairs, _group(axis))
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_axis: int,
+               concat_axis: int, tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: ``x`` split along
+    ``split_axis`` into the axis size's chunks, chunk i to coordinate i,
+    the chunks received concatenated along ``concat_axis`` in coordinate
+    order."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only tiled=True")
+    nd = x.dim()
+    return _AllToAll.apply(x, split_axis % nd, concat_axis % nd,
+                           _group(axis))
+
+
+psum.bytes = 0
+ppermute.bytes = 0
+all_to_all.bytes = 0
+
+
+def reset_bytes() -> None:
+    psum.bytes = ppermute.bytes = all_to_all.bytes = 0
+
+
+def bytes_moved() -> dict:
+    return {"psum": psum.bytes, "ppermute": ppermute.bytes,
+            "all_to_all": all_to_all.bytes}

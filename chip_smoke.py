@@ -105,7 +105,20 @@ result line:
     fused Adam kernel a leaf), their gates and tokens/s;
 21. ``zero``: the ZeRO-1 step (optimizer state sharded over the group)
     with Adam, on one card and, where the machine has two, on two ranks
-    over NCCL, bit for bit a replay of Adam on the mean gradient.
+    over NCCL, bit for bit a replay of Adam on the mean gradient;
+22. ``parallel``: two ranks (a card each over NCCL where the machine
+    has two, else both on one card over gloo, whose all-to-alls and
+    rotations go through host copies) train, 4 Adam steps each from one
+    seeded weight set, Llama small() (B=4, S=2048) under ring attention
+    over ``sp``, under Ulysses with B1 over ``sp``, pipelined over
+    ``pp`` (M = 4), and MoE small() (B=8, S=512) with its experts over
+    ``ep``; each rank's losses, step-0 gradients and parameter moves are
+    held to a one-process replay on the card in bf16 and f32; tokens/s,
+    peak memory, transport and the bytes each collective moved.
+
+Phase 3 also times B1 at the Ulysses path's shape ([4, 2048, 3, 128],
+one KV head a query head) against its twin; ``--parallel-only`` runs
+that and phase 22 alone.
 
 Phase 3 also holds the fused Adam kernel to its twin (p, m and v bit for
 bit) and times it beside ``torch.optim.Adam(fused=True)``. Phases 3 and
@@ -4438,6 +4451,427 @@ def phase_zero(args, card: str, dev_type: str = "cuda",
     return {"flash_attn_fwd": one["launches"]}
 
 
+# ---------------------------------------------------------------------- #
+# the parallel strategies: sp (ring, Ulysses), pp, ep over two ranks
+# ---------------------------------------------------------------------- #
+
+PARALLEL_STEPS = 4
+PARALLEL_PATHS = ("sp_ring", "sp_ulysses", "pp", "ep")
+# the B1 shape on Ulysses' path: small()'s 6 heads split over sp = 2,
+# the 2 KV heads expanded to 6 before the all-to-all
+FLASH_ULYSSES_SHAPE = dict(B=4, S=2048, H=3, Hkv=3, D=128)
+# gates against the one-process replay (tolerances set before the first
+# chip run of the phase): every loss within 2e-3 relative (half of
+# bf16's 2^-8); each gradient of step 0, and each parameter's move over
+# the steps, no farther from the bf16 replay's (relative L2) than 2x the
+# bf16 replay's own distance from the same replay in f32: the parallel
+# path may add no more than its own share of bf16 rounding (two
+# independent bf16 roundings sit sqrt(2) apart)
+PAR_LOSS_RTOL = 2e-3
+PAR_RATIO = 2.0
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _names(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _names(tree[k],
+                                                        f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _par_setup(path: str, dev, rank: int, seed: int, tiny: bool) -> dict:
+    """One path's model, full weights, this rank's batch and weights, its
+    loss and gradient correction, and the replay's loss over the whole
+    batch (``replay(params, cfg)``)."""
+    import dataclasses
+    import functools
+
+    import torch
+    from byteps_tpu_torch.models import llama, moe
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.parallel import collectives as C
+    from byteps_tpu_torch.parallel import pipeline as PL
+    from byteps_tpu_torch.parallel import sharding as sh
+    from byteps_tpu_torch.parallel.ulysses import make_ulysses_attn
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    if path == "ep":
+        cfg = moe.MoEConfig.small() if not tiny else dataclasses.replace(
+            moe.MoEConfig.tiny(vocab_size=64, seq=32), n_experts=4)
+        B, S = (8, 512) if not tiny else (4, 32)
+        full = moe.init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                               device=dev)
+        half = B // 2
+        batches = [{"tokens": tokens[r * half:(r + 1) * half]}
+                   for r in range(2)]
+        # each rank's loss is over its own tokens; the replay's, and the
+        # one reported, is the ranks' mean
+        return dict(
+            cfg=cfg, full=full, specs=sh.moe_param_specs(), tokens=B * S,
+            axis="ep",
+            loss=lambda p: moe.loss_fn(p, batches[rank], cfg, ep_axis="ep"),
+            fix=lambda g: moe.ep_grad_correction(g, "ep"),
+            report=lambda x: C.pmean(x, "ep"),
+            replay=lambda p, c: 0.5 * (moe.loss_fn(p, batches[0], c)
+                                       + moe.loss_fn(p, batches[1], c)))
+    cfg = llama.LlamaConfig.small() if not tiny else dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab_size=64, seq=64), remat=True)
+    B, S = (4, 2048) if not tiny else (4, 64)
+    full = llama.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device=dev)
+    if path == "pp":
+        M = 4
+        return dict(
+            cfg=cfg, full=full, specs=sh.llama_pp_param_specs(),
+            tokens=B * S, axis="pp",
+            loss=lambda p: llama.loss_fn_pp(p, {"tokens": tokens}, cfg,
+                                            num_microbatches=M,
+                                            pp_axis="pp"),
+            fix=lambda g: {k: (PL.replicated_grad_correction(v, "pp")
+                               if k != "blocks" else v)
+                           for k, v in g.items()},
+            replay=lambda p, c: llama.loss_fn(p, {"tokens": tokens}, c))
+    whole = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    half = S // 2
+    local = {k: v[:, rank * half:(rank + 1) * half] for k, v in whole.items()}
+    if path == "sp_ring":
+        # the ring's fold, over the whole sequence in two blocks
+        attn, ref_attn = None, functools.partial(
+            FA.blockwise_attention, causal=True, block_k=half)
+    else:
+        attn, ref_attn = make_ulysses_attn("sp", flash=True), \
+            FA.make_flash_attn()
+    return dict(
+        cfg=cfg, full=full, specs=sh.P(), tokens=B * S, axis="sp",
+        loss=lambda p: llama.loss_fn(p, local, cfg, attn, sp_axis="sp"),
+        fix=lambda g: C.pmean(g, "sp"),
+        replay=lambda p, c: llama.loss_fn(p, whole, c, ref_attn))
+
+
+def _par_train(params, loss_grads, n: int, on_card: bool, label: str,
+               count: bool = False, report=None) -> dict:
+    """``n`` Adam(1e-3) steps of the tree ``params`` on the gradients of
+    ``loss_grads(params)``: losses (through ``report``), step times, step
+    0's gradients, the B1 launches of the steps; with ``count``, the
+    collectives' bytes of step 1."""
+    import torch
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.parallel import collectives as C
+
+    leaves = _leaves(params)
+    opt = _adam(leaves)
+    out = dict(losses=[], times=[])
+    FA.flash_attention_fwd.launches = 0
+    for i in range(n):
+        if count and i == 1:
+            C.reset_bytes()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_grads(params)
+        for p, g in zip(leaves, _leaves(grads)):
+            p.grad = g
+        opt.step()
+        loss = float(report(loss) if report else loss)
+        if on_card:
+            torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        if i == 0:
+            out["g0"] = [g.detach() for g in _leaves(grads)]
+        if count and i == 1:
+            out["step_bytes"] = C.bytes_moved()
+    out["launches"] = FA.flash_attention_fwd.launches
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"non-finite loss ({label}): {out['losses']}")
+    return out
+
+
+def _par_path(path: str, dev, rank: int, seed: int, tiny: bool,
+              mesh) -> dict:
+    """One path on this rank: PARALLEL_STEPS sharded steps, then the same
+    steps replayed in one process over the whole batch in bf16 and in
+    f32; the gates' numbers on this rank's slice."""
+    import dataclasses
+
+    import torch
+    from byteps_tpu_torch.parallel import collectives as C
+    from byteps_tpu_torch.parallel import sharding as sh
+
+    on_card = dev.type == "cuda"
+    s = _par_setup(path, dev, rank, seed, tiny)
+    cfg, full, specs = s["cfg"], s["full"], s["specs"]
+
+    def grads_of(loss_fn, fix=None):
+        def fn(p):
+            loss = loss_fn(p)
+            gs = torch.autograd.grad(loss, _leaves(p))
+            it = iter(gs)
+            g = _rebuild(p, it)
+            with torch.no_grad():
+                return loss.detach(), fix(g) if fix else g
+        return fn
+
+    # the forward alone, for the bytes
+    local = sh.place_params(full, mesh, specs)
+    with torch.no_grad():
+        C.reset_bytes()
+        float(s["loss"](local))
+        fwd_bytes = C.bytes_moved()
+    for p in _leaves(local):
+        p.requires_grad_()
+    init_local = [p.detach().clone() for p in _leaves(local)]
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    par = _par_train(local, grads_of(s["loss"], s["fix"]), PARALLEL_STEPS,
+                     on_card, f"{path} rank {rank}", count=True,
+                     report=s.get("report"))
+    peak = _peak_gb(dev)
+    par_end = [p.detach() for p in _leaves(local)]
+    del local
+    reps = {}
+    for dtype in (cfg.dtype, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        whole = _tree_clone(full)
+        for p in _leaves(whole):
+            p.requires_grad_()
+        r = _par_train(whole, grads_of(lambda p, c=c: s["replay"](p, c)),
+                       PARALLEL_STEPS, on_card, f"{path} replay {dtype}")
+        # this rank's slice of the replay's gradients and parameters
+        mine = lambda ts: _leaves(sh.place_params(  # noqa: E731
+            _rebuild(full, iter(ts)), mesh, specs))
+        reps[dtype] = dict(losses=r["losses"], g0=mine(r["g0"]),
+                           end=mine([p.detach() for p in _leaves(whole)]))
+        del whole, r
+    bf, f32 = reps[cfg.dtype], reps[torch.float32]
+    grad_gate, move_gate = [], []
+    for name, g, gb, gf, p1, pb, pf, p0 in zip(
+            _names(full), par["g0"], bf["g0"], f32["g0"], par_end,
+            bf["end"], f32["end"], init_local):
+        grad_gate.append((name, _rel_l2(g, gb), _rel_l2(gb, gf)))
+        move_gate.append((name, _rel_l2(p1 - p0, pb - p0),
+                          _rel_l2(pb - p0, pf - p0)))
+    return dict(losses=par["losses"], times=par["times"],
+                launches=par["launches"], peak=peak,
+                step_bytes=par["step_bytes"], fwd_bytes=fwd_bytes,
+                replay_losses=bf["losses"], replay_f32_losses=f32["losses"],
+                grad_gate=grad_gate, move_gate=move_gate,
+                transport=C.transport(mesh.group(s["axis"])),
+                tokens=s["tokens"])
+
+
+def _rebuild(like, it):
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], it) for k in sorted(like)}
+    return next(it)
+
+
+def _par_rank(rank, world, dev, backend, port, seed, tiny, q) -> None:
+    """One rank of ``parallel`` (a spawned process): the job's group
+    through ``parallel.distributed.ensure_initialized``, then every path
+    on a mesh of one axis of two; puts (rank, {path: result}) on ``q``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S * 3, exit=True)
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, ROOT)
+        from byteps_tpu_torch.config import Config
+        from byteps_tpu_torch.parallel import distributed as D
+        from byteps_tpu_torch.parallel.mesh import make_mesh
+
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            torch.set_num_threads(2)    # the CPU rehearsal's two ranks
+        cfg = Config(num_processes=world, process_id=rank, coord_port=port)
+        D.ensure_initialized(cfg, backend=backend)
+        res = {}
+        try:
+            meshes = {ax: make_mesh({ax: world}) for ax in ("sp", "pp", "ep")}
+            for path in PARALLEL_PATHS:
+                mesh = meshes[path.split("_")[0]]
+                with mesh:
+                    res[path] = _par_path(path, dev, rank, seed, tiny, mesh)
+                D.sync_global_devices(path)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, res))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def _fwd_reckoning(path: str, tiny: bool) -> tuple:
+    """(collective, bytes) one rank sends in one forward, from the
+    shapes: the numbers the phase's forward must move."""
+    if tiny:
+        return None, None
+    L, bf = 12, 2
+    if path == "sp_ring":          # 1 rotation of K and V a layer
+        return "ppermute", L * 1 * 2 * (4 * 1024 * 2 * 128 * bf)
+    if path == "sp_ulysses":       # q, k, v in and o out, half leaves
+        return "all_to_all", L * 4 * (4 * 1024 * 6 * 128 * bf) // 2
+    if path == "pp":               # M + P - 1 ticks of a microbatch
+        return "ppermute", 5 * (1 * 2048 * 768 * bf)
+    return "all_to_all", L * 2 * (8 * 640 * 768 * bf) // 2
+
+
+def _par_check(path: str, rank: int, r: dict, on_card: bool,
+               tiny: bool) -> None:
+    label = f"parallel {path} rank {rank}"
+    for a, b in zip(r["losses"], r["replay_losses"]):
+        if abs(a - b) > PAR_LOSS_RTOL * abs(b):
+            fail(f"{label}: losses {r['losses']} against the replay's "
+                 f"{r['replay_losses']} (tolerance {PAR_LOSS_RTOL} "
+                 f"relative)")
+    for what, gate in (("gradient", r["grad_gate"]),
+                       ("parameter move", r["move_gate"])):
+        bad = [(n, a, b) for n, a, b in gate if a > PAR_RATIO * b]
+        if bad:
+            fail(f"{label}: {what} farther from the bf16 replay than "
+                 f"{PAR_RATIO}x the replay's own bf16-f32 distance: "
+                 f"{bad}")
+    name, want = _fwd_reckoning(path, tiny)
+    if name is not None and r["fwd_bytes"][name] != want:
+        fail(f"{label}: a forward moved {r['fwd_bytes'][name]} B by "
+             f"{name}, not {want}")
+    if on_card and path == "sp_ulysses" and \
+            r["launches"] != 24 * PARALLEL_STEPS:
+        fail(f"{label}: {r['launches']} B1 launches in {PARALLEL_STEPS} "
+             f"steps, not 24 a step")
+
+
+def phase_parallel(args, card: str, dev_type: str = "cuda",
+                   tiny: bool = False) -> dict:
+    """Expert, sequence and pipeline parallelism on two ranks
+    (``parallel/``): Llama small() under ring attention and under Ulysses
+    with B1 over ``sp``, pipelined over ``pp`` (M = 4), and MoE small()
+    with its experts over ``ep``, PARALLEL_STEPS Adam(1e-3) steps each
+    from one seeded weight set, each rank held to a one-process replay
+    on the card. A rank per card over NCCL where the machine has two
+    cards; on one card both ranks on it over gloo, the all-to-alls,
+    rotations and gathers through host copies (``collectives.via_host``).
+    Returns rank 0's B1 launches on the Ulysses path."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import torch
+
+    on_card = dev_type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    if n_cards >= 2:
+        devs, backend = ["cuda:0", "cuda:1"], "nccl"
+    elif on_card:
+        devs, backend = ["cuda:0", "cuda:0"], "gloo"
+    else:
+        devs, backend = ["cpu", "cpu"], "gloo"
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_par_rank, args=(
+        r, 2, devs[r], backend, port, args.seed, tiny, q))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        deadline = time.time() + PS_TIMEOUT_S * 3
+        while len(res) < 2:
+            try:
+                rank, r = q.get(timeout=2.0)
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if i not in res and not p.is_alive()]
+                if dead or time.time() > deadline:
+                    fail(f"parallel: no result from rank(s) "
+                         f"{sorted(set(range(2)) - set(res))}; exit codes "
+                         f"{[p.exitcode for p in procs]}")
+                continue
+            res[rank] = r
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank, r in sorted(res.items()):
+        if "error" in r:
+            fail(f"parallel rank {rank} raised:\n{r['error']}")
+    print(f"parallel: two ranks on {devs[0]}, {devs[1]} over {backend}, "
+          f"{time.perf_counter() - t0:.1f} s for the four paths with "
+          f"their replays", flush=True)
+    for path in PARALLEL_PATHS:
+        runs = [res[0][path], res[1][path]]
+        for rank, r in enumerate(runs):
+            _par_check(path, rank, r, on_card, tiny)
+        steady = [max(ts) for ts in zip(*(r["times"][1:] for r in runs))]
+        tok_s = runs[0]["tokens"] / (sum(steady) / len(steady))
+        r = runs[0]
+        name, want = _fwd_reckoning(path, tiny)
+        fwd = {k: v for k, v in r["fwd_bytes"].items() if v}
+        step = {k: v for k, v in r["step_bytes"].items() if v}
+        multiple = (f"; {name} a step = "
+                    f"{r['step_bytes'][name] / want:.3f} x the forward's "
+                    f"{want}" if name else "")
+        worst_g = max(a / max(b, 1e-30) for rr in runs
+                      for _, a, b in rr["grad_gate"])
+        worst_m = max(a / max(b, 1e-30) for rr in runs
+                      for _, a, b in rr["move_gate"])
+        print(f"parallel {path}: {tok_s:.1f} tokens/s for the group over "
+              f"steps 1..{PARALLEL_STEPS - 1} on {card}; steps "
+              f"{['%.1f' % (t * 1e3) for t in steady]} ms; peak "
+              f"{', '.join('%.2f' % x['peak'] for x in runs)} GB by rank; "
+              f"transport {r['transport']}; bytes rank 0 sent a step "
+              f"{step}, in a forward {fwd}{multiple}; losses "
+              f"{['%.6f' % x for x in r['losses']]} (replay "
+              f"{['%.6f' % x for x in r['replay_losses']]}, f32 "
+              f"{['%.6f' % x for x in r['replay_f32_losses']]}); worst "
+              f"ratio to the bf16 replay's own distance: gradients "
+              f"{worst_g:.3f}, parameter moves {worst_m:.3f} (gate "
+              f"{PAR_RATIO}); B1 launches a step a rank "
+              f"{r['launches'] / PARALLEL_STEPS:g}", flush=True)
+    return {"flash_attn_fwd": res[0]["sp_ulysses"]["launches"]}
+
+
+def phase_flash_ulysses(dev, gen) -> dict:
+    """B1 at the Ulysses path's shape (3 heads a rank, one KV head each):
+    the gate against the blockwise twin, its time, the twin's,
+    scaled_dot_product_attention's and the bound."""
+    import torch
+    B, S, H, Hkv, D = (FLASH_ULYSSES_SHAPE[k]
+                       for k in ("B", "S", "H", "Hkv", "D"))
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(bf)
+               for h in (H, Hkv, Hkv))
+    err = _flash_check(q, k, v)
+    ms, plain_ms, lib_ms, bound_ms, bound_by = _flash_times(q, k, v, True)
+    print(f"flash_attention at Ulysses' B={B} S={S} H={H} Hkv={Hkv} D={D} "
+          f"bf16 causal: {ms:.4f} ms, {bound_ms / ms:.3f} of its bound "
+          f"({bound_ms:.4f} ms, {bound_by}); {ms / lib_ms:.2f}x "
+          f"scaled_dot_product_attention's {lib_ms:.4f} ms; plain twin "
+          f"{plain_ms:.4f} ms; max abs err {err}", flush=True)
+    return dict(shape=FLASH_ULYSSES_SHAPE, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
 def _shapes(model):
     """A model's parameter shapes as the nested dict its params() has."""
     def walk(node):
@@ -4566,6 +5000,10 @@ def main() -> int:
                     help="build, then run only the zero phase (its two "
                          "ranks on a machine with several cards); no "
                          "result line")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, then run only the parallel phase (over "
+                         "NCCL on a machine with several cards, else over "
+                         "gloo on one); no result line")
     args = ap.parse_args()
     if args.steps < 3:
         fail("--steps must be at least 3")
@@ -4591,10 +5029,16 @@ def main() -> int:
     if args.zero_only:
         phase_zero(args, card)
         return 0
+    if args.parallel_only:
+        phase_flash_ulysses(torch.device("cuda", 0), torch.Generator(
+            device="cuda").manual_seed(args.seed))
+        phase_parallel(args, card)
+        return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = phase_onebit(dev, gen)
     kernels.insert(0, phase_flash(dev, gen))
+    kernels[0]["ulysses"] = phase_flash_ulysses(dev, gen)
     kernels.extend(phase_dither(dev, gen, args.seed))
     kernels.append(phase_randomk(dev, args.seed))
     kernels.extend(phase_xla_rounding(dev, gen))
@@ -4604,6 +5048,7 @@ def main() -> int:
     onebit_run = dict(launches)
     variants = phase_train_variants(args, card)
     zero = phase_zero(args, card)
+    parallel = phase_parallel(args, card)
     coll = phase_collective_codecs(args, card)
     ps = phase_ps_train(args, card)
     phase_ps_host(args, card)
@@ -4636,6 +5081,10 @@ def main() -> int:
     launches["randomk_indices"] = coll["randomk"]["randomk_indices"]
     # the fused Adam kernel from train_variants' fused_adam run (12 a step)
     launches["fused_adam"] = variants["fused_adam"]["fused_adam"]
+    # B1 on Ulysses' path (rank 0 of the parallel phase, 24 a step), also
+    # on its own beside B1's entry at that path's shape
+    launches["flash_attn_fwd"] += parallel["flash_attn_fwd"]
+    kernels[0]["ulysses"]["launches"] = parallel["flash_attn_fwd"]
     # and the zoo's paths beside them, each counted from 0 on its own: B2,
     # B3, xla_sum and fma_scalar from BERT-large's collective onebit, B4
     # and the dequantization from VGG-16's device-tier dithering
@@ -4651,14 +5100,16 @@ def main() -> int:
         "torch adapter, two workers (worker 0)": adapter_2w,
         "ps rowsparse": rowsparse, "ps elastic": elastic,
         "ps async": ps_async, "ps cross-barrier dp2 (rank 0)": xb_dp2,
-        "zoo": zoo, "train variants": variants, "zero": zero}), flush=True)
+        "zoo": zoo, "train variants": variants, "zero": zero,
+        "parallel sp_ulysses (rank 0)": parallel}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     print(f"chip_smoke: every phase passed, "
           f"{time.perf_counter() - t_start:.1f} s from the start", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ulysses")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
+                                  for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,8 +48,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_the_ps_path_modules_are_checked():
     """The parameter-server slice's modules, the model zoo, the host
-    codecs (lossless, the native codec), the elastic fleet and the
-    asynchronous step's modules are among the files above."""
+    codecs (lossless, the native codec), the elastic fleet, the
+    asynchronous step's modules and the parallel strategies' modules are
+    among the files above."""
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("config", "core/arena", "core/registry", "core/scheduler",
                 "core/types", "native/build", "ops/compression/host",
@@ -62,7 +63,10 @@ def test_the_ps_path_modules_are_checked():
                 "models/resnet", "models/bert", "models/moe",
                 "ops/compression/lossless", "ops/compression/native",
                 "core/elastic", "core/flight", "core/state",
-                "__init__"):
+                "parallel/mesh", "parallel/collectives",
+                "parallel/distributed", "parallel/sharding",
+                "parallel/ring_attention", "parallel/ulysses",
+                "parallel/pipeline", "__init__"):
         assert f"byteps_tpu_torch/{mod}.py" in files, mod
 
 

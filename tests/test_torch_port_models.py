@@ -369,14 +369,6 @@ def test_moe_top_k_orders_ties_by_index():
     assert np.array_equal(vals.numpy(), np.asarray(jv))
 
 
-def test_moe_expert_parallelism_raises():
-    cfg = dataclasses.replace(moe.MoEConfig.tiny(), dtype=torch.float32)
-    model = moe.MoE(cfg, "cpu", generator=torch.Generator())
-    tokens = torch.zeros(1, 9, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        moe.loss_fn(model.params(), {"tokens": tokens}, cfg, ep_axis="ep")
-
-
 # --------------------------------------------------------------------- #
 # two dense PS steps of ResNet tiny, port against JAX
 # --------------------------------------------------------------------- #

@@ -22,6 +22,26 @@ Written out where torch's own ops round otherwise:
 (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` does.
 Without ``type_ids`` the ``type_embed`` leaf takes no part and gets no
 gradient; the train steps push zeros for it, as the JAX step does.
+
+``tp_axis`` runs it Megatron-parallel over a mesh axis, the leaves split
+as ``sharding.bert_param_specs`` lays them out
+(``parallel/tensor_parallel.py``): heads, the FFN's inner dim and the
+vocab split, the rest replicated. Three spots that the JAX tables leave
+to XLA:
+
+- ``bq``, ``bk``, ``bv``, ``b_in`` and ``mlm_bias`` are replicated while
+  their products' columns are split: each rank adds its slice
+  (``collectives.scatter_to``), whose backward gathers the ranks'
+  slices, so every rank's gradient of the leaf is the whole one (the sum
+  over the axis of the slices' gradients, each nonzero on its own);
+- ``mlm_dense`` is column-split but ``mlm_ln`` normalizes over the whole
+  d: its output is gathered (``gather_from``) before the LayerNorm;
+- the logits use the vocab-split ``tok_embed`` tied, plus this rank's
+  slice of the replicated ``mlm_out_bias``: vocab-parallel logits, whose
+  cross entropy is ``vocab_parallel_xent``.
+
+A leaf may also be an FSDP ``parallel.fsdp.Sharded`` (``spmd.py`` hands
+the leaves split over ``dp`` so), gathered where it is used.
 """
 
 from __future__ import annotations
@@ -35,6 +55,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.state import resolve_device
+from ..parallel import fsdp
+from ..parallel import tensor_parallel as TP
+from ..parallel.collectives import gather_from, scatter_to
 from .common import (ParamTree, from_numpy, module_params,  # noqa: F401
                      param_count)
 
@@ -113,11 +136,15 @@ def init_params(cfg: BertConfig, generator: torch.Generator,
 
 
 def params_from_jax(tree: Dict[str, Any], device=None,
-                    cfg: Optional[BertConfig] = None) -> Dict[str, Any]:
+                    cfg: Optional[BertConfig] = None, mesh=None,
+                    specs=None) -> Dict[str, Any]:
     """The JAX parameter dict (numpy leaves) as f32 tensors on
-    ``device``, its shapes checked against ``cfg`` when given."""
+    ``device``, its shapes checked against ``cfg`` when given; with
+    ``mesh``, this rank's slice of each leaf by ``specs`` (e.g.
+    ``sharding.bert_param_specs()``)."""
     return from_numpy(tree, device, torch.float32,
-                      param_shapes(cfg) if cfg is not None else None)
+                      param_shapes(cfg) if cfg is not None else None,
+                      mesh=mesh, specs=specs)
 
 
 class Bert(ParamTree):
@@ -154,73 +181,121 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _block(x, p, mask, cfg: BertConfig):
-    """One encoder layer; ``p`` holds this layer's (unstacked) params."""
+def _bias(b, dt, tp_axis):
+    """A replicated bias in ``dt``: under ``tp_axis``, this rank's slice
+    of it, for a column-parallel product's columns."""
+    return (b if tp_axis is None else scatter_to(b, tp_axis)).to(dt)
+
+
+def _block(x, p, mask, cfg: BertConfig, tp_axis: Optional[str] = None):
+    """One encoder layer; ``p`` holds this layer's (unstacked) params.
+    Under ``tp_axis``, over this rank's n_heads / tp heads."""
     B, S, d = x.shape
     nh, hd = cfg.n_heads, cfg.head_dim
     dt = cfg.dtype
+    if tp_axis is not None:
+        nh //= TP.check_heads(nh, nh, tp_axis)
 
-    q = (x @ p["wq"].to(dt) + p["bq"].to(dt)).reshape(B, S, nh, hd)
-    k = (x @ p["wk"].to(dt) + p["bk"].to(dt)).reshape(B, S, nh, hd)
-    v = (x @ p["wv"].to(dt) + p["bv"].to(dt)).reshape(B, S, nh, hd)
+    q, k, v = TP.column_parallel(
+        x, [p[w].to(dt) for w in ("wq", "wk", "wv")], tp_axis)
+    q = (q + _bias(p["bq"], dt, tp_axis)).reshape(B, S, nh, hd)
+    k = (k + _bias(p["bk"], dt, tp_axis)).reshape(B, S, nh, hd)
+    v = (v + _bias(p["bv"], dt, tp_axis)).reshape(B, S, nh, hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     if mask is not None:
         logits = torch.where(mask[:, None, None, :], logits,
                              torch.full((), -1e30, dtype=logits.dtype,
                                         device=logits.device))
     probs = torch.softmax(logits.to(torch.float32), -1).to(dt)
-    attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, d)
-    attn = attn @ p["wo"].to(dt) + p["bo"].to(dt)
+    attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, nh * hd)
+    attn = TP.row_parallel(attn, p["wo"].to(dt), tp_axis) + p["bo"].to(dt)
     x = _layernorm(x + attn, p["ln1_g"], p["ln1_b"], cfg.norm_eps)
 
-    h = _gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt))
-    h = h @ p["w_out"].to(dt) + p["b_out"].to(dt)
+    (h,) = TP.column_parallel(x, [p["w_in"].to(dt)], tp_axis)
+    h = _gelu(h + _bias(p["b_in"], dt, tp_axis))
+    h = TP.row_parallel(h, p["w_out"].to(dt), tp_axis) + p["b_out"].to(dt)
     return _layernorm(x + h, p["ln2_g"], p["ln2_b"], cfg.norm_eps)
 
 
+def _layer(x, blk, layer: int, mask, cfg: BertConfig,
+           tp_axis: Optional[str] = None):
+    """Layer ``layer`` of the stacked ``blk``, its leaves taken here, so
+    that under a checkpoint an FSDP leaf's gather is redone in the
+    recompute and its gathered copy is not kept."""
+    p = {k: fsdp.layer(v, layer) for k, v in blk.items()}
+    return _block(x, p, mask, cfg, tp_axis)
+
+
 def forward(params, tokens: torch.Tensor, cfg: BertConfig, type_ids=None,
-            attn_mask=None) -> torch.Tensor:
-    """tokens [B, S] -> final hidden states [B, S, d] (compute dtype)."""
+            attn_mask=None, tp_axis: Optional[str] = None) -> torch.Tensor:
+    """tokens [B, S] -> final hidden states [B, S, d] (compute dtype),
+    whole on every rank of ``tp_axis`` (the embedding vocab-parallel). A
+    leaf may be an FSDP ``parallel.fsdp.Sharded``, gathered where it is
+    used (a layer's inside the layer's checkpoint)."""
     B, S = tokens.shape
     dt = cfg.dtype
-    x = params["tok_embed"].to(dt)[tokens.long()]
-    x = x + params["pos_embed"].to(dt)[None, :S]
+    W = {k: v if k == "blocks" else fsdp.whole(v) for k, v in params.items()
+         if k in ("tok_embed", "pos_embed", "type_embed", "embed_ln_g",
+                  "embed_ln_b", "blocks")}
+    if tp_axis is not None:
+        x = TP.vocab_parallel_embed(W["tok_embed"], tokens, tp_axis, dt)
+    else:
+        x = W["tok_embed"].to(dt)[tokens.long()]
+    x = x + W["pos_embed"].to(dt)[None, :S]
     if type_ids is not None:
-        x = x + params["type_embed"].to(dt)[type_ids.long()]
-    x = _layernorm(x, params["embed_ln_g"], params["embed_ln_b"],
-                   cfg.norm_eps)
-    blk = params["blocks"]
+        x = x + W["type_embed"].to(dt)[type_ids.long()]
+    x = _layernorm(x, W["embed_ln_g"], W["embed_ln_b"], cfg.norm_eps)
     for layer in range(cfg.n_layers):
-        p = {k: v[layer] for k, v in blk.items()}
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_block, x, p, attn_mask, cfg, use_reentrant=False)
+            x = checkpoint(_layer, x, W["blocks"], layer, attn_mask, cfg,
+                           tp_axis, use_reentrant=False)
         else:
-            x = _block(x, p, attn_mask, cfg)
+            x = _layer(x, W["blocks"], layer, attn_mask, cfg, tp_axis)
     return x
 
 
-def mlm_logits(params, hidden: torch.Tensor, cfg: BertConfig) -> torch.Tensor:
-    """[B, S, d] hidden -> [B, S, V] f32 logits (tied to ``tok_embed``)."""
+def mlm_logits(params, hidden: torch.Tensor, cfg: BertConfig,
+               tp_axis: Optional[str] = None) -> torch.Tensor:
+    """[B, S, d] hidden -> [B, S, V] f32 logits (tied to ``tok_embed``);
+    under ``tp_axis``, those of this rank's vocab slice [B, S, V / tp]."""
     dt = cfg.dtype
-    h = _gelu(hidden @ params["mlm_dense"].to(dt)
-              + params["mlm_bias"].to(dt))
-    h = _layernorm(h, params["mlm_ln_g"], params["mlm_ln_b"], cfg.norm_eps)
-    logits = h @ params["tok_embed"].to(dt).T + \
-        params["mlm_out_bias"].to(dt)
+    W = {k: fsdp.whole(params[k]) for k in (
+        "mlm_dense", "mlm_bias", "mlm_ln_g", "mlm_ln_b", "tok_embed",
+        "mlm_out_bias")}
+    (h,) = TP.column_parallel(hidden, [W["mlm_dense"].to(dt)], tp_axis)
+    h = _gelu(h + _bias(W["mlm_bias"], dt, tp_axis))
+    if tp_axis is not None:
+        h = gather_from(h, tp_axis)
+    h = _layernorm(h, W["mlm_ln_g"], W["mlm_ln_b"], cfg.norm_eps)
+    (logits,) = TP.column_parallel(h, [W["tok_embed"].to(dt).T], tp_axis)
+    logits = logits + _bias(W["mlm_out_bias"], dt, tp_axis)
     return logits.to(torch.float32)
 
 
-def loss_fn(params, batch: Dict[str, torch.Tensor],
-            cfg: BertConfig) -> torch.Tensor:
-    """Masked-LM loss of {'tokens': [B, S], 'labels': [B, S]} (labels < 0
-    are unmasked), with an optional bool 'attn_mask' [B, S]."""
+def loss_parts(params, batch: Dict[str, torch.Tensor], cfg: BertConfig,
+               tp_axis: Optional[str] = None) -> tuple:
+    """(the summed masked-LM loss, the count of masked positions) of
+    {'tokens': [B, S], 'labels': [B, S]} (labels < 0 are unmasked), with
+    an optional bool 'attn_mask' [B, S]: a batch split over ``dp``
+    reaches the global loss by summing both over it
+    (``spmd.make_spmd_train_step``)."""
     hidden = forward(params, batch["tokens"], cfg,
-                     attn_mask=batch.get("attn_mask"))
-    logits = mlm_logits(params, hidden, cfg)
+                     attn_mask=batch.get("attn_mask"), tp_axis=tp_axis)
+    logits = mlm_logits(params, hidden, cfg, tp_axis)
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    lse = torch.logsumexp(logits, -1)
-    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (lse - picked) * valid
-    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    if tp_axis is not None:
+        nll = TP.vocab_parallel_xent(logits, safe, tp_axis)
+    else:
+        lse = torch.logsumexp(logits, -1)
+        nll = lse - torch.gather(logits, -1, safe[..., None])[..., 0]
+    return torch.sum(nll * valid), torch.sum(valid)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: BertConfig,
+            tp_axis: Optional[str] = None) -> torch.Tensor:
+    """Masked-LM loss: ``loss_parts``'s sum over its count (at least
+    1)."""
+    total, count = loss_parts(params, batch, cfg, tp_axis)
+    return total / torch.clamp(count, min=1)

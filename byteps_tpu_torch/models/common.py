@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.state import resolve_device
+from ..parallel.sharding import place_params
 
 
 def tree_map(fn, tree):
@@ -45,15 +46,19 @@ def check_shapes(tree, shapes, path: str = "") -> None:
 
 
 def from_numpy(tree, device=None, dtype: torch.dtype = torch.float32,
-               shapes=None):
+               shapes=None, mesh=None, specs=None):
     """A JAX parameter tree, as nested dicts of arrays, to tensors of
-    ``dtype`` on ``device``; checked against ``shapes`` when given."""
+    ``dtype`` on ``device``; checked against ``shapes`` when given. With
+    ``mesh``, this rank's slice of every leaf by the spec tree ``specs``
+    (``parallel.sharding.place_params``, the counterpart of
+    ``jax.device_put`` with a ``NamedSharding``)."""
     device = resolve_device(device)
-    out = tree_map(lambda x: torch.tensor(np.asarray(x), dtype=dtype,
-                                          device=device), tree)
+    out = tree_map(lambda x: torch.tensor(np.asarray(x), dtype=dtype), tree)
     if shapes is not None:
         check_shapes(out, shapes)
-    return out
+    if mesh is not None:
+        out = place_params(out, mesh, specs)
+    return tree_map(lambda x: x.to(device), out)
 
 
 class ParamTree(nn.Module):

@@ -21,7 +21,12 @@ and numerics, so the JAX package's weights carry across
   resident at once;
 - over a mesh (``parallel/``): ``sp_axis`` splits the sequence (ring
   attention by default, or Ulysses), ``forward_pp``/``loss_fn_pp``
-  pipeline the layers over ``pp``.
+  pipeline the layers over ``pp``, ``tp_axis`` splits the heads, the
+  SwiGLU's inner dim and the vocab (Megatron,
+  ``parallel/tensor_parallel.py``; the leaves as
+  ``sharding.llama_param_specs`` lays them out), and a leaf may be an
+  FSDP ``parallel.fsdp.Sharded``, gathered where it is used (a block's
+  inside the block's checkpoint).
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.state import resolve_device
+from ..parallel import fsdp
+from ..parallel import tensor_parallel as TP
 from ..utils.remat import check_policy, remat_call
+from .common import from_numpy
 
 BLOCK_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -141,17 +149,13 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 
 def params_from_jax(tree: Dict[str, Any], device=None,
-                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                    dtype: torch.dtype = torch.float32, mesh=None,
+                    specs=None) -> Dict[str, Any]:
     """The JAX package's parameter pytree, as nested dicts of numpy
-    arrays, to tensors on ``device`` (names and layout are the same)."""
-    device = resolve_device(device)
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
-
-    return conv(tree)
+    arrays, to tensors on ``device`` (names and layout are the same);
+    with ``mesh``, this rank's slice of each leaf by ``specs`` (e.g.
+    ``sharding.llama_param_specs()``, or ``fsdp_param_specs`` over it)."""
+    return from_numpy(tree, device, dtype, mesh=mesh, specs=specs)
 
 
 class Llama(nn.Module):
@@ -243,29 +247,38 @@ def _attention(q, k, v, cfg: LlamaConfig, attn_impl=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attn_sublayer(x, p, cos, sin, cfg: LlamaConfig, attn_impl=None):
-    """Pre-norm attention with residual: x + Attn(RMSNorm(x))."""
+def attn_sublayer(x, p, cos, sin, cfg: LlamaConfig, attn_impl=None,
+                  tp_axis: Optional[str] = None):
+    """Pre-norm attention with residual: x + Attn(RMSNorm(x)). Under
+    ``tp_axis`` the rank attends over its n_heads / tp query heads and
+    n_kv_heads / tp KV heads."""
     B, S, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
+    if tp_axis is not None:
+        n = TP.check_heads(nh, nkv, tp_axis)
+        nh, nkv = nh // n, nkv // n
     h = _rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q = (h @ p["wq"].to(dt)).reshape(B, S, nh, hd)
-    k = (h @ p["wk"].to(dt)).reshape(B, S, nkv, hd)
-    v = (h @ p["wv"].to(dt)).reshape(B, S, nkv, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k, v = TP.column_parallel(
+        h, [p[w].to(dt) for w in ("wq", "wk", "wv")], tp_axis)
+    q = apply_rope(q.reshape(B, S, nh, hd), cos, sin)
+    k = apply_rope(k.reshape(B, S, nkv, hd), cos, sin)
+    v = v.reshape(B, S, nkv, hd)
     attn = _attention(q, k, v, cfg, attn_impl)
-    return x + attn.reshape(B, S, nh * hd) @ p["wo"].to(dt)
+    return x + TP.row_parallel(attn.reshape(B, S, nh * hd), p["wo"].to(dt),
+                               tp_axis)
 
 
-def _block(x, p, cos, sin, cfg: LlamaConfig, attn_impl=None):
+def _block(x, p, cos, sin, cfg: LlamaConfig, attn_impl=None,
+           tp_axis: Optional[str] = None):
     """One decoder block; ``p`` holds this layer's (unstacked) params."""
     dt = cfg.dtype
-    x = attn_sublayer(x, p, cos, sin, cfg, attn_impl)
+    x = attn_sublayer(x, p, cos, sin, cfg, attn_impl, tp_axis)
     h = _rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(h @ p["w_gate"].to(dt))
-    up = h @ p["w_up"].to(dt)
-    return x + (gate * up) @ p["w_down"].to(dt)
+    gate, up = TP.column_parallel(
+        h, [p["w_gate"].to(dt), p["w_up"].to(dt)], tp_axis)
+    return x + TP.row_parallel(F.silu(gate) * up, p["w_down"].to(dt),
+                               tp_axis)
 
 
 def next_token_xent(logits: torch.Tensor,
@@ -326,16 +339,28 @@ def split_batch(batch: Dict[str, torch.Tensor]) -> tuple:
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                    cfg: LlamaConfig, attn_impl=None,
-                   sp_axis: Optional[str] = None) -> torch.Tensor:
+                   sp_axis: Optional[str] = None,
+                   tp_axis: Optional[str] = None) -> torch.Tensor:
     """tokens [B, S] -> final normed hidden [B, S, d] in cfg.dtype.
 
     ``sp_axis``: with the sequence split over that mesh axis (inside
     ``with mesh:``), RoPE takes global positions, this rank's chunk
     starting at axis_index * S, and the attention defaults to ring
     attention over the axis (local attention would never cross a
-    shard's border)."""
+    shard's border).
+
+    ``tp_axis``: with the leaves split over that axis as
+    ``sharding.llama_param_specs`` lays them out, the embedding is
+    vocab-parallel and each block attends over this rank's heads (its
+    ``attn_impl`` too, e.g. the flash kernel at [B, S, n_heads / tp,
+    hd]); the hidden state comes out whole on every rank. It composes
+    with ``sp_axis``."""
     B, S = tokens.shape
-    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    embed = fsdp.whole(params["embed"])
+    if tp_axis is not None:
+        x = TP.vocab_parallel_embed(embed, tokens, tp_axis, cfg.dtype)
+    else:
+        x = embed.to(cfg.dtype)[tokens.long()]
     if sp_axis is not None:
         from ..parallel.collectives import axis_index
         if attn_impl is None:
@@ -345,29 +370,44 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                               offset=axis_index(sp_axis) * S)
     else:
         cos, sin = rope_cache(cfg, S, x.device)
-    x = _layers(x, params["blocks"], cos, sin, cfg, attn_impl)
-    return _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = _layers(x, params["blocks"], cos, sin, cfg, attn_impl, tp_axis)
+    return _rmsnorm(x, fsdp.whole(params["final_norm"]), cfg.norm_eps)
 
 
-def _layers(x, blk, cos, sin, cfg: LlamaConfig, attn_impl=None):
+def _layer(x, blk, layer: int, cos, sin, cfg: LlamaConfig, attn_impl=None,
+           tp_axis: Optional[str] = None):
+    """Block ``layer`` of the stacked ``blk``, its leaves taken here, so
+    that under a checkpoint an FSDP leaf's gather is redone in the
+    recompute and its gathered copy is not kept."""
+    p = {k: fsdp.layer(v, layer) for k, v in blk.items()}
+    return _block(x, p, cos, sin, cfg, attn_impl, tp_axis)
+
+
+def _layers(x, blk, cos, sin, cfg: LlamaConfig, attn_impl=None,
+            tp_axis: Optional[str] = None):
     """The stacked blocks ``blk`` (leading dim: layers) over x, each
     recomputed in the backward under ``cfg.remat``."""
-    fn = functools.partial(_block, cfg=cfg, attn_impl=attn_impl)
+    fn = functools.partial(_layer, cfg=cfg, attn_impl=attn_impl,
+                           tp_axis=tp_axis)
     for layer in range(blk["wq"].shape[0]):
-        p = {k: v[layer] for k, v in blk.items()}
         if cfg.remat and torch.is_grad_enabled():
-            x = remat_call(fn, x, p, cos, sin, policy=cfg.remat_policy)
+            x = remat_call(fn, x, blk, layer, cos, sin,
+                           policy=cfg.remat_policy)
         else:
-            x = fn(x, p, cos, sin)
+            x = fn(x, blk, layer, cos, sin)
     return x
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: LlamaConfig,
-            attn_impl=None, sp_axis: Optional[str] = None) -> torch.Tensor:
+            attn_impl=None, sp_axis: Optional[str] = None,
+            tp_axis: Optional[str] = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, vocab] in cfg.dtype (``sp_axis``:
-    see ``forward_hidden``)."""
-    x = forward_hidden(params, tokens, cfg, attn_impl, sp_axis)
-    return x @ params["lm_head"].to(cfg.dtype)
+    see ``forward_hidden``); under ``tp_axis``, the logits of this
+    rank's vocab slice [B, S, vocab / tp]."""
+    x = forward_hidden(params, tokens, cfg, attn_impl, sp_axis, tp_axis)
+    head = fsdp.whole(params["lm_head"]).to(cfg.dtype)
+    (logits,) = TP.column_parallel(x, [head], tp_axis)
+    return logits
 
 
 def forward_pp(params: Dict[str, Any], tokens: torch.Tensor,
@@ -413,23 +453,35 @@ def loss_fn_pp(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             cfg: LlamaConfig, attn_impl=None,
-            sp_axis: Optional[str] = None) -> torch.Tensor:
+            sp_axis: Optional[str] = None,
+            tp_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy of {'tokens': [B, S+1]} or a pre-shifted
     {'inputs', 'targets'} batch (required under ``sp_axis``, where the
     shift must happen before the split); per vocab chunk when
     ``cfg.xent_chunks`` divides the vocab. Under ``sp_axis`` the loss is
     the mean over the axis (``pmean``): each rank's gradient then is its
-    own part, and their mean is the gradient of the whole."""
+    own part, and their mean is the gradient of the whole. Under
+    ``tp_axis`` the cross entropy is vocab-parallel
+    (``tensor_parallel.vocab_parallel_xent``), the loss the same on every
+    rank of the axis, and each rank's gradients those of its slices;
+    ``xent_chunks`` there is not ported (a ValueError)."""
     if "inputs" not in batch and sp_axis is not None:
         raise ValueError(
             "sequence parallelism requires a pre-shifted batch "
             "({'inputs', 'targets'}): shifting a sharded 'tokens' "
             "locally would gap the global sequence")
+    chunked = cfg.xent_chunks > 0 and cfg.vocab_size % cfg.xent_chunks == 0
+    if chunked and tp_axis is not None:
+        raise ValueError("xent_chunks under tp_axis is not ported: the "
+                         "chunked cross entropy takes the whole vocab")
     inputs, targets = split_batch(batch)
-    if cfg.xent_chunks > 0 and cfg.vocab_size % cfg.xent_chunks == 0:
+    if chunked:
         hidden = forward_hidden(params, inputs, cfg, attn_impl, sp_axis)
-        loss = chunked_next_token_xent(hidden, params["lm_head"], targets,
-                                       cfg.xent_chunks)
+        loss = chunked_next_token_xent(hidden, fsdp.whole(params["lm_head"]),
+                                       targets, cfg.xent_chunks)
+    elif tp_axis is not None:
+        logits = forward(params, inputs, cfg, attn_impl, sp_axis, tp_axis)
+        loss = torch.mean(TP.vocab_parallel_xent(logits, targets, tp_axis))
     else:
         loss = next_token_xent(forward(params, inputs, cfg, attn_impl,
                                        sp_axis), targets)

@@ -1,5 +1,7 @@
 """The collectives of ``jax.lax`` that the JAX package's parallel code
-calls inside ``shard_map``, over the named axes of the active mesh.
+calls inside ``shard_map``, over the named axes of the active mesh, and
+the ones XLA's partitioner writes for the GSPMD tier (Megatron's region
+pairs, FSDP's gathers), which torch has no compiler to infer.
 
 Counterparts of ``jax.lax.psum``, ``pmean``, ``ppermute``,
 ``all_to_all(split_axis, concat_axis, tiled=True)``, ``axis_index`` and
@@ -16,25 +18,54 @@ of every JAX caller the port is held to:
 - ``all_to_all``: the cotangent travels the inverse all-to-all (split and
   concat axes swapped).
 
+The GSPMD tier's pairs, each the other's transpose:
+
+- ``copy_to`` (identity; all-reduce backward) and ``reduce_from``
+  (all-reduce; identity backward): Megatron's regions around a
+  column-parallel and a row-parallel product. Not ``psum``: its
+  transpose is ``psum`` again, so a row-parallel reduce built from it
+  would multiply every gradient upstream by the axis size;
+- ``gather_from`` (all-gather of the last dim; this rank's slice
+  backward) and ``scatter_to`` (the reverse): from a column-parallel
+  output to a replicated one and back;
+- ``all_gather`` and ``reduce_scatter`` on any dim (FSDP's gather of a
+  leaf split over the data axis, and its gradient's reduce);
+- ``broadcast`` from a root, whose transpose is a reduce to it (FSDP's
+  gather of a stacked layer that one rank holds whole, and its
+  gradient).
+
 So every rank must reach every backward collective, in the same order:
 the callers keep their graphs alike on every rank (``where`` rather than
 a branch on the rank), as SPMD code is.
 
 Transport: NCCL (one rank a card) takes every collective on the card's
-tensors. Gloo takes ``all_reduce`` of card tensors but no all-to-all,
-point-to-point or all-gather of them, so under a gloo group a card
-tensor goes through an explicit host copy for those three: chosen by
-the group's backend (``via_host``), never by catching a failure. That is
-the transport of ranks that share one card.
+tensors. Gloo takes ``all_reduce`` and ``broadcast`` of card tensors but
+no all-to-all, point-to-point or all-gather of them, so under a gloo
+group a card tensor goes through an explicit host copy for those three:
+chosen by the group's backend (``via_host``), never by catching a
+failure. Under gloo a reduce-scatter and a reduce are an all-reduce, of
+which the rank keeps its slice (the root, the whole). That is the
+transport of ranks that share one card.
 
 Byte counters beside each function, as the kernel wrappers keep
 ``.launches``: the bytes this rank sends, counted in the forward and in
 the backward (the transpose counts on the counter of the collective it
 runs), at the least a collective of its kind moves:
 
-- ``psum.bytes``: 2 (n - 1) / n of the tensor (a ring all-reduce);
+- ``psum.bytes``: 2 (n - 1) / n of the tensor (a ring all-reduce), for
+  every all-reduce: ``psum``, the regions' (``copy_to`` backward,
+  ``reduce_from`` forward) and ``pmax``;
 - ``all_to_all.bytes``: (n - 1) / n of the tensor (the chunks that leave);
-- ``ppermute.bytes``: the tensor, where this rank sends to another one.
+- ``ppermute.bytes``: the tensor, where this rank sends to another one;
+- ``all_gather.bytes``: (n - 1) / n of the gathered tensor (this rank's
+  slice, to each other rank);
+- ``reduce_scatter.bytes``: (n - 1) / n of the tensor reduced;
+- ``broadcast.bytes``: n - 1 times the tensor, on the root (to each other
+  rank), 0 elsewhere; the reduce of its transpose (``bytes_moved()``'s
+  ``"reduce"``): the tensor, on every rank but the root.
+
+These count what the collective moves at the least, whatever the
+transport moves to emulate it (gloo's all-reduce for a reduce-scatter).
 """
 
 from __future__ import annotations
@@ -67,7 +98,8 @@ def _group(axis: str):
 
 def via_host(t: torch.Tensor, group) -> bool:
     """Whether a card tensor's all-to-all, point-to-point or all-gather
-    goes through a host copy: under a gloo group."""
+    goes through a host copy: under a gloo group (a reduce-scatter or a
+    reduce there is an all-reduce of the card tensor)."""
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
@@ -75,7 +107,8 @@ def transport(group) -> str:
     """The transport of ``group``'s collectives of card tensors, in
     words."""
     if dist.get_backend(group) == "gloo":
-        return ("gloo: all_reduce of the card tensors, all_to_all, "
+        return ("gloo: all_reduce and broadcast of the card tensors (and "
+                "all_reduce for reduce_scatter and reduce), all_to_all, "
                 "ppermute and all_gather through host copies")
     return f"{dist.get_backend(group)}: every collective on the card tensors"
 
@@ -84,13 +117,80 @@ def transport(group) -> str:
 # the transports, without autograd
 # ----------------------------------------------------------------------- #
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
     n = dist.get_world_size(group)
-    out = x.detach().clone()
+    out = _copy(x)
     if n > 1:
-        dist.all_reduce(out, group=group)
+        dist.all_reduce(out, op=op, group=group)
     psum.bytes += 2 * (n - 1) * out.numel() * out.element_size() // n
     return out
+
+
+def _copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` to hand a collective in place."""
+    return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _native(group) -> bool:
+    """Whether the group's backend has its own reduce-scatter and reduce
+    of card tensors (NCCL); gloo's are emulated by an all-reduce."""
+    return dist.get_backend(group) != "gloo"
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk, along ``dim``, of the group's sum of ``x``."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split into {n}")
+    reduce_scatter.bytes += (n - 1) * x.numel() * x.element_size() // n
+    if n == 1:
+        return x.detach().clone()
+    me = dist.get_rank(group)
+    if not _native(group):
+        return _all_reduce_quiet(x, group).chunk(n, dim)[me].contiguous()
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _all_reduce_quiet(x: torch.Tensor, group) -> torch.Tensor:
+    """An all-reduce that counts on no counter (the emulation of another
+    collective, which counts on its own)."""
+    out = _copy(x)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _broadcast(x: torch.Tensor, root: int, group) -> torch.Tensor:
+    """The root's ``x`` on every rank (``root``: a rank of the group)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    out = _copy(x) if me == root else x.new_empty(x.shape)
+    if me == root:
+        broadcast.bytes += (n - 1) * x.numel() * x.element_size()
+    if n > 1:
+        dist.broadcast(out, src=dist.get_global_rank(group, root),
+                       group=group)
+    return out
+
+
+def _reduce(x: torch.Tensor, root: int, group):
+    """The group's sum of ``x`` on the root, None elsewhere."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    if me != root:
+        _reduce.bytes += x.numel() * x.element_size()
+    if n == 1:
+        return x.detach().clone()
+    if not _native(group):
+        out = _all_reduce_quiet(x, group)
+    else:
+        out = _copy(x)
+        dist.reduce(out, dst=dist.get_global_rank(group, root), group=group)
+    return out if me == root else None
 
 
 def _exchange(flat: torch.Tensor, out: torch.Tensor, send: Sequence[int],
@@ -150,8 +250,10 @@ def _ppermute(x: torch.Tensor, pairs: Tuple[Tuple[int, int], ...],
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's ``x`` concatenated along ``dim`` in rank order (no
-    autograd; for gathering shards outside the step)."""
+    autograd: for gathering shards outside the step, and the transport of
+    ``gather_from`` and ``all_gather_dim``)."""
     n = dist.get_world_size(group)
+    all_gather.bytes += (n - 1) * x.numel() * x.element_size()
     if n == 1:
         return x.detach().clone()
     src = x.detach().contiguous()
@@ -210,6 +312,97 @@ class _AllToAll(torch.autograd.Function):
                 None, None)
 
 
+class _CopyTo(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _mine(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {n}")
+    return x.chunk(n, dim)[dist.get_rank(group)].contiguous()
+
+
+class _GatherFrom(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, x.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mine(g, g.dim() - 1, ctx.group), None
+
+
+class _ScatterTo(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _mine(x, x.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, g.dim() - 1, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _Broadcast(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, root, group):
+        ctx.root, ctx.group = root, group
+        return _broadcast(x, root, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.root, ctx.group), None, None
+
+
 def psum(x: Any, axis: str) -> Any:
     """The sum over ``axis`` of ``x`` (a tensor, or a tree of them)."""
     group = _group(axis)
@@ -246,15 +439,72 @@ def all_to_all(x: torch.Tensor, axis: str, split_axis: int,
                            _group(axis))
 
 
-psum.bytes = 0
-ppermute.bytes = 0
-all_to_all.bytes = 0
+def pmax(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The maximum over ``axis`` (no gradient: a constant of the
+    backward, as a logsumexp's shift)."""
+    return _all_reduce(x, _group(axis), op=dist.ReduceOp.MAX)
+
+
+# the GSPMD tier: Megatron's regions and FSDP's gathers
+
+def copy_to(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``axis``: the entry of a
+    column-parallel region, whose ranks each take part of the gradient
+    of the replicated ``x``."""
+    return _CopyTo.apply(x, _group(axis))
+
+
+def reduce_from(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axis``; its gradient
+    passed as it is: the exit of a row-parallel region."""
+    return _ReduceFrom.apply(x, _group(axis))
+
+
+def gather_from(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along the last dim over ``axis``;
+    the gradient's slice of this rank backward (the gathered output is
+    used alike on every rank)."""
+    return _GatherFrom.apply(x, _group(axis))
+
+
+def scatter_to(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """This rank's slice, along the last dim, of a replicated ``x``; the
+    ranks' gradients gathered backward, so each has the whole (a
+    replicated leaf used a slice a rank)."""
+    return _ScatterTo.apply(x, _group(axis))
+
+
+def all_gather_dim(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` over ``axis``; the
+    gradient reduce-scattered (summed, each rank its slice) backward."""
+    return _AllGather.apply(x, dim % x.dim(), _group(axis))
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum over ``axis``; the
+    gradient all-gathered backward."""
+    return _ReduceScatter.apply(x, dim % x.dim(), _group(axis))
+
+
+def broadcast(x: torch.Tensor, axis: str, root: int) -> torch.Tensor:
+    """Coordinate ``root``'s ``x`` on every rank of ``axis`` (another
+    rank's ``x`` gives only the shape and type); the gradient summed onto
+    the root backward (a reduce), the other ranks' ``x`` getting none."""
+    return _Broadcast.apply(x, int(root), _group(axis))
+
+
+_COUNTED = {"psum": psum, "ppermute": ppermute, "all_to_all": all_to_all,
+            "all_gather": all_gather, "reduce_scatter": reduce_scatter,
+            "broadcast": broadcast, "reduce": _reduce}
 
 
 def reset_bytes() -> None:
-    psum.bytes = ppermute.bytes = all_to_all.bytes = 0
+    for fn in _COUNTED.values():
+        fn.bytes = 0
 
 
 def bytes_moved() -> dict:
-    return {"psum": psum.bytes, "ppermute": ppermute.bytes,
-            "all_to_all": all_to_all.bytes}
+    return {name: fn.bytes for name, fn in _COUNTED.items()}
+
+
+reset_bytes()

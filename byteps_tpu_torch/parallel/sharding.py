@@ -16,12 +16,13 @@ of axis names (split over their product, major first), as JAX's
 
 In JAX these drive GSPMD (XLA infers the collectives from the layouts)
 or ``shard_map`` (the code writes them). Torch has no compiler to infer
-them, so here the tables place the parameters of the shard_map tier:
-``place_params`` gives this rank its slice of every leaf, the
-counterpart of ``device_put`` with a ``NamedSharding``, and
-``gather_params`` puts the slices together again. The tp and fsdp
-tables are data in this port: their runtime (Megatron regions, FSDP's
-gathers) is not ported.
+them, so here the tables place the parameters: ``place_params`` gives
+this rank its slice of every leaf, the counterpart of ``device_put``
+with a ``NamedSharding``, and ``gather_params`` puts the slices together
+again. The code writes the collectives: the shard_map tier's in
+``ring_attention.py``, ``ulysses.py``, ``pipeline.py``; the GSPMD tier's
+(the tp and fsdp tables) in ``tensor_parallel.py`` (Megatron regions),
+``fsdp.py`` (the gathers) and ``spmd.py`` (the step).
 """
 
 from __future__ import annotations

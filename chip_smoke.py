@@ -116,9 +116,20 @@ result line:
     held to a one-process replay on the card in bf16 and f32; tokens/s,
     peak memory, transport and the bytes each collective moved.
 
+23. ``spmd``, the GSPMD tier (``parallel/spmd.py``): two ranks (placed as
+    in phase 22) train, 4 Adam steps each through
+    ``make_spmd_train_step`` from one seeded weight set, Llama small()
+    (B=4, S=2048) Megatron-parallel over ``tp`` with B1 over each rank's
+    3 query heads and 1 KV head, the same model FSDP over ``dp`` (2
+    sequences a rank), and BERT-large (B=64, S=128, 15% masked)
+    Megatron-parallel over ``tp``; each rank held to a one-process
+    replay under phase 22's gates, its bytes at rest and its forward's
+    bytes by collective to the reckonings from the shapes.
+
 Phase 3 also times B1 at the Ulysses path's shape ([4, 2048, 3, 128],
-one KV head a query head) against its twin; ``--parallel-only`` runs
-that and phase 22 alone.
+one KV head a query head) and at the tp path's ([4, 2048, 3, 128], one
+KV head for the three) against its twin; ``--parallel-only`` runs the
+first and phase 22 alone, ``--spmd-only`` the second and phase 23.
 
 Phase 3 also holds the fused Adam kernel to its twin (p, m and v bit for
 bit) and times it beside ``torch.optim.Adam(fused=True)``. Phases 3 and
@@ -4731,9 +4742,9 @@ def _fwd_reckoning(path: str, tiny: bool) -> tuple:
     return "all_to_all", L * 2 * (8 * 640 * 768 * bf) // 2
 
 
-def _par_check(path: str, rank: int, r: dict, on_card: bool,
-               tiny: bool) -> None:
-    label = f"parallel {path} rank {rank}"
+def _par_check_replay(label: str, r: dict) -> None:
+    """The gates against the one-process replay: losses, step 0's
+    gradients and the parameters' moves."""
     for a, b in zip(r["losses"], r["replay_losses"]):
         if abs(a - b) > PAR_LOSS_RTOL * abs(b):
             fail(f"{label}: losses {r['losses']} against the replay's "
@@ -4746,6 +4757,12 @@ def _par_check(path: str, rank: int, r: dict, on_card: bool,
             fail(f"{label}: {what} farther from the bf16 replay than "
                  f"{PAR_RATIO}x the replay's own bf16-f32 distance: "
                  f"{bad}")
+
+
+def _par_check(path: str, rank: int, r: dict, on_card: bool,
+               tiny: bool) -> None:
+    label = f"parallel {path} rank {rank}"
+    _par_check_replay(label, r)
     name, want = _fwd_reckoning(path, tiny)
     if name is not None and r["fwd_bytes"][name] != want:
         fail(f"{label}: a forward moved {r['fwd_bytes'][name]} B by "
@@ -4756,17 +4773,13 @@ def _par_check(path: str, rank: int, r: dict, on_card: bool,
              f"steps, not 24 a step")
 
 
-def phase_parallel(args, card: str, dev_type: str = "cuda",
-                   tiny: bool = False) -> dict:
-    """Expert, sequence and pipeline parallelism on two ranks
-    (``parallel/``): Llama small() under ring attention and under Ulysses
-    with B1 over ``sp``, pipelined over ``pp`` (M = 4), and MoE small()
-    with its experts over ``ep``, PARALLEL_STEPS Adam(1e-3) steps each
-    from one seeded weight set, each rank held to a one-process replay
-    on the card. A rank per card over NCCL where the machine has two
-    cards; on one card both ranks on it over gloo, the all-to-alls,
-    rotations and gathers through host copies (``collectives.via_host``).
-    Returns rank 0's B1 launches on the Ulysses path."""
+def _two_ranks(target, args, dev_type: str, tiny: bool, label: str):
+    """Two spawned ranks of ``target(rank, world, dev, backend, port,
+    seed, tiny, q)``: a rank per card over NCCL where the machine has two
+    cards; on one card both ranks on it over gloo (the all-to-alls,
+    rotations and gathers through host copies,
+    ``collectives.via_host``). Returns ({rank: result}, devices,
+    backend, seconds)."""
     import multiprocessing as mp
     import queue as queue_mod
 
@@ -4784,7 +4797,7 @@ def phase_parallel(args, card: str, dev_type: str = "cuda",
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_par_rank, args=(
+    procs = [ctx.Process(target=target, args=(
         r, 2, devs[r], backend, port, args.seed, tiny, q))
         for r in range(2)]
     for p in procs:
@@ -4799,7 +4812,7 @@ def phase_parallel(args, card: str, dev_type: str = "cuda",
                 dead = [i for i, p in enumerate(procs)
                         if i not in res and not p.is_alive()]
                 if dead or time.time() > deadline:
-                    fail(f"parallel: no result from rank(s) "
+                    fail(f"{label}: no result from rank(s) "
                          f"{sorted(set(range(2)) - set(res))}; exit codes "
                          f"{[p.exitcode for p in procs]}")
                 continue
@@ -4813,16 +4826,54 @@ def phase_parallel(args, card: str, dev_type: str = "cuda",
                 p.join()
     for rank, r in sorted(res.items()):
         if "error" in r:
-            fail(f"parallel rank {rank} raised:\n{r['error']}")
+            fail(f"{label} rank {rank} raised:\n{r['error']}")
+    return res, devs, backend, time.perf_counter() - t0
+
+
+def _par_report(label: str, card: str, runs: list, steps: int,
+                bytes_text: str) -> None:
+    """A path's line: the group's tokens/s over steps 1.., peaks,
+    transport, ``bytes_text``, losses against the replay's, the worst
+    gate ratios and B1's launches a step a rank."""
+    steady = [max(ts) for ts in zip(*(r["times"][1:] for r in runs))]
+    tok_s = runs[0]["tokens"] / (sum(steady) / len(steady))
+    r = runs[0]
+    worst_g = max(a / max(b, 1e-30) for rr in runs
+                  for _, a, b in rr["grad_gate"])
+    worst_m = max(a / max(b, 1e-30) for rr in runs
+                  for _, a, b in rr["move_gate"])
+    print(f"{label}: {tok_s:.1f} tokens/s for the group over "
+          f"steps 1..{steps - 1} on {card}; steps "
+          f"{['%.1f' % (t * 1e3) for t in steady]} ms; peak "
+          f"{', '.join('%.2f' % x['peak'] for x in runs)} GB by rank; "
+          f"transport {r['transport']}; {bytes_text}; losses "
+          f"{['%.6f' % x for x in r['losses']]} (replay "
+          f"{['%.6f' % x for x in r['replay_losses']]}, f32 "
+          f"{['%.6f' % x for x in r['replay_f32_losses']]}); worst "
+          f"ratio to the bf16 replay's own distance: gradients "
+          f"{worst_g:.3f}, parameter moves {worst_m:.3f} (gate "
+          f"{PAR_RATIO}); B1 launches a step a rank "
+          f"{r['launches'] / steps:g}", flush=True)
+
+
+def phase_parallel(args, card: str, dev_type: str = "cuda",
+                   tiny: bool = False) -> dict:
+    """Expert, sequence and pipeline parallelism on two ranks
+    (``parallel/``): Llama small() under ring attention and under Ulysses
+    with B1 over ``sp``, pipelined over ``pp`` (M = 4), and MoE small()
+    with its experts over ``ep``, PARALLEL_STEPS Adam(1e-3) steps each
+    from one seeded weight set, each rank held to a one-process replay
+    on the card (``_two_ranks`` says where the ranks run). Returns rank
+    0's B1 launches on the Ulysses path."""
+    res, devs, backend, secs = _two_ranks(_par_rank, args, dev_type, tiny,
+                                          "parallel")
+    on_card = dev_type == "cuda"
     print(f"parallel: two ranks on {devs[0]}, {devs[1]} over {backend}, "
-          f"{time.perf_counter() - t0:.1f} s for the four paths with "
-          f"their replays", flush=True)
+          f"{secs:.1f} s for the four paths with their replays", flush=True)
     for path in PARALLEL_PATHS:
         runs = [res[0][path], res[1][path]]
         for rank, r in enumerate(runs):
             _par_check(path, rank, r, on_card, tiny)
-        steady = [max(ts) for ts in zip(*(r["times"][1:] for r in runs))]
-        tok_s = runs[0]["tokens"] / (sum(steady) / len(steady))
         r = runs[0]
         name, want = _fwd_reckoning(path, tiny)
         fwd = {k: v for k, v in r["fwd_bytes"].items() if v}
@@ -4830,46 +4881,344 @@ def phase_parallel(args, card: str, dev_type: str = "cuda",
         multiple = (f"; {name} a step = "
                     f"{r['step_bytes'][name] / want:.3f} x the forward's "
                     f"{want}" if name else "")
-        worst_g = max(a / max(b, 1e-30) for rr in runs
-                      for _, a, b in rr["grad_gate"])
-        worst_m = max(a / max(b, 1e-30) for rr in runs
-                      for _, a, b in rr["move_gate"])
-        print(f"parallel {path}: {tok_s:.1f} tokens/s for the group over "
-              f"steps 1..{PARALLEL_STEPS - 1} on {card}; steps "
-              f"{['%.1f' % (t * 1e3) for t in steady]} ms; peak "
-              f"{', '.join('%.2f' % x['peak'] for x in runs)} GB by rank; "
-              f"transport {r['transport']}; bytes rank 0 sent a step "
-              f"{step}, in a forward {fwd}{multiple}; losses "
-              f"{['%.6f' % x for x in r['losses']]} (replay "
-              f"{['%.6f' % x for x in r['replay_losses']]}, f32 "
-              f"{['%.6f' % x for x in r['replay_f32_losses']]}); worst "
-              f"ratio to the bf16 replay's own distance: gradients "
-              f"{worst_g:.3f}, parameter moves {worst_m:.3f} (gate "
-              f"{PAR_RATIO}); B1 launches a step a rank "
-              f"{r['launches'] / PARALLEL_STEPS:g}", flush=True)
+        _par_report(f"parallel {path}", card, runs, PARALLEL_STEPS,
+                    f"bytes rank 0 sent a step {step}, in a forward "
+                    f"{fwd}{multiple}")
     return {"flash_attn_fwd": res[0]["sp_ulysses"]["launches"]}
 
 
-def phase_flash_ulysses(dev, gen) -> dict:
-    """B1 at the Ulysses path's shape (3 heads a rank, one KV head each):
-    the gate against the blockwise twin, its time, the twin's,
-    scaled_dot_product_attention's and the bound."""
+def _flash_at(shape: dict, what: str, dev, gen) -> dict:
+    """B1 at a path's ``shape``: the gate against the blockwise twin, its
+    time, the twin's, scaled_dot_product_attention's and the bound."""
     import torch
-    B, S, H, Hkv, D = (FLASH_ULYSSES_SHAPE[k]
-                       for k in ("B", "S", "H", "Hkv", "D"))
+    B, S, H, Hkv, D = (shape[k] for k in ("B", "S", "H", "Hkv", "D"))
     bf = torch.bfloat16
     q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(bf)
                for h in (H, Hkv, Hkv))
     err = _flash_check(q, k, v)
     ms, plain_ms, lib_ms, bound_ms, bound_by = _flash_times(q, k, v, True)
-    print(f"flash_attention at Ulysses' B={B} S={S} H={H} Hkv={Hkv} D={D} "
+    print(f"flash_attention at {what}, B={B} S={S} H={H} Hkv={Hkv} D={D} "
           f"bf16 causal: {ms:.4f} ms, {bound_ms / ms:.3f} of its bound "
           f"({bound_ms:.4f} ms, {bound_by}); {ms / lib_ms:.2f}x "
           f"scaled_dot_product_attention's {lib_ms:.4f} ms; plain twin "
           f"{plain_ms:.4f} ms; max abs err {err}", flush=True)
-    return dict(shape=FLASH_ULYSSES_SHAPE, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms)
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def phase_flash_ulysses(dev, gen) -> dict:
+    """B1 at the Ulysses path's shape (3 heads a rank, one KV head
+    each)."""
+    return _flash_at(FLASH_ULYSSES_SHAPE, "Ulysses' shape", dev, gen)
+
+
+# ---------------------------------------------------------------------- #
+# the GSPMD tier: Megatron tp (Llama, BERT) and FSDP over two ranks
+# ---------------------------------------------------------------------- #
+
+SPMD_STEPS = 4
+SPMD_PATHS = ("tp", "fsdp", "bert_tp")
+# B1 on the tp path: small()'s 6 query heads and 2 KV heads over tp = 2
+FLASH_TP_SHAPE = dict(B=4, S=2048, H=3, Hkv=1, D=128)
+# the reckonings, from the shapes (written before the first chip run):
+# bytes of parameters a rank holds in f32. small(): half of the
+# 498,597,888 B of split leaves plus the 76,800 B of norms that both
+# tables leave whole (12 x 768 attn_norm, 12 x 768 mlp_norm, 768
+# final_norm); BERT-large under tp = 2: half of the 1,337,171,968 B of
+# split leaves (tok_embed, the six block matrices, mlm_dense) plus the
+# 3,525,864 B left whole (the biases, LayerNorms, pos_embed, type_embed,
+# mlm_out_bias)
+SPMD_AT_REST = {"tp": 249_375_744, "fsdp": 249_375_744,
+                "bert_tp": 672_111_848}
+# Adam's exp_avg and exp_avg_sq beside the fsdp path's slices
+SPMD_ADAM_FSDP = 498_751_488
+
+
+def _spmd_setup(path: str, dev, seed: int, tiny: bool) -> dict:
+    """One path's model, full weights, spec tree, mesh axes, batch spec,
+    global batch, the step's loss function and the one-process replay's
+    loss over the whole batch (``replay(params, cfg)``)."""
+    import dataclasses
+
+    import torch
+    from byteps_tpu_torch.models import bert, llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.parallel import sharding as sh
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    if path == "bert_tp":
+        cfg = bert.BertConfig.bert_large() if not tiny else \
+            dataclasses.replace(bert.BertConfig.tiny(vocab_size=64, seq=32),
+                                remat=True)
+        B, S = (64, 128) if not tiny else (8, 32)
+        full = bert.init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=dev)
+        masked = torch.rand(B, S, generator=gen, device=dev) < 0.15
+        batch = {"tokens": tokens,
+                 "labels": torch.where(masked, tokens,
+                                       torch.full_like(tokens, -100))}
+        return dict(
+            cfg=cfg, full=full, specs=sh.bert_param_specs(), axes={"tp": 2},
+            bspec=sh.P(), batch=batch, tokens=B * S,
+            loss=lambda p, b: bert.loss_parts(p, b, cfg, tp_axis="tp"),
+            replay=lambda p, c: bert.loss_fn(p, batch, c))
+    cfg = llama.LlamaConfig.small() if not tiny else dataclasses.replace(
+        llama.LlamaConfig.tiny(vocab_size=64, seq=64), remat=True)
+    B, S = (4, 2048) if not tiny else (4, 64)
+    full = llama.init_params(cfg, gen, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    attn = FA.make_flash_attn()
+    common = dict(cfg=cfg, full=full, batch=batch, tokens=B * S,
+                  replay=lambda p, c: llama.loss_fn(p, batch, c, attn))
+    if path == "tp":
+        return dict(common, specs=sh.llama_param_specs(), axes={"tp": 2},
+                    bspec=sh.P(), loss=lambda p, b: llama.loss_fn(
+                        p, b, cfg, attn, tp_axis="tp"))
+    return dict(common, specs=sh.fsdp_param_specs(full, axis_size=2),
+                axes={"dp": 2}, bspec=sh.P("dp"),
+                loss=lambda p, b: llama.loss_fn(p, b, cfg, attn))
+
+
+def _spmd_fwd_reckoning(path: str, tiny: bool) -> dict:
+    """{counter: bytes} rank 0 sends in one forward, from the shapes:
+    the numbers the phase's forward must move (``collectives``'
+    conventions; at n = 2 an all-reduce counts its tensor once)."""
+    if tiny:
+        return {}
+    bf, f32 = 2, 4
+    if path == "tp":              # x [4, 2048, 768] bf16 after the
+        act = 4 * 2048 * 768 * bf  # embedding and each wo, w_down; the
+        return {"psum": 25 * act + 3 * 4 * 2048 * f32}   # xent's 3
+    if path == "fsdp":            # embed and lm_head halves gathered;
+        per_layer = 768 * (768 + 256 + 256 + 768 + 3 * 2048) * f32
+        return {"all_gather": 2 * 16000 * 768 * f32,   # layers 0-5 sent
+                "broadcast": 6 * per_layer}             # by rank 0
+    act = 64 * 128 * 1024 * bf    # BERT-large: the embedding, wo and
+    return {"psum": 49 * act + 3 * 64 * 128 * f32,      # w_out of 24
+            "all_gather": 64 * 128 * 512 * bf}          # layers; mlm
+
+
+def _spmd_train(step, leaves, batch, n: int, on_card: bool,
+                label: str) -> dict:
+    """``n`` calls of the spmd ``step``: losses, step times, step 0's
+    gradients (``.grad`` after it), the B1 launches, and step 1's bytes
+    by collective."""
+    import torch
+    from byteps_tpu_torch.ops import flash_attention as FA
+    from byteps_tpu_torch.parallel import collectives as C
+
+    out = dict(losses=[], times=[])
+    FA.flash_attention_fwd.launches = 0
+    for i in range(n):
+        if i == 1:
+            C.reset_bytes()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch))
+        if on_card:
+            torch.cuda.synchronize()
+        out["times"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        if i == 0:
+            out["g0"] = [p.grad.detach().clone() for p in leaves]
+        if i == 1:
+            out["step_bytes"] = C.bytes_moved()
+    out["launches"] = FA.flash_attention_fwd.launches
+    if not all(math.isfinite(x) for x in out["losses"]):
+        fail(f"non-finite loss ({label}): {out['losses']}")
+    return out
+
+
+def _spmd_path(path: str, dev, rank: int, seed: int, tiny: bool,
+               mesh) -> dict:
+    """One path on this rank through ``make_spmd_train_step``: the
+    forward's bytes, SPMD_STEPS steps, then the same steps replayed in one
+    process over the whole batch in bf16 and f32; the gates' numbers on
+    this rank's slices."""
+    import dataclasses
+
+    import torch
+    from byteps_tpu_torch.parallel import collectives as C
+    from byteps_tpu_torch.parallel import fsdp
+    from byteps_tpu_torch.parallel import sharding as sh
+    from byteps_tpu_torch.parallel.spmd import data_axes, make_spmd_train_step
+
+    on_card = dev.type == "cuda"
+    s = _spmd_setup(path, dev, seed, tiny)
+    cfg, full, specs = s["cfg"], s["full"], s["specs"]
+    local = sh.place_params(full, mesh, specs)
+    at_rest = sum(p.numel() * p.element_size() for p in _leaves(local))
+    with mesh, torch.no_grad():
+        C.reset_bytes()
+        view = fsdp.view(local, specs, mesh, data_axes(s["bspec"]))
+        part = s["loss"](view, sh.place_params(s["batch"], mesh, s["bspec"]))
+        float(part[0] if isinstance(part, tuple) else part)
+        fwd_bytes = C.bytes_moved()
+    leaves = [p.requires_grad_() for p in _leaves(local)]
+    init_local = [p.detach().clone() for p in leaves]
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    opt = _adam(leaves)
+    step = make_spmd_train_step(s["loss"], opt, local, mesh, specs,
+                                s["bspec"])
+    run = _spmd_train(step, leaves, s["batch"], SPMD_STEPS, on_card,
+                      f"spmd {path} rank {rank}")
+    peak = _peak_gb(dev)
+    adam_bytes = sum(v.numel() * v.element_size() for p in leaves
+                     for k, v in opt.state[p].items()
+                     if k in ("exp_avg", "exp_avg_sq"))
+    par_end = [p.detach() for p in leaves]
+    del step, opt, local
+    reps = {}
+    for dtype in (cfg.dtype, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        whole = _tree_clone(full)
+        for p in _leaves(whole):
+            p.requires_grad_()
+
+        def grads_of(p, c=c):
+            loss = s["replay"](p, c)
+            gs = torch.autograd.grad(loss, _leaves(p), allow_unused=True)
+            gs = [torch.zeros_like(x) if g is None else g
+                  for x, g in zip(_leaves(p), gs)]
+            return loss.detach(), _rebuild(p, iter(gs))
+
+        r = _par_train(whole, grads_of, SPMD_STEPS, on_card,
+                       f"spmd {path} replay {dtype}")
+        mine = lambda ts: _leaves(sh.place_params(  # noqa: E731
+            _rebuild(full, iter(ts)), mesh, specs))
+        reps[dtype] = dict(losses=r["losses"], g0=mine(r["g0"]),
+                           end=mine([p.detach() for p in _leaves(whole)]),
+                           times=r["times"])
+        del whole, r
+    bf, f32 = reps[cfg.dtype], reps[torch.float32]
+    grad_gate, move_gate = [], []
+    for name, g, gb, gf, p1, pb, pf, p0 in zip(
+            _names(full), run["g0"], bf["g0"], f32["g0"], par_end,
+            bf["end"], f32["end"], init_local):
+        grad_gate.append((name, _rel_l2(g, gb), _rel_l2(gb, gf)))
+        move_gate.append((name, _rel_l2(p1 - p0, pb - p0),
+                          _rel_l2(pb - p0, pf - p0)))
+    axis = next(iter(s["axes"]))
+    return dict(losses=run["losses"], times=run["times"],
+                launches=run["launches"], peak=peak,
+                step_bytes=run["step_bytes"], fwd_bytes=fwd_bytes,
+                at_rest=at_rest, adam_bytes=adam_bytes,
+                replay_losses=bf["losses"], replay_f32_losses=f32["losses"],
+                replay_tok_s=_tokens_per_s(bf["times"], s["tokens"]),
+                grad_gate=grad_gate, move_gate=move_gate,
+                transport=C.transport(mesh.group(axis)),
+                tokens=s["tokens"])
+
+
+def _spmd_rank(rank, world, dev, backend, port, seed, tiny, q) -> None:
+    """One rank of ``spmd`` (a spawned process): the job's group, then
+    every path on its mesh of two; puts (rank, {path: result}) on ``q``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(PS_TIMEOUT_S * 3, exit=True)
+    try:
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, ROOT)
+        from byteps_tpu_torch.config import Config
+        from byteps_tpu_torch.parallel import distributed as D
+        from byteps_tpu_torch.parallel.mesh import make_mesh
+
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            torch.set_num_threads(2)    # the CPU rehearsal's two ranks
+        D.ensure_initialized(Config(num_processes=world, process_id=rank,
+                                    coord_port=port), backend=backend)
+        res = {}
+        try:
+            meshes = {ax: make_mesh({ax: world}) for ax in ("tp", "dp")}
+            for path in SPMD_PATHS:
+                mesh = meshes["dp" if path == "fsdp" else "tp"]
+                res[path] = _spmd_path(path, dev, rank, seed, tiny, mesh)
+                D.sync_global_devices(path)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, res))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        import traceback
+        q.put((rank, {"error": traceback.format_exc()}))
+
+
+def _spmd_check(path: str, rank: int, r: dict, on_card: bool,
+                tiny: bool) -> None:
+    label = f"spmd {path} rank {rank}"
+    _par_check_replay(label, r)
+    want = _spmd_fwd_reckoning(path, tiny)
+    got = {k: v for k, v in r["fwd_bytes"].items() if v}
+    if want and got != want:
+        fail(f"{label}: a forward moved {got}, not the reckoning {want}")
+    if not tiny and r["at_rest"] != SPMD_AT_REST[path]:
+        fail(f"{label}: {r['at_rest']} B of parameters at rest, not "
+             f"{SPMD_AT_REST[path]}")
+    if not tiny and path == "fsdp" and r["adam_bytes"] != SPMD_ADAM_FSDP:
+        fail(f"{label}: {r['adam_bytes']} B of Adam state, not "
+             f"{SPMD_ADAM_FSDP}")
+    if on_card and path in ("tp", "fsdp") and \
+            r["launches"] != 24 * SPMD_STEPS:
+        fail(f"{label}: {r['launches']} B1 launches in {SPMD_STEPS} steps, "
+             f"not 24 a step")
+
+
+def phase_spmd(args, card: str, dev_type: str = "cuda",
+               tiny: bool = False) -> dict:
+    """The GSPMD tier on two ranks (``parallel/spmd.py``): Llama small()
+    (B=4, S=2048) Megatron-parallel over ``tp`` with B1 over each rank's
+    3 query heads and 1 KV head, the same model FSDP over ``dp`` (2
+    sequences a rank), and BERT-large (B=64, S=128, 15% masked)
+    Megatron-parallel over ``tp``; SPMD_STEPS Adam(1e-3) steps each
+    through ``make_spmd_train_step`` from one seeded weight set, each rank
+    held to a one-process replay on the card under the parallel phase's
+    gates, its bytes at rest and its forward's bytes to the reckonings. A
+    rank per card over NCCL where the machine has two cards; on one card
+    both ranks on it over gloo. Returns rank 0's B1 launches on the tp
+    path."""
+    res, devs, backend, secs = _two_ranks(_spmd_rank, args, dev_type, tiny,
+                                          "spmd")
+    on_card = dev_type == "cuda"
+    print(f"spmd: two ranks on {devs[0]}, {devs[1]} over {backend}, "
+          f"{secs:.1f} s for the three paths with their replays",
+          flush=True)
+    for path in SPMD_PATHS:
+        runs = [res[0][path], res[1][path]]
+        for rank, r in enumerate(runs):
+            _spmd_check(path, rank, r, on_card, tiny)
+        r = runs[0]
+        fwd = {k: v for k, v in r["fwd_bytes"].items() if v}
+        step = {k: v for k, v in r["step_bytes"].items() if v}
+        multiple = {k: round(v / fwd[k], 4) for k, v in step.items()
+                    if fwd.get(k)}
+        _par_report(f"spmd {path}", card, runs, SPMD_STEPS,
+                    f"rank 0's one-process bf16 replay of the whole batch "
+                    f"(each rank replays at once, on its card) "
+                    f"{r['replay_tok_s']:.1f} tokens/s; "
+                    f"bytes rank 0 sent a step {step}, in a forward {fwd} "
+                    f"(step / forward {multiple}); bytes at rest a rank "
+                    f"{[x['at_rest'] for x in runs]}, Adam state a rank "
+                    f"{[x['adam_bytes'] for x in runs]}")
+    return {"flash_attn_fwd": res[0]["tp"]["launches"]}
+
+
+def phase_flash_tp(dev, gen) -> dict:
+    """B1 at the tp path's shape (3 query heads and 1 KV head a rank):
+    the gate against the blockwise twin, its time, the twin's,
+    scaled_dot_product_attention's and the bound."""
+    return _flash_at(FLASH_TP_SHAPE, "the tp-local heads", dev, gen)
 
 
 def _shapes(model):
@@ -5004,6 +5353,10 @@ def main() -> int:
                     help="build, then run only the parallel phase (over "
                          "NCCL on a machine with several cards, else over "
                          "gloo on one); no result line")
+    ap.add_argument("--spmd-only", action="store_true",
+                    help="build, then run only B1 at the tp shape and the "
+                         "spmd phase (over NCCL on a machine with several "
+                         "cards, else over gloo on one); no result line")
     args = ap.parse_args()
     if args.steps < 3:
         fail("--steps must be at least 3")
@@ -5034,11 +5387,17 @@ def main() -> int:
             device="cuda").manual_seed(args.seed))
         phase_parallel(args, card)
         return 0
+    if args.spmd_only:
+        phase_flash_tp(torch.device("cuda", 0), torch.Generator(
+            device="cuda").manual_seed(args.seed))
+        phase_spmd(args, card)
+        return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = phase_onebit(dev, gen)
     kernels.insert(0, phase_flash(dev, gen))
     kernels[0]["ulysses"] = phase_flash_ulysses(dev, gen)
+    kernels[0]["tp_local"] = phase_flash_tp(dev, gen)
     kernels.extend(phase_dither(dev, gen, args.seed))
     kernels.append(phase_randomk(dev, args.seed))
     kernels.extend(phase_xla_rounding(dev, gen))
@@ -5068,6 +5427,7 @@ def main() -> int:
     xb_dp2 = phase_ps_cross_barrier_dp2(args, card)
     zoo = {k: v["launches"] for k, v in phase_zoo(args, card).items()
            if "launches" in v}
+    spmd = phase_spmd(args, card)
     # each kernel's count from a path that runs it, each path's counters
     # zeroed just before it and read just after: B1 from the adapter's
     # DistributedOptimizer(Adam) run (this slice's main path; every path
@@ -5085,6 +5445,10 @@ def main() -> int:
     # on its own beside B1's entry at that path's shape
     launches["flash_attn_fwd"] += parallel["flash_attn_fwd"]
     kernels[0]["ulysses"]["launches"] = parallel["flash_attn_fwd"]
+    # B1 on the tp path's local heads (rank 0 of the spmd phase, 24 a
+    # step), also on its own beside B1's entry at that path's shape
+    launches["flash_attn_fwd"] += spmd["flash_attn_fwd"]
+    kernels[0]["tp_local"]["launches"] = spmd["flash_attn_fwd"]
     # and the zoo's paths beside them, each counted from 0 on its own: B2,
     # B3, xla_sum and fma_scalar from BERT-large's collective onebit, B4
     # and the dequantization from VGG-16's device-tier dithering
@@ -5101,13 +5465,15 @@ def main() -> int:
         "ps rowsparse": rowsparse, "ps elastic": elastic,
         "ps async": ps_async, "ps cross-barrier dp2 (rank 0)": xb_dp2,
         "zoo": zoo, "train variants": variants, "zero": zero,
-        "parallel sp_ulysses (rank 0)": parallel}), flush=True)
+        "parallel sp_ulysses (rank 0)": parallel,
+        "spmd tp (rank 0)": spmd}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     print(f"chip_smoke: every phase passed, "
           f"{time.perf_counter() - t_start:.1f} s from the start", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ulysses")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ulysses",
+            "tp_local")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in kernels]}))
     print(json.dumps({"ok": True, "device": {

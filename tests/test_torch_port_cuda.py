@@ -96,8 +96,9 @@ def _one_bf16_step(got, ref):
     (2, 256, 6, 6, 128, True),      # GQA groups of 1
     (2, 256, 6, 1, 128, True),      # GQA groups of 6
     (4, 2048, 3, 3, 128, True),     # Ulysses' local attention over sp = 2
+    (4, 2048, 3, 1, 128, True),     # the tp-local heads over tp = 2
 ], ids=["path", "S192-causal", "S192-D64", "D64-noncausal", "groups1",
-        "groups6", "ulysses"])
+        "groups6", "ulysses", "tp"])
 def test_flash_bf16_kernel_within_one_step(dev, B, S, H, Hkv, D, causal):
     g = torch.Generator(device=dev).manual_seed(S + H + Hkv + D)
     q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()

@@ -49,8 +49,8 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_the_ps_path_modules_are_checked():
     """The parameter-server slice's modules, the model zoo, the host
     codecs (lossless, the native codec), the elastic fleet, the
-    asynchronous step's modules and the parallel strategies' modules are
-    among the files above."""
+    asynchronous step's modules and the parallel strategies' modules (the
+    GSPMD tier's too) are among the files above."""
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("config", "core/arena", "core/registry", "core/scheduler",
                 "core/types", "native/build", "ops/compression/host",
@@ -66,7 +66,8 @@ def test_the_ps_path_modules_are_checked():
                 "parallel/mesh", "parallel/collectives",
                 "parallel/distributed", "parallel/sharding",
                 "parallel/ring_attention", "parallel/ulysses",
-                "parallel/pipeline", "__init__"):
+                "parallel/pipeline", "parallel/tensor_parallel",
+                "parallel/fsdp", "parallel/spmd", "__init__"):
         assert f"byteps_tpu_torch/{mod}.py" in files, mod
 
 

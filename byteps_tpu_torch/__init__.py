@@ -38,6 +38,15 @@ BYTEPS_ENABLE_ASYNC=1, ``training.make_async_ps_train_step`` trains
 asynchronously: each worker pushes its weight delta and pulls the
 server's weights, with no barrier of the workers.
 
+The measurement plane: ``get_metrics()`` (the registry's counters,
+gauges and histograms with its sections), ``get_fleet_metrics()``,
+``get_step_reports()`` (each PS step's ``StepReport``; ``core.metrics.
+classify_step`` names what it was bound on), ``get_ledger()`` (the cost
+model and the card's peak), ``get_timeseries()``, ``get_arena_stats()``,
+``get_pushpull_speed()`` and ``dump_flight_record()``; with
+BYTEPS_METRICS_PORT set, ``GET 127.0.0.1:<port>/metrics`` serves the
+registry as Prometheus text.
+
 The package imports ``torch`` and numpy and nothing of JAX.
 """
 
@@ -58,7 +67,9 @@ __all__ = ["init", "shutdown", "suspend", "resume", "add_server",
            "drain_server", "rank", "size", "local_rank", "local_size",
            "push_pull", "broadcast", "declare_tensor", "push_pull_async",
            "push_pull_rowsparse", "push_pull_rowsparse_async", "poll",
-           "synchronize"]
+           "synchronize", "get_pushpull_speed", "get_metrics",
+           "get_fleet_metrics", "get_ledger", "get_timeseries",
+           "dump_flight_record", "get_step_reports", "get_arena_stats"]
 
 
 def init(device=None, store=None, rank: Optional[int] = None,
@@ -214,3 +225,97 @@ def synchronize(handle: int, timeout: Optional[float] = None):
     h = handles.get(handle)
     out = handles.wait_and_clear(handle, timeout)
     return out.reshape(getattr(h, "shape", out.shape))
+
+
+# ---- the measurement plane (byteps_tpu/__init__.py:132-258) ----------- #
+
+def get_pushpull_speed() -> tuple:
+    """(timestamp, MB/s) of recent push_pull traffic, in windows of
+    about ten seconds (operations.cc:131-136, global.cc:697-752)."""
+    return get_state().telemetry.speed()
+
+
+def get_metrics() -> dict:
+    """The metrics registry's snapshot (``core/metrics.py``):
+
+    - ``counters``: monotonic totals (``wire/*`` requests and bytes,
+      ``compress/bytes_pre``/``_post``, ``scheduler/credit_stalls``,
+      ``wire/retries``, ``pushpull/bytes_total``, ``barrier/*``,
+      ``health/*``, ``ledger/efficiency_drops``);
+    - ``gauges``: last-written values (the queue depth, ``wire/inflight``,
+      the ledger's and the health plane's last step);
+    - ``histograms``: log2-bucket latencies (per stage and key class,
+      admission wait, ``step/h2d_update_us``, ``step/allgather_us``)
+      with count, sum, min, max, p50, p95 and p99;
+    - sections: ``arena`` (as ``get_arena_stats()``), ``server`` (the
+      servers of this process), ``fleet`` (one entry per server),
+      ``flight``, ``ledger``, ``timeseries`` and ``steps`` (the last
+      StepReport and its diagnosis).
+
+    BYTEPS_METRICS=0 freezes the instruments; the snapshot still comes,
+    with zeros."""
+    return get_state().metrics.snapshot()
+
+
+def get_fleet_metrics() -> dict:
+    """``get_metrics()`` with its ``fleet`` section: one per-stage stats
+    dict per server, by index, over the STATS_PULL control op when the
+    client is connected (``fleet.source`` "wire"), else from the servers
+    of this process ("local"), else none ("none"). The Prometheus
+    endpoint's ``byteps_fleet_*{server="<i>"}`` series read the same
+    section."""
+    return get_metrics()
+
+
+def get_ledger() -> dict:
+    """The efficiency ledger's snapshot (``core/ledger.py``): the
+    registered cost model (``model_flops`` from FlopCounterMode,
+    ``ideal_wire_bytes``, ``source``), the card's peak (``peak_flops``,
+    ``peak_bw_gbps``, ``peak_source``), ``roofline_frac`` and the perf
+    archive's path and counts; ``{"enabled": False}`` before ``init()``.
+    Each step's ``mfu``, ``overlap_frac`` and ``wire_efficiency`` are on
+    its StepReport (``get_step_reports()``)."""
+    state = get_state()
+    if state.ledger is None:
+        return {"enabled": False}
+    return state.ledger.snapshot()
+
+
+def get_timeseries(prefix: str = "", tail: Optional[int] = None) -> dict:
+    """The time-series plane's rings (``core/timeseries.py``): every
+    per-step series, ``step/<field>`` of the StepReports,
+    ``counter/<name>`` deltas and ``gauge/<name>`` values, as ``{name:
+    {"steps": [...], "values": [...]}}``, oldest first, at most
+    BYTEPS_TS_POINTS deep; ``prefix`` filters the names and ``tail``
+    bounds the points. ``{"enabled": False}`` before ``init()`` or with
+    BYTEPS_TIMESERIES=0."""
+    state = get_state()
+    if state.timeseries is None or not state.timeseries.enabled:
+        return {"enabled": False}
+    return {"enabled": True,
+            "series": state.timeseries.series(prefix=prefix, tail=tail)}
+
+
+def dump_flight_record(path: Optional[str] = None) -> Optional[str]:
+    """Write the merged flight record (the worker's events and every
+    reachable server's ring, on the worker's clock) as JSON; returns the
+    path, or None when the recorder is off (BYTEPS_FLIGHT_RECORDER=0)
+    and no server has events. SIGTERM and a round that fails for good
+    dump it too."""
+    from .core import flight
+    return flight.dump(path=path, reason="api")
+
+
+def get_step_reports() -> list:
+    """The last BYTEPS_STEP_REPORTS ``StepReport``s of the PS steps, as
+    dicts, oldest first."""
+    return [r.as_dict() for r in get_state().profiler.reports()]
+
+
+def get_arena_stats() -> dict:
+    """The host staging arena's counters (``core/arena.py``: ``enabled``,
+    slots live, bytes pinned, allocations avoided, conflicts, fresh
+    buffers) and the streamed export's (``export_streamed_leaves``,
+    ``export_fallback_leaves``, ``export_ttfp_ms``). Also
+    ``get_metrics()["arena"]``."""
+    return get_state().telemetry.arena_stats()

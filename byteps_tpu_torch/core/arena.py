@@ -13,8 +13,9 @@ slot as a numpy array (``buf``, for the client) and as a torch tensor
 (``tensor``, for the copies).
 
 Correctness never depends on the arena. A slot is handed out only while
-it is free; if it is still leased (``checkout_conflicts``), the caller
-gets a fresh untracked buffer with the same semantics. A caller that hits an error
+it is free; if it is still leased (``checkout_conflicts``), or the arena
+is off (BYTEPS_STAGING_ARENA=0, ``enabled``), the caller gets a fresh
+untracked buffer with the same semantics (``fresh_allocs``). A caller that hits an error
 mid-round ``abandon()``s its leases: the slot leaves the table and the
 next checkout allocates a new one.
 """
@@ -101,16 +102,20 @@ class ArenaLease:
 
 class StagingArena:
     """Thread-safe key -> persistent staging slot table. ``pin``: slots in
-    page-locked memory (a card's copies read and write them)."""
+    page-locked memory (a card's copies read and write them).
+    ``enabled`` False: every checkout is a fresh buffer."""
 
-    def __init__(self, pin: bool = False) -> None:
+    def __init__(self, pin: bool = False, enabled: bool = True) -> None:
         self.pin = pin
+        self.enabled = enabled
         self._mu = threading.Lock()
         self._slots: Dict[str, _Slot] = {}  # guarded-by: _mu
         # counters, all guarded-by: _mu
         self._slot_allocs = 0
         self._allocs_avoided = 0
         self._conflicts = 0
+        self._fresh = 0
+        self._resizes = 0
         self._tag_checkouts: Dict[str, int] = {}
 
     def checkout(self, key: str, nbytes: int,
@@ -124,12 +129,15 @@ class StagingArena:
             if tag is not None:
                 self._tag_checkouts[tag] = \
                     self._tag_checkouts.get(tag, 0) + 1
-            slot = self._slots.get(key)
-            if slot is not None and slot.busy:
-                self._conflicts += 1
+            slot = self._slots.get(key) if self.enabled else None
+            if not self.enabled or (slot is not None and slot.busy):
+                if self.enabled:
+                    self._conflicts += 1
+                self._fresh += 1
                 return ArenaLease(self, key, _Slot(_aligned_empty(
                     nbytes, self.pin)), fresh=True)
             if slot is not None and slot.buf.nbytes != nbytes:
+                self._resizes += 1
                 slot = None
             if slot is None:
                 slot = _Slot(_aligned_empty(nbytes, self.pin))
@@ -171,11 +179,14 @@ class StagingArena:
     def stats(self) -> dict:
         with self._mu:
             return {
+                "enabled": self.enabled,
                 "slots_live": len(self._slots),
                 "bytes_pinned": sum(s.buf.nbytes
                                     for s in self._slots.values()),
                 "slot_allocs": self._slot_allocs,
                 "allocs_avoided": self._allocs_avoided,
                 "checkout_conflicts": self._conflicts,
+                "fresh_allocs": self._fresh,
+                "resizes": self._resizes,
                 "export_checkouts": self._tag_checkouts.get("export", 0),
             }

@@ -35,7 +35,9 @@ on one server:
   computed from the declarations and loads alone, so a worker of either
   package with the same declarations computes the same plan.
 
-Not ported: the colocated mixed mode and the codec plane's plan state.
+Under BYTEPS_ENABLE_MIXED_MODE the colocated mixed mode assigns every
+key (``_hash_mixed_mode_locked``, byteps_tpu/core/registry.py:402-428,
+BytePS global.cc:566-596). Not ported: the codec plane's plan state.
 """
 
 from __future__ import annotations
@@ -257,6 +259,11 @@ class TensorRegistry:
                  if s not in self._dead_servers] or list(range(num_servers))
         if num_servers == 1:
             server = 0
+        elif self._config.enable_mixed_mode:
+            # the mode encodes the colocated/dedicated split by index, so
+            # it keeps the whole range (a dead server fails at the wire
+            # and its keys migrate)
+            server = self._hash_mixed_mode_locked(key)
         elif fn_name == "mixed":
             # least-loaded; deterministic across workers, which declare in
             # the same order
@@ -266,6 +273,34 @@ class TensorRegistry:
             server = alive[fn(str(key)) % len(alive)]
         self._server_load[server] += length
         return server
+
+    def _hash_mixed_mode_locked(self, key: int) -> int:
+        """The colocated mixed mode (Hash_Mixed_Mode, global.cc:566-596):
+        the last ``num_workers`` servers share a host with a worker, and a
+        djb2 double hash under ``mixed_mode_bound`` sends a computed share
+        of the keys to the dedicated servers, so that a colocated host
+        carries less."""
+        num_servers = self._config.num_servers
+        num_workers = max(1, self._config.num_workers)
+        noncolo = num_servers - num_workers
+        _check(noncolo >= 1,
+               "mixed mode needs num_servers > num_workers (every worker "
+               "colocates one server plus dedicated servers)")
+        bound = self._config.mixed_mode_bound
+        _check(bound >= num_servers,
+               f"BYTEPS_MIXED_MODE_BOUND {bound} < num_servers")
+        denom = num_workers * (num_workers + noncolo) - 2 * noncolo
+        _check(denom > 0,
+               "mixed mode requires >= 2 workers (the reference ratio "
+               "formula, global.cc:576-584, is undefined at 1 worker: "
+               f"workers={num_workers} servers={num_servers})")
+        ratio = (2.0 * noncolo * (num_workers - 1)) / denom
+        _check(0 <= ratio <= 1,
+               "mixed mode requires num_noncolocated <= num_workers")
+        h = _hash_djb2(str(key)) % bound
+        if h < ratio * bound:
+            return _hash_djb2(str(h)) % noncolo
+        return noncolo + _hash_djb2(str(h)) % num_workers
 
     @staticmethod
     def shard_name(name: str, k: int, num_shards: int) -> str:

@@ -33,7 +33,24 @@ reports dead first moves that server's keys to the survivors
 host codec's kwargs. When the budget is spent, or no server survives,
 the round fails with an error that names the flight record's dump
 (``core/flight.py``). The plain int counters ``retries``,
-``server_failovers`` and ``key_migrations`` count these events.
+``server_failovers`` and ``key_migrations`` count these events, and so do
+the registry's ``wire/retries``, ``wire/server_failovers`` and
+``registry/migrations``.
+
+The measurement plane (``core/metrics.py``; byteps_tpu/core/scheduler.py
+:52-132, :493-596, :735-770): the queue's depth gauge, admission-wait
+histogram and credit stalls; per (stage, key class) latency histograms
+(``scheduler/<stage>_us/<class>``, class ``dense``, ``compressed`` or
+``wire``); the ``compress/bytes_pre`` and ``compress/bytes_post``
+counters, the dense-equivalent and the actual wire bytes of a round
+both ways; and the open StepReport's stage samples, queue peak, credit
+stalls and wire spans (a PULL sample is one partition's submit to
+completion). The compress counters also count the device tier's
+compressed payloads (a prebuilt wire with a reply length, under the
+compressed command word), which the JAX scheduler leaves out: there the
+host stacks alone count. The
+push_pull byte rate (``core/state.py`` ``Telemetry``) records each
+finished partition's bytes both ways.
 
 Priority is
 -declared_key by default (front-of-model tensors win ties,
@@ -51,6 +68,7 @@ import concurrent.futures
 import heapq
 import itertools
 import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -68,6 +86,9 @@ from .types import (
 # credit when scheduling is off: effectively unlimited (the reference's
 # 32 GB, scheduled_queue.cc:33-45)
 UNLIMITED_CREDIT = 32 << 30
+# the command words of a compressed payload, whatever its dtype
+_COMPRESSED_CMDS = frozenset(
+    get_command_type(RequestType.COMPRESSED_PUSH_PULL, dt) for dt in DataType)
 
 
 class ScheduledQueue:
@@ -80,7 +101,8 @@ class ScheduledQueue:
     ahead (it never sums two rounds). Same-key tasks admit in submission
     order, so round k always goes before round k + 1."""
 
-    def __init__(self, credit_bytes: int = 0, window: int = 0):
+    def __init__(self, credit_bytes: int = 0, window: int = 0,
+                 metrics=None, profiler=None):
         self._credit = (credit_bytes if credit_bytes > 0
                         else UNLIMITED_CREDIT)  # guarded-by: _cv
         self._capacity = self._credit
@@ -90,19 +112,41 @@ class ScheduledQueue:
         self._stopped = False                  # guarded-by: _cv
         self._inflight: Dict[int, int] = {}    # guarded-by: _cv
         self._window = max(0, int(window))
+        # set by _pop_admissible_locked: the head waits on credit
+        self._credit_blocked = False           # guarded-by: _cv
+        # the measurement plane's instruments, looked up once
+        self._profiler = profiler
+        if metrics is not None:
+            self._depth_gauge = metrics.gauge("scheduler/queue_depth")
+            self._admit_hist = metrics.histogram(
+                "scheduler/admission_wait_us")
+            self._stall_ctr = metrics.counter("scheduler/credit_stalls")
+        else:
+            self._depth_gauge = self._admit_hist = self._stall_ctr = None
+
+    def _step(self):
+        return self._profiler.current() if self._profiler else None
 
     def add_task(self, task: "PartitionTask") -> None:
         with self._cv:
             if self._stopped:
                 raise RuntimeError("scheduler stopped")
+            task.enqueue_t = time.perf_counter()
             # seq keeps same-key tasks in submission order
             heapq.heappush(self._heap, (-task.priority, task.key,
                                         next(self._counter), task))
+            depth = len(self._heap)
             self._cv.notify()
+        if self._depth_gauge is not None:
+            self._depth_gauge.set(depth)
+            prof = self._step()
+            if prof is not None:
+                prof.queue_depth(depth)
 
     def get_task(self) -> Optional["PartitionTask"]:
         """Block until a task is admitted (credit left, key not in
         flight) or the queue stops."""
+        stall_counted = False
         with self._cv:
             while True:
                 if self._stopped:
@@ -112,8 +156,22 @@ class ScheduledQueue:
                     self._credit -= task.nbytes
                     self._inflight[task.key] = \
                         self._inflight.get(task.key, 0) + 1
-                    return task
+                    depth = len(self._heap)
+                    break
+                if (self._credit_blocked and not stall_counted
+                        and self._stall_ctr is not None):
+                    # one stall a blocked admission, not one a poll
+                    stall_counted = True
+                    self._stall_ctr.inc()
+                    prof = self._step()
+                    if prof is not None:
+                        prof.credit_stall()
                 self._cv.wait(timeout=0.1)
+        if self._admit_hist is not None:
+            self._depth_gauge.set(depth)
+            self._admit_hist.record_seconds(
+                time.perf_counter() - task.enqueue_t)
+        return task
 
     def _pop_admissible_locked(self) -> Optional["PartitionTask"]:
         """Pop the highest-priority admissible task; in-flight keys are
@@ -122,6 +180,7 @@ class ScheduledQueue:
         overtakes it, scheduled_queue.cc:136-149)."""
         skipped: List = []
         found = None
+        self._credit_blocked = False
         while self._heap:
             item = heapq.heappop(self._heap)
             t = item[3]
@@ -134,6 +193,7 @@ class ScheduledQueue:
                 found = t
             else:
                 skipped.append(item)
+                self._credit_blocked = True
             break
         for item in skipped:
             heapq.heappush(self._heap, item)
@@ -187,7 +247,8 @@ class PartitionTask:
 
     __slots__ = ("ctx", "partition", "priority", "version", "in_view",
                  "out_view", "group", "cmd", "cmd_pull", "wire", "pull_len",
-                 "stack", "step", "lease", "round_no", "attempt", "sent_to")
+                 "stack", "step", "lease", "round_no", "attempt", "sent_to",
+                 "enqueue_t", "push_len")
 
     def __init__(self, ctx, partition, priority, version, out_view, group,
                  cmd, wire=None, pull_len=None, in_view=None, stack=None,
@@ -210,6 +271,8 @@ class PartitionTask:
         self.round_no = 0          # per-key submission ordinal
         self.attempt = 0           # wire retries of this round so far
         self.sent_to = None        # the two-op push's server, which its pull asks
+        self.enqueue_t = 0.0       # perf_counter at add_task
+        self.push_len = None       # bytes the last push sent
 
     @property
     def epoch(self) -> int:
@@ -374,10 +437,13 @@ class PipelineScheduler:
     ``registry``: the tensor registry whose routing a failover migrates
     (None: a dead server's keys cannot move, and its rounds fail).
     ``config``: the wire knobs (fused_pushpull, wire_retry,
-    wire_backoff_ms); None reads them from the environment."""
+    wire_backoff_ms); None reads them from the environment. ``metrics``,
+    ``profiler`` and ``telemetry``: the measurement plane (None: not
+    measured)."""
 
     def __init__(self, client, num_threads: int = 8, credit_bytes: int = 0,
-                 arena=None, registry=None, config: Optional[Config] = None):
+                 arena=None, registry=None, config: Optional[Config] = None,
+                 metrics=None, profiler=None, telemetry=None):
         cfg = config if config is not None else Config.from_env()
         self._client = client
         self._fused = cfg.fused_pushpull and \
@@ -417,7 +483,25 @@ class PipelineScheduler:
         # the previous round's aggregate
         self.xb_window = max(0, int(cfg.staleness)) \
             if self._fused and cfg.cross_barrier else 0
-        self._queue = ScheduledQueue(credit_bytes, window=self.xb_window)
+        self._queue = ScheduledQueue(credit_bytes, window=self.xb_window,
+                                     metrics=metrics, profiler=profiler)
+        # the measurement plane: stage histograms are cached per (stage,
+        # key class) under their own lock, off the registry's
+        self._metrics = metrics
+        self._profiler = profiler
+        self._telemetry = telemetry
+        self._stage_mu = threading.Lock()
+        self._stage_hists: Dict[tuple, object] = {}  # guarded-by: _stage_mu
+        if metrics is not None:
+            self._comp_pre = metrics.counter("compress/bytes_pre")
+            self._comp_post = metrics.counter("compress/bytes_post")
+            # made at once, so the snapshot shows zeros on a healthy fleet
+            self._m_retries = metrics.counter("wire/retries")
+            self._m_failovers = metrics.counter("wire/server_failovers")
+            self._m_migrations = metrics.counter("registry/migrations")
+        else:
+            self._comp_pre = self._comp_post = None
+            self._m_retries = self._m_failovers = self._m_migrations = None
         self._push_pool = concurrent.futures.ThreadPoolExecutor(
             num_threads, thread_name_prefix="bps-push")
         self._pull_pool = concurrent.futures.ThreadPoolExecutor(
@@ -527,13 +611,75 @@ class PipelineScheduler:
 
     def _do_compress(self, task: PartitionTask) -> None:
         from ..server.compressed import compress_partition
+        t0 = time.perf_counter()
         try:
             task.wire = compress_partition(task.stack, task.in_view,
                                            task.step)
         except Exception as e:  # noqa: BLE001 - forwarded to the waiter
             self._finish(task, e)
             return
+        finally:
+            self._stage_done(task, "COMPRESS", t0)
         self._submit_stage(self._push_pool, self._wire_entry(), task)
+
+    # ---- the measurement plane ---------------------------------------- #
+
+    @staticmethod
+    def _key_class(task) -> str:
+        """"compressed" (a host codec stack), "wire" (a prebuilt payload:
+        the device tier's or a row-sparse push) or "dense"."""
+        if task.stack is not None:
+            return "compressed"
+        if task.wire is not None:
+            return "wire"
+        return "dense"
+
+    def _stage_done(self, task, stage: str, t0: float) -> None:
+        """One stage's latency: its (stage, class) histogram and the open
+        StepReport's sample; a PULL sample is also the step's wire span."""
+        if self._metrics is None:
+            return
+        dt = time.perf_counter() - t0
+        key = (stage, self._key_class(task))
+        with self._stage_mu:
+            h = self._stage_hists.get(key)
+            if h is None:
+                h = self._stage_hists[key] = self._metrics.histogram(
+                    f"scheduler/{stage.lower()}_us/{key[1]}")
+        h.record_seconds(dt)
+        prof = self._profiler.current() if self._profiler else None
+        if prof is not None:
+            prof.stage_sample(stage, dt)
+            if stage == "PULL":
+                prof.wire_span(t0, t0 + dt)
+
+    def _account(self, task) -> None:
+        """A finished partition's bytes: the push_pull rate both ways,
+        and a compressed one's dense-equivalent and actual wire bytes
+        (byteps_tpu/core/scheduler.py:1226-1251)."""
+        if task.stack is not None:
+            # actual lengths: a variable wire may be shorter than its bound
+            sent = task.push_len if task.push_len is not None \
+                else task.stack.wire_bytes()
+            recvd = len(task.wire) if task.wire is not None \
+                else task.stack.wire_bytes()
+            moved = sent + recvd
+            compressed = True
+        elif task.wire is not None:
+            down = task.pull_len if task.pull_len is not None \
+                else task.nbytes
+            moved = len(task.wire) + down
+            # the device tier's compressed payload (its dense partitions
+            # travel under the plain command word)
+            compressed = task.pull_len is not None and \
+                task.cmd in _COMPRESSED_CMDS
+        else:
+            moved, compressed = 2 * task.nbytes, False
+        if self._telemetry is not None:
+            self._telemetry.record(moved)
+        if compressed and self._comp_pre is not None:
+            self._comp_pre.inc(2 * task.nbytes)
+            self._comp_post.inc(moved)
 
     # ---- bounded retry and server failover ---------------------------- #
 
@@ -570,6 +716,8 @@ class PipelineScheduler:
                              f"server={task.partition.server} err={err}")
         with self._count_mu:
             self.retries += 1
+        if self._m_retries is not None:
+            self._m_retries.inc()
         # the reply scratch may be half written: never recycle it
         if task.lease is not None:
             task.lease.abandon()
@@ -706,6 +854,9 @@ class PipelineScheduler:
             with self._count_mu:
                 self.server_failovers += 1
                 self.key_migrations += len(migrated)
+            if self._m_failovers is not None:
+                self._m_failovers.inc()
+                self._m_migrations.inc(len(migrated))
         log.warning("scheduler: server %d declared dead; %d key(s) "
                     "migrated to survivors, re-routing in-flight retries",
                     srv, len(migrated))
@@ -743,8 +894,12 @@ class PipelineScheduler:
         # (varint dithering, lossless) may be shorter than its bound
         want = task.pull_len if task.pull_len is not None else len(reply)
         short_ok = _variable_wire(task)
+        task.push_len = len(buf)
+        t0 = time.perf_counter()
 
         def on_done(got: int, err) -> None:
+            # submit to completion: the wire and the aggregation wait
+            self._stage_done(task, "PULL", t0)
             if err is None and got != want and not (short_ok and got < want):
                 err = RuntimeError(
                     f"fused pushpull reply for {task.ctx.name!r} "
@@ -771,6 +926,9 @@ class PipelineScheduler:
                 epoch=task.epoch)
         except Exception as e:  # noqa: BLE001 - retried or forwarded
             self._fail_or_retry(task, e)
+            return
+        # the send's wall alone: the aggregation wait is the PULL sample
+        self._stage_done(task, "PUSH", t0)
 
     def _do_push(self, task: PartitionTask) -> None:
         """The two-op PUSH stage: send the push (the ACK drains in the
@@ -782,18 +940,23 @@ class PipelineScheduler:
         buf = task.wire if task.wire is not None else task.in_view
         self._count_push(len(buf))
         task.sent_to = server
+        task.push_len = len(buf)
+        t0 = time.perf_counter()
         try:
             self._client.zpush_async(server, task.key, buf, task.cmd,
                                      epoch=task.epoch)
         except Exception as e:  # noqa: BLE001 - retried or forwarded
             self._fail_or_retry(task, e)
             return
+        finally:
+            self._stage_done(task, "PUSH", t0)
         self._submit_stage(self._pull_pool, self._do_pull, task)
 
     def _do_pull(self, task: PartitionTask) -> None:
         """The two-op PULL stage: block on the key's aggregate. A failure
         replays the whole exchange from the push: the epoch stamp dedups
         the replayed push (byteps_tpu/core/scheduler.py:1136)."""
+        t0 = time.perf_counter()
         try:
             reply = self._reply_buffer(task)
             got = self._client.zpull(
@@ -806,6 +969,8 @@ class PipelineScheduler:
         except Exception as e:  # noqa: BLE001 - retried or forwarded
             self._fail_or_retry(task, e)
             return
+        finally:
+            self._stage_done(task, "PULL", t0)
         if task.stack is not None:
             task.wire = reply[:got]
             self._submit_stage(self._codec_pool, self._do_decompress, task)
@@ -814,11 +979,14 @@ class PipelineScheduler:
 
     def _do_decompress(self, task: PartitionTask) -> None:
         from ..server.compressed import decompress_partition
+        t0 = time.perf_counter()
         try:
             decompress_partition(task.stack, task.wire, task.out_view)
         except Exception as e:  # noqa: BLE001 - forwarded to the waiter
             self._finish(task, e)
             return
+        finally:
+            self._stage_done(task, "DECOMPRESS", t0)
         self._finish(task, None)
 
     def _finish(self, task: PartitionTask, err: Optional[Exception]) -> None:
@@ -832,6 +1000,8 @@ class PipelineScheduler:
                 task.lease.abandon()
             task.lease = None
         self._queue.report_finish(task)
+        if err is None:
+            self._account(task)
         task.group.partition_done(err)
 
     def submit(self, ctx: TensorContext, flat_in: np.ndarray,

@@ -16,6 +16,12 @@ Port of byteps_tpu/ops/flash_attention.py. Interface of the Llama model's
   tiles brought in by TMA, which needs every row of q, k and v to start
   16-byte aligned); f32 runs a CUDA-core kernel.
 - ``make_flash_attn``: binds it as the model's ``attn_impl``.
+
+The forward reports its FLOPs (``attention_flops``) to the ledger's count
+(``utils/flops.py``): on the card ``FlopCounterMode`` cannot see the
+ctypes launch, and on the CPU the blockwise twin's own products count as
+the kernel's FLOPs instead. The backward's products are PyTorch's and
+count themselves.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..native import build
 from ..parallel.ring_attention import NEG_INF, block_attn_accum
+from ..utils import flops
 
 TILE = 64   # the kernels' KV tile (and f32 query tile); S must be a multiple
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -75,6 +82,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def attention_flops(B: int, S: int, H: int, D: int,
+                    causal: bool = True) -> float:
+    """The forward's FLOPs: QK^T and PV, 2 * 2 * B * H * S^2 * D, over
+    the lower triangle alone when ``causal`` (the kernel skips the tiles
+    above it)."""
+    full = 4.0 * B * H * S * S * D
+    return full / 2 if causal else full
+
+
 def _lib():
     lib = build.load("flash_attn_fwd")
     if not getattr(lib, "_bps_typed", False):
@@ -104,7 +120,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for CPU tensors (``block_k`` sizes the twin's blocks; the kernel's
     tiles are fixed)."""
     if q.device.type == "cpu":
-        return blockwise_attention(q, k, v, causal=causal, block_k=block_k)
+        B, S, H, D = q.shape
+        with flops.counted_as(attention_flops(B, S, H, D, causal)):
+            return blockwise_attention(q, k, v, causal=causal,
+                                       block_k=block_k)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -136,6 +155,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "16-byte aligned (the kernel's TMA copies need it)")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _lib()
+    flops.report(attention_flops(B, S, H, D, causal))
     with build.on_device(q.device) as stream:
         flash_attention_fwd.launches += 1
         build.check(lib, lib.bps_flash_fwd(

@@ -8,6 +8,11 @@ death probe that the scheduler's failover reads, the barrier and close;
 the elastic fleet's control ops (``add_server`` grows the connection
 table at run time, ``join_probe`` and ``drain_req`` over the server's
 JOIN_PROBE and DRAIN_REQ, byteps_tpu/server/client.py:458-692); the
+measurement plane's (``server_stats`` over STATS_PULL, ``drain_flight``
+over FLIGHT_DRAIN, ``health_pull`` over HEALTH_PULL and the clock probe
+that aligns a server's events with the worker's,
+byteps_tpu/server/client.py:462-600) and the ``wire/*`` instruments
+that ``attach_metrics`` hangs on the registry (:295-345); the
 asynchronous mode's ``init_weights`` and ``push_delta_pull_weights``
 (:1128-1148);
 and ``get_or_init_ctx``/``ps_round_trip``, a host tensor's registry entry
@@ -103,10 +108,20 @@ def _load_lib() -> ctypes.CDLL:
     lib.bps_client_cq_abort.argtypes = [vp]
     lib.bps_client_comp_init.restype = i32
     lib.bps_client_comp_init.argtypes = [vp, i32, u64, ctypes.c_char_p]
-    # a control pull (JOIN_PROBE, DRAIN_REQ): server, op, reply buffer,
-    # its capacity and a timeout in seconds; returns the reply's length
+    # a control pull (JOIN_PROBE, DRAIN_REQ, STATS_PULL, FLIGHT_DRAIN):
+    # server, op, reply buffer, its capacity and a timeout in seconds;
+    # returns the reply's length. The keyed one (HEALTH_PULL) names a key
     lib.bps_client_ctrl.restype = i32
     lib.bps_client_ctrl.argtypes = [vp, i32, i32, vp, u32, i32]
+    lib.bps_client_ctrl_key.restype = i32
+    lib.bps_client_ctrl_key.argtypes = [vp, i32, i32, u64, vp, u32, i32]
+    # four steady-clock stamps (client send, server recv, server send,
+    # client recv) of one CLOCK_PROBE echo
+    lib.bps_client_clock_probe.restype = i32
+    lib.bps_client_clock_probe.argtypes = [vp, i32, ctypes.POINTER(u64),
+                                           i32]
+    lib.bps_client_cq_depth.restype = i32
+    lib.bps_client_cq_depth.argtypes = [vp]
     # a server connected at run time: returns its index
     lib.bps_client_add_server.restype = i32
     lib.bps_client_add_server.argtypes = [vp, ctypes.c_char_p]
@@ -255,6 +270,51 @@ class PSClient:
         self._next_ticket = 1          # guarded-by: _fused_mu
         self._reactor: Optional[threading.Thread] = None
         self._reactor_started = False  # guarded-by: _lock
+        # the wire instruments (core/metrics.py), hung on by
+        # attach_metrics; None: not counted (a client made alone)
+        self._m_push_req = self._m_push_bytes = None
+        self._m_pull_req = self._m_pull_bytes = None
+        self._m_pushpull_req = self._m_errors = None
+        self._m_inflight = self._m_inflight_peak = self._m_cq_depth = None
+        # outstanding wire requests (fused requests and blocking pulls)
+        self._inflight = 0             # guarded-by: _lock
+        self._inflight_peak = 0        # guarded-by: _lock
+
+    def attach_metrics(self, metrics) -> None:
+        """Count the wire on the registry (byteps_tpu/server/client.py
+        :319-345): ``wire/push_requests`` and ``wire/pull_requests`` (the
+        two-op path's), ``wire/pushpull_requests`` (one a partition and
+        round on the fused path), ``wire/push_bytes`` (every payload
+        sent), ``wire/pull_bytes`` (every reply's length), ``wire/errors``
+        (failed requests), and the gauges ``wire/inflight``,
+        ``wire/inflight_peak`` and ``wire/cq_depth`` (the completion
+        queue's backlog). Init pushes and control pulls are not
+        counted."""
+        self._m_push_req = metrics.counter("wire/push_requests")
+        self._m_push_bytes = metrics.counter("wire/push_bytes")
+        self._m_pull_req = metrics.counter("wire/pull_requests")
+        self._m_pull_bytes = metrics.counter("wire/pull_bytes")
+        self._m_pushpull_req = metrics.counter("wire/pushpull_requests")
+        self._m_errors = metrics.counter("wire/errors")
+        self._m_inflight = metrics.gauge("wire/inflight")
+        self._m_inflight_peak = metrics.gauge("wire/inflight_peak")
+        self._m_cq_depth = metrics.gauge("wire/cq_depth")
+
+    def _inflight_add(self, d: int) -> None:
+        # the gauge is set under the lock, so two threads' sets land in
+        # the count's order
+        with self._lock:
+            self._inflight += d
+            cur = self._inflight
+            if cur > self._inflight_peak:
+                self._inflight_peak = cur
+            if self._m_inflight is not None:
+                self._m_inflight.set(cur)
+                self._m_inflight_peak.set_max(cur)
+
+    def _error(self) -> None:
+        if self._m_errors is not None:
+            self._m_errors.inc()
 
     def _num_servers(self) -> int:
         with self._lock:
@@ -326,6 +386,82 @@ class PSClient:
         return {"keys_held": int(held), "draining": bool(draining)}
 
     # ---- per-server health (the failover's probe) --------------------- #
+
+    # ---- the measurement plane's control ops -------------------------- #
+
+    def server_stats(self, server: int,
+                     timeout_s: int = 5) -> Optional[dict]:
+        """One server's stats slots over STATS_PULL (the vector of the
+        in-process ``bps_server_stats``); None when it does not answer."""
+        raw = self._ctrl(server, "STATS_PULL", 64 * 8, timeout_s)
+        if raw is None or len(raw) % 8:
+            return None
+        from . import parse_stat_slots
+        return parse_stat_slots(raw)
+
+    def drain_flight(self, server: int, timeout_s: int = 5) -> List[dict]:
+        """A snapshot of the server's flight-recorder ring over
+        FLIGHT_DRAIN (it leaves the ring as it is, so a poll never takes
+        the events a later dump needs); each kind by its name."""
+        from . import (
+            FLIGHT_KIND_NAMES, FLIGHT_REC_BYTES, FLIGHT_REC_FMT,
+            _FLIGHT_REC_FIELDS,
+        )
+        raw = self._ctrl(
+            server, "FLIGHT_DRAIN",
+            WIRE_CTRL_LIMITS["kCtrlFlightDrainMax"] * FLIGHT_REC_BYTES,
+            timeout_s)
+        if not raw or len(raw) % FLIGHT_REC_BYTES:
+            return []
+        out = []
+        for rec in struct.iter_unpack(FLIGHT_REC_FMT, raw):
+            d = dict(zip(_FLIGHT_REC_FIELDS, rec))
+            d.pop("pad", None)
+            d["kind"] = FLIGHT_KIND_NAMES.get(d["kind"], str(d["kind"]))
+            out.append(d)
+        return out
+
+    def health_pull(self, server: int, key: int,
+                    timeout_s: int = 5) -> Optional[dict]:
+        """The post-aggregation statistics of ``key``'s last published
+        round over HEALTH_PULL (``{key, round, sumsq, absmax, nonfinite,
+        elems}``, the server's in-fold pass under BYTEPS_HEALTH); None
+        when the server has no such key or runs with the pass off."""
+        self._check_server(server)
+        if self._closed:
+            raise RuntimeError("control pull on a closed PSClient")
+        from . import HEALTH_REC_BYTES, parse_health_rec
+        buf = (ctypes.c_uint8 * HEALTH_REC_BYTES)()
+        n = self._lib.bps_client_ctrl_key(
+            self._handle, server, WIRE_CTRL_OPS["HEALTH_PULL"], int(key),
+            buf, HEALTH_REC_BYTES, timeout_s)
+        if n != HEALTH_REC_BYTES:
+            return None
+        return parse_health_rec(bytes(buf))
+
+    def clock_probe(self, server: int, probes: int = 8,
+                    timeout_s: int = 5) -> Optional[tuple]:
+        """``(offset_ns, err_ns)`` of the server's steady clock against
+        this process's, from the least-delayed of ``probes`` CLOCK_PROBE
+        echoes (``server clock - offset`` is this process's clock); None
+        when no echo came back."""
+        self._check_server(server)
+        if self._closed:
+            return None
+        buf = (ctypes.c_uint64 * 4)()
+        samples = []
+        for _ in range(max(1, probes)):
+            if self._lib.bps_client_clock_probe(
+                    self._handle, server, buf, timeout_s) != 0:
+                continue
+            samples.append(tuple(int(buf[i]) for i in range(4)))
+        if not samples:
+            return None
+        from ..core.flight import estimate_clock_offset
+        try:
+            return estimate_clock_offset(samples)
+        except ValueError:
+            return None
 
     def server_dead(self, server: int) -> bool:
         """True when every native connection to ``server`` is dead (the
@@ -505,7 +641,11 @@ class PSClient:
         rc = self._lib.bps_client_push_async(
             self._handle, server, key, data.ctypes.data, data.nbytes, cmd,
             epoch, codec)
+        if self._m_push_req is not None:
+            self._m_push_req.inc()
+            self._m_push_bytes.inc(data.nbytes)
         if rc != 0:
+            self._error()
             raise RuntimeError(f"async push failed key={key}")
 
     def zpull(self, server: int, key: int, out: np.ndarray, cmd: int,
@@ -517,15 +657,25 @@ class PSClient:
         self._check_server(server)
         if not out.flags["C_CONTIGUOUS"]:
             raise ValueError("zpull requires a C-contiguous output array")
-        rc = self._lib.bps_client_pull(
-            self._handle, server, key, out.ctypes.data, out.nbytes, cmd)
+        self._inflight_add(1)
+        try:
+            rc = self._lib.bps_client_pull(
+                self._handle, server, key, out.ctypes.data, out.nbytes, cmd)
+        finally:
+            self._inflight_add(-1)
+        if self._m_pull_req is not None:
+            self._m_pull_req.inc()
         if rc < 0:
+            self._error()
             raise RuntimeError(
                 f"pull failed key={key} (server error, reply larger than "
                 f"the {out.nbytes}-byte output, or connection lost)")
         if exact and rc != out.nbytes:
+            self._error()
             raise RuntimeError(f"pull reply for key={key} is {rc} bytes, "
                                f"expected exactly {out.nbytes}")
+        if self._m_pull_bytes is not None:
+            self._m_pull_bytes.inc(rc)
         return rc
 
     # ---- fused PUSHPULL + completion reactor ------------------------- #
@@ -552,17 +702,23 @@ class PSClient:
             # registered before the send: the reply can complete first
             self._fused[ticket] = (on_done, out)
         self._ensure_reactor()
+        self._inflight_add(1)
         rid = ctypes.c_uint32(0)
         rc = self._lib.bps_client_pushpull_async2(
             self._handle, server, key, data.ctypes.data, data.nbytes, cmd,
             out.ctypes.data, out.nbytes, ticket, epoch, codec,
             ctypes.byref(rid))
+        if self._m_pushpull_req is not None:
+            self._m_pushpull_req.inc()
+            self._m_push_bytes.inc(data.nbytes)
         if rc != 0:
             # the native side still owned the request: exactly one of this
             # raise and the reactor callback fires
             with self._fused_mu:
                 owned = self._fused.pop(ticket, None) is not None
             if owned:
+                self._inflight_add(-1)
+                self._error()
                 raise RuntimeError(f"fused pushpull failed to send "
                                    f"key={key} (connection lost)")
         return int(rid.value)
@@ -589,11 +745,15 @@ class PSClient:
                 self._handle, tickets, statuses, lens, max_n, 250)
             if n < 0:
                 return  # closed and drained
+            if self._m_cq_depth is not None:
+                self._m_cq_depth.set(
+                    self._lib.bps_client_cq_depth(self._handle))
             for i in range(n):
                 with self._fused_mu:
                     entry = self._fused.pop(int(tickets[i]), None)
                 if entry is None:
-                    continue  # already failed locally
+                    continue  # already failed locally, and counted there
+                self._inflight_add(-1)
                 cb, _out = entry
                 status = int(statuses[i])
                 err = None
@@ -605,6 +765,8 @@ class PSClient:
                     err = RuntimeError(
                         "fused pushpull failed (server error reply, "
                         "oversized reply, or connection lost)")
+                elif self._m_pull_bytes is not None:
+                    self._m_pull_bytes.inc(int(lens[i]))
                 try:
                     cb(int(lens[i]), err)
                 except Exception:  # noqa: BLE001 - must not kill the reactor

@@ -114,6 +114,14 @@ class CompressedRegistry:
                 self._tensors[name] = ct
             return ct
 
+    def tiers(self) -> Dict[str, str]:
+        """name -> codec of each tensor with a compressed partition (the
+        health plane's lossy leaves)."""
+        codec = self.kwargs.get("compressor", "")
+        with self._lock:
+            return {n: codec for n, ct in self._tensors.items()
+                    if any(s is not None for s in ct.stacks)}
+
     def push_pull_async(self, state, name: str, flat: np.ndarray,
                         average: bool = True,
                         priority: Optional[int] = None,

@@ -8,6 +8,17 @@ and its host tier (:928-1874), and ``make_async_ps_train_step``
 the mesh; here they are eager: forward and backward on the local batch,
 the gradient round, then the optimizer. The returned loss is the mean
 over the ``dp`` group, like the JAX step's ``pmean``.
+
+The PS steps report to the measurement plane (byteps_tpu/jax/train.py
+:822-894, :925-976, :1076-1078, :1603, :1864): each step opens a
+StepReport (``state.profiler``) and closes it with its export, health and
+carry fields; the first step of each plan counts its forward's and
+backward's FLOPs (``core/ledger.py`` ``count_flops``) into the ledger's
+cost model; the host tier counts ``export/*`` bytes and records
+``step/h2d_update_us`` and ``step/allgather_us``, taps the health
+collector on each pulled aggregate in its host slot, raises the NaN
+guard's error after the report is closed (``raise_if_fatal``), and
+honours BYTEPS_CHAOS_NAN_LEAF="<substr>[@<step>]" (``_chaos_nan_poison``).
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
+import os
 import queue
 import threading
 import time
@@ -331,6 +343,61 @@ def make_async_ps_train_step(loss_fn: Callable, optimizer, params):
 
 # names already warned about by _route_rowsparse
 _rowsparse_warned: set = set()
+# BYTEPS_CHAOS_NAN_LEAF specs already fired in this process
+_chaos_nan_fired: set = set()
+
+
+def _chaos_nan_poison(spec: str, name: str, flat: np.ndarray,
+                      step_no: int) -> None:
+    """BYTEPS_CHAOS_NAN_LEAF="<substr>[@<step>]" (byteps_tpu/jax/train.py
+    :170-197): the first push of a key whose name holds ``<substr>`` at
+    or after step ``<step>`` (default 3) carries one NaN, once per
+    process and spec: the chaos test of the health plane's detect, flight
+    event and guard. ``flat`` is the key's host slot, poisoned in place
+    (the aggregate lands in it afterwards)."""
+    sub, _, at = spec.partition("@")
+    try:
+        at_step = int(at) if at else 3
+    except ValueError:
+        at_step = 3
+    if spec in _chaos_nan_fired or step_no < at_step \
+            or not sub or sub not in name:
+        return
+    _chaos_nan_fired.add(spec)
+    flat.reshape(-1)[0] = np.nan
+    from ..core import flight
+    from ..utils.logging import log
+    flight.record("chaos_nan_injected",
+                  detail=f"{name} step={step_no} spec={spec}")
+    log.warning("CHAOS: injected NaN into %r push at step %d "
+                "(BYTEPS_CHAOS_NAN_LEAF=%s)", name, step_no, spec)
+
+
+def _plan_cost(state, holder: dict, names: List[str],
+               tensors: List[torch.Tensor], run: Callable):
+    """``run()``'s result. On the first step of a plan (the leaves'
+    names, shapes and dtypes, and the ledger it registers with) ``run``,
+    the forward and backward, goes under ``core/ledger.py``
+    ``count_flops``, and its FLOPs and the plan's ideal exchange bytes
+    (each leaf once each way) become the ledger's cost model, as JAX
+    caches ``jit_cost`` per plan (byteps_tpu/jax/train.py:838-870)."""
+    ledger = state.ledger
+    if ledger is None or not ledger.enabled:
+        return run()
+    key = tuple((n, tuple(t.shape), t.dtype) for n, t in zip(names, tensors))
+    if holder.get("cost_key") == key and holder.get("cost_ledger") is ledger:
+        return run()
+    from ..core.ledger import count_flops
+    out, flops, counted = count_flops(run)
+    if not counted:
+        return out          # another step was counting: the next step
+    holder["cost_key"], holder["cost_ledger"] = key, ledger
+    ledger.register_step_cost(
+        flops=flops, ideal_wire_bytes=2 * sum(
+            t.numel() * t.element_size() for t in tensors),
+        source="flop_counter" if flops else "none")
+    return out
+
 
 
 def _rowsparse_match(name: str, rowsparse_params) -> bool:
@@ -415,7 +482,13 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
     def _step(state, batch):
         spans.start(state.device)
         optimizer.zero_grad(set_to_none=True)
-        loss, grads = _dp_mean_grads(loss_fn, batch, tensors, state.group)
+        prof = state.profiler.begin_step() \
+            if state.ps_client is not None else None
+        loss, grads = _plan_cost(
+            state, comp_state, names, tensors,
+            lambda: _dp_mean_grads(loss_fn, batch, tensors, state.group)) \
+            if state.ps_client is not None else \
+            _dp_mean_grads(loss_fn, batch, tensors, state.group)
         spans.mark("forward_backward")
         sparse = [i for i, (nm, t) in enumerate(zip(names, tensors))
                   if state.ps_client is not None
@@ -458,10 +531,19 @@ def _device_tier_step(loss_fn, optimizer, names, tensors, compression,
                 grads = [g.contiguous() for g in grads]
                 for g in grads:
                     dist.broadcast(g, src=0, group=state.group)
+        if prof is not None:
+            # the round is one piece (compute and wire in one call, as in
+            # the JAX tier): compute covers it and the optimizer is the
+            # tail; overlap is not priced, since every wire span would
+            # read as under compute
+            prof.monolithic = True
+            prof.mark("export_done")
+            prof.mark("drain_done")
         for t, g in zip(tensors, grads):
             t.grad = g
         optimizer.step()
         spans.mark("optimizer")
+        state.profiler.end_step(prof, fallback=len(names))
         return loss
 
     step.spans = spans
@@ -509,6 +591,12 @@ class _Export:
         self.leases: List = []
         self.handles: List = []
         self.t_backward_end = 0.0
+        # the measurement plane: the open StepReport (or None), the health
+        # collector (or None), the chaos spec (or None), the registry
+        self.prof = None
+        self.hc = None
+        self.chaos: Optional[str] = None
+        self.metrics = state.metrics
         self._mu = threading.Lock()
         self.first_export: Optional[float] = None    # guarded-by: _mu
         self.first_push: Optional[float] = None      # guarded-by: _mu
@@ -541,6 +629,18 @@ class _Export:
         with self._mu:
             self.leases.append(lease)
         return lease
+
+
+def _count_export(rnd: _Export, nbytes: int, shard: bool) -> None:
+    """A key's bytes off the card (byteps_tpu/jax/train.py:1059-1098,
+    :1492): a whole leaf's under ``export/whole_bytes``, a shard's under
+    ``export/shard_bytes``, each under this rank's
+    ``export/device_bytes/<rank>`` too."""
+    m = rnd.metrics
+    rank = rnd.state.local_rank
+    m.counter("export/shard_bytes" if shard else "export/whole_bytes"
+              ).inc(nbytes)
+    m.counter(f"export/device_bytes/{rank}").inc(nbytes)
 
 
 class HostTierStep:
@@ -624,7 +724,16 @@ class HostTierStep:
     landing, so every rank carries the same leaves (with the same slot
     parity); the next step, and ``flush()``, which every rank calls,
     land them on every rank in the same order, each aggregate broadcast
-    from the root. Not ported: the ledger and health planes.
+    from the root.
+
+    The measurement plane (byteps_tpu/jax/train.py:822-1872): each step
+    opens a StepReport; ``compute_ms`` ends when the last leaf's copy to
+    the host has completed, ``drain_ms`` when the last aggregate has
+    landed and its optimizer step is queued; the drain's blocked time is
+    ``pull_wait_ms``, each leaf's copy and step an ``H2D_UPDATE`` sample
+    (and ``step/h2d_update_us``), each shard gather an ``ALLGATHER`` one.
+    With BYTEPS_HEALTH, in one process (not a dp group), the collector
+    reads each aggregate in its host slot, carried ones too.
 
     Across fleet changes: after a ``suspend``/``resume`` the step meets
     a new client and makes its host-codec registry, shard keys and
@@ -704,6 +813,8 @@ class HostTierStep:
         self._carry: Optional[dict] = None
         self._xb_seq = 0
         self._xb_par = 0
+        # the ledger's cost model: the plan it was counted for
+        self._cost: Dict[str, Any] = {}
 
     # ---- plumbing ----------------------------------------------------- #
 
@@ -911,6 +1022,7 @@ class HostTierStep:
         if ev is not None:
             ev.synchronize()
         flat = lease.array(_np_dtype(dtype))
+        _count_export(rnd, flat.nbytes, shard=parent is not None)
         return self._submit(rnd, name, flat, production=True, parent=parent)
 
     def _submit(self, rnd: _Export, name: str, flat: np.ndarray,
@@ -925,6 +1037,9 @@ class HostTierStep:
             ctx = get_or_init_ctx(state, name, flat)
         pr = state.scheduler.production_priority(ctx, parent) \
             if production else None
+        if rnd.chaos is not None:
+            _chaos_nan_poison(rnd.chaos, name, flat,
+                              rnd.prof.step if rnd.prof is not None else 0)
         rnd.pushed(flat.nbytes)
         if self._registry is not None:
             hid = self._registry.push_pull_async(state, name, flat, True,
@@ -961,6 +1076,8 @@ class HostTierStep:
         self._release_pending()
         self.spans.start(dev)
         self.optimizer.zero_grad(set_to_none=True)
+        prof = state.profiler.begin_step() \
+            if state.ps_client is not None else None
         if state.ps_client is None:
             loss, grads = _dp_mean_grads(self.loss_fn, batch, self.tensors,
                                          state.group)
@@ -1002,15 +1119,44 @@ class HostTierStep:
             self._xb_par ^= 1
         rnd = _Export(state, n_dp, shards, carry or frozenset(),
                       self._xb_par)
+        rnd.prof = prof
+        rnd.chaos = os.environ.get("BYTEPS_CHAOS_NAN_LEAF") or None
+        # the health collector taps whole aggregates in this process's
+        # host slots: in a dp group another rank's shards are not there,
+        # so a group's reports leave the health fields None
+        if state.health is not None and prof is not None and n_dp == 1:
+            rnd.hc = state.health.begin_collect(len(self.names))
+        if rnd.hc is not None:
+            with torch.no_grad():
+                rnd.hc.param_norms_dev = torch.stack([
+                    torch.linalg.vector_norm(t.detach(), dtype=torch.float32)
+                    for t in self.tensors])
+        # the export counters, present every step (JAX :965-976)
+        metrics = state.metrics
+        metrics.counter("export/shard_bytes")
+        metrics.counter("export/whole_bytes")
+        metrics.counter(f"export/device_bytes/{state.local_rank}")
         self._round = rnd
+        xb_ms = None
         try:
             loss, ready = self._export(state, rnd, batch, fusion, cap, cuda)
+            if prof is not None:
+                # every leaf has left the card: the copies of the
+                # streamed ones and of the rest have completed (_post)
+                prof.mark("export_done")
             # the last step's carried rounds, after this step's export:
             # their pulls overlapped this step's forward and backward
-            events, carried, drained, lag = self._apply_carry(state, cuda)
+            t_xb = time.perf_counter()
+            events, carried, drained, lag = self._apply_carry(state, cuda,
+                                                              rnd.hc)
+            if drained:
+                xb_ms = (time.perf_counter() - t_xb) * 1e3
+                metrics.counter("barrier/carry_drained").inc(drained)
             with rnd._mu:
                 rnd.leases += carried
             events += self._drain(state, rnd, ready, leaf_apply, cuda)
+            if prof is not None:
+                prof.mark("drain_done")
         except BaseException:
             self._abandon(state, rnd)
             raise
@@ -1018,6 +1164,8 @@ class HostTierStep:
             self._round = None
         self._pending = (rnd.leases, events)
         entries = self._carry["entries"] if self._carry else []
+        if entries:
+            metrics.counter("barrier/carried_leaves").inc(len(entries))
         self.counters.update(
             carried_leaves=len(entries), carry_drained=drained,
             carry_lag=lag,
@@ -1030,7 +1178,42 @@ class HostTierStep:
             loss = loss.clone()
             dist.all_reduce(loss, group=state.group)
             loss /= n_dp
+        self._close_report(state, rnd, carry is not None, drained, xb_ms,
+                           lag, len(entries))
         return loss
+
+    def _close_report(self, state, rnd: _Export, xb_on: bool, drained: int,
+                      xb_ms: Optional[float], lag: Optional[int],
+                      depth: int) -> None:
+        """The step's export accounting and StepReport (with its health
+        and carry fields), then the NaN guard's raise, after the report
+        and its flight events landed (byteps_tpu/jax/train.py:1800-1872)."""
+        c = self.counters
+        n_streamed = c["leaves_streamed"]
+        ttfp = c["ttfp_ms"]
+        state.telemetry.record_export(
+            n_streamed, len(self.names) - n_streamed,
+            None if ttfp is None else ttfp / 1e3,
+            shard_leaves=c["shard_leaves"])
+        health_fields = None
+        if rnd.hc is not None:
+            tiers = self._registry.tiers() if self._registry is not None \
+                else None
+            try:
+                health_fields = state.health.finalize(
+                    rnd.hc, self.names, state, tiers)
+            except Exception:  # noqa: BLE001 - diagnostics never kill
+                health_fields = None          # the step
+        xb_fields = None
+        if xb_on:
+            xb_fields = {"carried_leaves": drained,
+                         "carry_drain_ms": xb_ms, "staleness_lag": lag,
+                         "window_depth": depth}
+        state.profiler.end_step(rnd.prof, ttfp_ms=ttfp, streamed=n_streamed,
+                                fallback=len(self.names) - n_streamed,
+                                health=health_fields, xb=xb_fields)
+        if state.health is not None:
+            state.health.raise_if_fatal()
 
     def _carry_set(self, state, fusion: int, shards: Dict[int, dict],
                    leaf_apply) -> Optional[frozenset]:
@@ -1055,7 +1238,7 @@ class HostTierStep:
         first = max(1, (len(self.tensors) + 1) // 2)
         return frozenset(filter(eligible, range(first, len(self.tensors))))
 
-    def _apply_carry(self, state, cuda: bool):
+    def _apply_carry(self, state, cuda: bool, hc=None):
         """Land the last step's carried rounds: each aggregate into its
         parameter's gradient and that leaf's optimizer step, in place,
         from the values the carry left (the parameter and its optimizer
@@ -1075,6 +1258,8 @@ class HostTierStep:
             for i, handle, lease, wire in carry["entries"]:
                 if handle is not None:
                     state.handles.wait_and_clear(handle.id)  # raises its error
+                if hc is not None and lease is not None:
+                    hc.leaf(i, lease.array(_np_dtype(wire)))
                 p = self.tensors[i]
                 if p.grad is None:
                     p.grad = torch.empty_like(p)
@@ -1133,9 +1318,16 @@ class HostTierStep:
         post-backward export of the rest. Returns (loss, [(members,
         handle, lease)]) in submission order."""
         dev = state.device
-        loss = self.loss_fn(batch)
-        t_bwd = time.perf_counter()
-        loss.backward()
+        t_bwd = [0.0]
+
+        def forward_backward():
+            loss = self.loss_fn(batch)
+            t_bwd[0] = time.perf_counter()
+            loss.backward()
+            return loss
+
+        loss = _plan_cost(state, self._cost, self.names, self.tensors,
+                          forward_backward)
         if cuda:
             torch.cuda.current_stream(dev).synchronize()
         t_end = time.perf_counter()
@@ -1158,7 +1350,8 @@ class HostTierStep:
         if first is not None and last is not None:
             self.spans.add("export", (last - first) * 1e3)
         self.counters.update(
-            ttfp_ms=None if first_push is None else (first_push - t_bwd) * 1e3,
+            ttfp_ms=None if first_push is None
+            else (first_push - t_bwd[0]) * 1e3,
             bytes_before_backward_end=before_end,
             leaves_streamed=len(streamed),
             leaves_post_backward=sum(len(g) for g in groups) + len(fallback),
@@ -1234,6 +1427,7 @@ class HostTierStep:
         for i in fallback:
             info = rnd.shards[i]
             src = scatter_leaf(self._grad(i), state.group)
+            _count_export(rnd, src.numel() * src.element_size(), shard=True)
             name = info["names"][state.local_rank]
             lease = rnd.checkout(name + ":out",
                                  src.numel() * src.element_size())
@@ -1243,6 +1437,12 @@ class HostTierStep:
         for g in groups:
             name, members, dtype = self._group_key(g)
             sparse = self._sparse(g[0])
+            if state.is_root:
+                # each leaf's own bytes, as JAX counts before bucketing
+                for i in g:
+                    t = self.tensors[i]
+                    _count_export(rnd, t.numel() * t.element_size(),
+                                  shard=False)
             if n > 1:
                 flat = torch.cat([self._grad(i).reshape(-1)
                                   for i in g]).to(dtype)
@@ -1338,12 +1538,19 @@ class HostTierStep:
         pending = set(range(len(ready)))
         events, last_done = [], rnd.t_backward_end
         h2d_ms = apply_ms = 0.0
+        prof, hc = rnd.prof, rnd.hc
+        h2d_hist = state.metrics.histogram("step/h2d_update_us")
+        ag_hist = state.metrics.histogram("step/allgather_us")
         while pending:
             if root:
                 wi = -1     # the rest are carried
                 if pending - carry_wi or not done.empty():
+                    t_wait = time.perf_counter()
                     wi, t_done = done.get()
                     last_done = max(last_done, t_done)
+                    if prof is not None:
+                        # the drain blocked on a pull: the PULL signal
+                        prof.add_pull_wait(time.perf_counter() - t_wait)
             if n > 1:
                 # the root's decision, so every rank lands and carries
                 # the same keys
@@ -1364,7 +1571,12 @@ class HostTierStep:
                                     device=dev)
                 self._h2d(lease.tensor.view(wire), piece, compute, events,
                           fresh=True)
+                t_ag = time.perf_counter()
                 buf = gather_leaf(piece, self.tensors[shard], group)
+                dt = time.perf_counter() - t_ag
+                ag_hist.record_seconds(dt)
+                if prof is not None:
+                    prof.stage_sample("ALLGATHER", dt)
             elif n > 1:
                 buf = torch.empty(sum(m[2] for m in members), dtype=wire,
                                   device=dev)
@@ -1374,6 +1586,11 @@ class HostTierStep:
                 dist.broadcast(buf, src=0, group=group)
             for i, off, m in members:
                 p = self.tensors[i]
+                if hc is not None and lease is not None:
+                    # the pulled aggregate in its host slot, before the
+                    # copy to the card (JAX taps before device_put)
+                    hc.leaf(i, lease.array(_np_dtype(wire))[off: off + m])
+                t_leaf = time.perf_counter()
                 if p.grad is None:
                     p.grad = torch.empty_like(p)
                 if buf is None:
@@ -1391,6 +1608,10 @@ class HostTierStep:
                         compute.synchronize()
                 t0 = time.perf_counter()
                 apply_ms += (t0 - t1) * 1e3
+                # one leaf's copy to the card and its optimizer step
+                h2d_hist.record_seconds(t0 - t_leaf)
+                if prof is not None:
+                    prof.stage_sample("H2D_UPDATE", t0 - t_leaf)
         if pending:
             # these slots stay leased until the next step drains them
             entries = [(ready[wi][0][0][0], *ready[wi][1:3], ready[wi][4])

@@ -126,6 +126,22 @@ result line:
     replay under phase 22's gates, its bytes at rest and its forward's
     bytes by collective to the reckonings from the shapes.
 
+24. ``observability``, the measurement plane on the PS step: Llama
+    small() (B=4, S=2048) against a server thread and a server process,
+    dense (host tier) then under device dithering + EF, 4 steps each,
+    with BYTEPS_HEALTH and BYTEPS_METRICS_PORT: the ``wire/*`` and
+    ``compress/*`` counters against the registry's partitions and the
+    codecs' wires, a StepReport a step within 5% of the synchronised
+    wall, the fleet read over STATS_PULL with its folded bytes equal to
+    the pushed bytes, the ledger's FlopCounterMode FLOPs within 2% of the
+    analytic count (attention included), its peak from the table, the
+    time series, ``grad_norm`` against the aggregate's norm, ``GET
+    /metrics`` against the snapshot; a worker process whose
+    BYTEPS_CHAOS_NAN_LEAF=wq@2 trips the NaN guard at step 2 and whose
+    SIGTERM dumps the merged flight record (a server event drained over
+    FLIGHT_DRAIN) and the time series; tokens/s with BYTEPS_METRICS=0
+    against =1 (arms run 0, 1, 1, 0). ``--obs-only`` runs it alone.
+
 Phase 3 also times B1 at the Ulysses path's shape ([4, 2048, 3, 128],
 one KV head a query head) and at the tp path's ([4, 2048, 3, 128], one
 KV head for the three) against its twin; ``--parallel-only`` runs the
@@ -5333,6 +5349,432 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+# the measurement plane's phase: timed steps of each run, and the child's
+OBS_STEPS = 4
+OBS_CHILD_STEPS = 3
+
+
+def _llama_step_flops(cfg, B: int, S: int, flash: bool = True) -> float:
+    """The analytic FLOPs of one Llama train step (forward and backward),
+    counted as the step runs them: 2 a weight a token forward, 4
+    backward (6N a token), and under remat 2 more for the recompute of
+    each block but its last product (w_down: the checkpoint stops at the
+    last saved tensor); attention in units of ``_flash_flops`` (the
+    causal QK^T and PV forward): the flash forward one unit, one more for
+    its recompute under remat, and its backward 7 (the blockwise
+    recompute 2, its checkpoint's scores 1, the gradients 4); the plain
+    path 2 a forward pass and 4 backward."""
+    d, h, L, V = cfg.dim, cfg.hidden_dim, cfg.n_layers, cfg.vocab_size
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = B * S
+    n_layer = d * nh * hd + 2 * d * nkv * hd + nh * hd * d + 3 * d * h
+    dense = 6 * T * (L * n_layer + d * V)
+    if cfg.remat:
+        dense += 2 * T * L * (n_layer - h * d)
+    u = _flash_flops(B, S, nh, hd)
+    att = (1 + cfg.remat + 7) * u if flash else (6 + 2 * cfg.remat) * u
+    return float(dense + L * att)
+
+
+def obs_child(flight_dir: str) -> int:
+    """The observability phase's worker process (``--obs-child``): a
+    loopback server thread, Llama tiny() on the card with BYTEPS_HEALTH,
+    BYTEPS_NAN_GUARD and BYTEPS_CHAOS_NAN_LEAF=wq@2 (every leaf its own
+    key), steps until the guard raises; then one push replayed at the
+    same round (the server's flight ring records its dedup), a line
+    ``OBS_CHILD {...}`` and ``READY``, and a wait for SIGTERM."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.config import Config
+    from byteps_tpu_torch.core.types import (
+        DataType, RequestType, get_command_type,
+    )
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.server import run_server
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    port = _free_port()
+    os.environ.update({
+        "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "1",
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "DMLC_ROLE": "worker", "BYTEPS_HEALTH": "1", "BYTEPS_NAN_GUARD": "1",
+        "BYTEPS_CHAOS_NAN_LEAF": "wq@2", "BYTEPS_FUSION_BYTES": "0",
+        "BYTEPS_FLIGHT_DIR": flight_dir})
+    for k in ("BYTEPS_SERVER_HOSTS", "BYTEPS_METRICS_PORT"):
+        os.environ.pop(k, None)
+    threading.Thread(target=run_server, args=(
+        port, Config(num_workers=1, num_servers=1)), daemon=True).start()
+    bps.init(device="cuda:0")
+    cfg = llama.LlamaConfig.tiny(vocab_size=256, seq=128)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = llama.Llama(cfg, device="cuda:0", generator=gen)
+    step = make_ps_train_step(
+        lambda b: llama.loss_fn(model.params(), b, cfg),
+        torch.optim.Adam(model.parameters(), lr=1e-3), model.params())
+    tokens = torch.randint(0, 256, (2, 129), generator=gen, device="cuda")
+    out = {"guard_step": None}
+    for i in range(OBS_CHILD_STEPS):
+        try:
+            step({"tokens": tokens})
+        except RuntimeError as e:
+            out["guard_step"], out["guard"] = i + 1, str(e)[:200]
+            break
+    out["reports"] = [(r["step"], r["nonfinite_leaves"], r["health_flags"])
+                      for r in bps.get_step_reports()]
+    client = bps.get_state().ps_client
+    cmd = get_command_type(RequestType.DEFAULT_PUSH_PULL, DataType.FLOAT32)
+    key, data = (1 << 40) + 7, np.ones(8, np.float32)
+    client.init_key(0, key, data, cmd)
+    for _ in range(2):              # the second is a replay of round 1
+        done = threading.Event()
+        client.zpushpull_async(0, key, data, np.empty_like(data), cmd,
+                               lambda got, err: done.set(), epoch=1 << 16)
+        if not done.wait(60):
+            print("OBS_CHILD no reply", flush=True)
+            return 1
+    print("OBS_CHILD " + json.dumps(out), flush=True)
+    print("READY", flush=True)
+    time.sleep(600)
+    return 1
+
+
+def _obs_child_start(flight_dir: str):
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--obs-child",
+         flight_dir], cwd=ROOT, stdout=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT + os.pathsep
+             + os.environ.get("PYTHONPATH", "")})
+
+
+def _obs_child_finish(proc, flight_dir: str) -> dict:
+    """Wait for the child's READY, SIGTERM it, and hold its dumps: the
+    guard raised at step 2 with step 2's report nonfinite, the merged
+    flight record with the server's replay dedup drained over
+    FLIGHT_DRAIN and the worker's chaos and health events, and the
+    time-series JSONL."""
+    import signal
+    lines: list = []
+    box = {}
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.strip())
+            if line.strip() == "READY":
+                box["ready"] = True
+                return
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    t.join(PS_TIMEOUT_S)
+    try:
+        if not box.get("ready"):
+            fail(f"obs: the SIGTERM worker never became ready: {lines}")
+        info = json.loads(next(x for x in lines
+                               if x.startswith("OBS_CHILD {"))[10:])
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != -signal.SIGTERM:
+        fail(f"obs: the worker ended with {proc.returncode}, not by SIGTERM")
+    if info["guard_step"] != 2 or "BYTEPS_NAN_GUARD" not in info["guard"]:
+        fail(f"obs: BYTEPS_CHAOS_NAN_LEAF=wq@2 did not raise at step 2: "
+             f"{info}")
+    rep = {s: (nf, flags) for s, nf, flags in info["reports"]}
+    if rep.get(1, (None,))[0] != 0 or rep.get(2, (0, ()))[0] < 1 or \
+            "nonfinite" not in (rep[2][1] or ()):
+        fail(f"obs: step 2 did not latch nonfinite: {info['reports']}")
+    path = os.path.join(flight_dir, f"flight-{proc.pid}.json")
+    ts_path = os.path.join(flight_dir, f"timeseries-{proc.pid}.jsonl")
+    if not (os.path.exists(path) and os.path.exists(ts_path)):
+        fail(f"obs: SIGTERM left {os.listdir(flight_dir)}")
+    doc = json.load(open(path))
+    srv = [e["kind"] for e in doc["merged"] if e["source"] == "server0"]
+    kinds = [e["kind"] for e in doc["worker"]["events"]]
+    if doc["reason"] != "SIGTERM" or "replay_dedup" not in srv or \
+            "chaos_nan_injected" not in kinds or \
+            "health_nonfinite" not in kinds:
+        fail(f"obs: the SIGTERM dump lacks events: server {srv}, "
+             f"worker {kinds}")
+    ts = [json.loads(x) for x in open(ts_path).read().splitlines()]
+    if ts[0]["reason"] != "SIGTERM" or "step/wall_ms" not in \
+            {x.get("name") for x in ts[1:]}:
+        fail(f"obs: the SIGTERM time-series dump is wrong: {ts[0]}")
+    return {"server_events": srv, "worker_events": kinds,
+            "series": len(ts) - 1}
+
+
+def _obs_ab(args, dev, cfg, model, attn, batch, B, S) -> dict:
+    """Tokens/s of the dense PS step with BYTEPS_METRICS=0 against =1,
+    each arm twice in the order 0, 1, 1, 0 on a loopback server each;
+    the mean of an arm's two runs (recorded, not gated)."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.training import make_ps_train_step
+    on_card = dev.type == "cuda"
+    out = {"0": [], "1": []}
+    for metrics in ("0", "1", "1", "0"):
+        with restored_env():
+            os.environ["BYTEPS_METRICS"] = metrics
+            with loopback_ps(dev, f"obs metrics={metrics}"):
+                step = make_ps_train_step(
+                    lambda b: llama.loss_fn(model.params(), b, cfg, attn),
+                    torch.optim.Adam(model.parameters(), lr=1e-3),
+                    model.params())
+                times = []
+                for i in range(OBS_STEPS):
+                    if on_card:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    bounded(lambda: float(step(batch)), f"obs A/B step {i}")
+                    times.append(time.perf_counter() - t0)
+                step.close()
+        steady = times[1:]
+        out[metrics].append(B * S / (sum(steady) / len(steady)))
+    return {k: sum(v) / len(v) for k, v in out.items()} | {"runs": out}
+
+
+def phase_observability(args, card: str, dev=None, cfg=None, B: int = 4,
+                        S: int = 2048) -> dict:
+    """The measurement plane on the PS step (``--obs-only`` runs it alone):
+    Llama small() at full width, one server thread in this process and
+    one ``python -m byteps_tpu_torch.server`` process (so the fleet is
+    read over the wire), BYTEPS_HEALTH and BYTEPS_METRICS_PORT on;
+    ``make_ps_train_step`` dense (host tier) for OBS_STEPS steps, then
+    under device dithering + EF for OBS_STEPS. Gates: the ``wire/*``
+    bytes equal the registry's partitions (dense) and the codecs' wires
+    (dithering) exactly, and ``compress/*`` the dithering payloads'
+    dense and wire bytes; a StepReport a step with a verdict, its
+    ``wall_ms`` within 5% of this phase's synchronised wall of the step
+    and ``compute_ms`` <= ``wall_ms``; the fleet section has both servers
+    and their folded bytes sum to ``wire/push_bytes``; the ledger's peak
+    comes from its table and its FLOPs are within 2% of
+    ``_llama_step_flops`` (attention included); the time series hold
+    every step; the dense reports' ``grad_norm`` equals
+    ``torch.linalg.vector_norm`` of the aggregate in ``p.grad`` within
+    1e-5 relative; ``GET /metrics`` parses, with the snapshot's counters.
+    A worker process (``obs_child``) proves the NaN guard and the
+    SIGTERM dumps. Recorded: tokens/s with BYTEPS_METRICS=0 against =1.
+    Returns the run's launches (B1, B4 and the dequantization)."""
+    import torch
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.ops import flash_attention as FA
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("BYTEPS_CLIENT_TIMEOUT_S", str(PS_TIMEOUT_S))
+    dev = torch.device(dev or "cuda:0")
+    on_card = dev.type == "cuda"
+    cfg = cfg or llama.LlamaConfig.small()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    model = llama.Llama(cfg, device=dev, generator=gen)
+    attn = FA.make_flash_attn()
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device=dev)}
+    flight_dir = tempfile.mkdtemp(prefix="obs_flight_")
+    child = _obs_child_start(flight_dir) if on_card else None
+    try:
+        return _observe(args, card, dev, cfg, model, attn, batch, B, S,
+                        flight_dir, child, t_phase)
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+
+
+def _observe(args, card, dev, cfg, model, attn, batch, B, S, flight_dir,
+             child, t_phase) -> dict:
+    """The body of ``phase_observability``."""
+    import urllib.request
+
+    import torch
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.config import Config
+    from byteps_tpu_torch.core.metrics import StepReport, classify_step
+    from byteps_tpu_torch.models import llama
+    from byteps_tpu_torch.server import run_server
+    from byteps_tpu_torch.training import make_ps_train_step
+
+    on_card = dev.type == "cuda"
+    counters = _counters()
+    ports = [_free_port(), _free_port()]
+    mport = _free_port()
+    dither = {"compressor": "dithering", "ef": "vanilla"}
+    runs = {}
+    with restored_env():
+        os.environ.update({
+            "DMLC_NUM_WORKER": "1", "DMLC_NUM_SERVER": "2",
+            "DMLC_PS_ROOT_URI": "127.0.0.1",
+            "DMLC_PS_ROOT_PORT": str(ports[0]), "DMLC_ROLE": "worker",
+            "BYTEPS_SERVER_HOSTS": ",".join(f"127.0.0.1:{p}" for p in ports),
+            "BYTEPS_HEALTH": "1", "BYTEPS_METRICS_PORT": str(mport),
+            "BYTEPS_FLIGHT_DIR": flight_dir})
+        proc = _spawn_ps_server(ports[1])
+        server = threading.Thread(target=run_server, args=(
+            ports[0], Config(num_workers=1, num_servers=2)), daemon=True)
+        server.start()
+        try:
+            _wait_port(ports[1])
+            bps.init(device=dev)
+            try:
+                state = bps.get_state()
+                fleet0 = bps.get_fleet_metrics()
+                for label, kw in (("dense", {}), ("dithering",
+                                                  {"compression": dither})):
+                    step = make_ps_train_step(
+                        lambda b: llama.loss_fn(model.params(), b, cfg,
+                                                attn),
+                        torch.optim.Adam(model.parameters(), lr=1e-3),
+                        model.params(), **kw)
+                    c0 = dict(bps.get_metrics()["counters"])
+                    for fn in counters.values():
+                        fn.launches = 0
+                    walls, norms = [], []
+                    for i in range(OBS_STEPS):
+                        if on_card:
+                            torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        loss = bounded(lambda: float(step(batch)),
+                                       f"obs {label} step {i}")
+                        if on_card:
+                            torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                        if not math.isfinite(loss):
+                            fail(f"obs {label}: loss {loss}")
+                        if label == "dense":
+                            norms.append(float(torch.linalg.vector_norm(
+                                torch.cat([p.grad.reshape(-1) for p in
+                                           model.parameters()]),
+                                dtype=torch.float64)))
+                    launches = {k: fn.launches for k, fn in counters.items()}
+                    c1 = dict(bps.get_metrics()["counters"])
+                    if label == "dense":
+                        part = sum(p.length
+                                   for c in state.registry.contexts_in_order()
+                                   for p in c.partitions)
+                        want = {"wire/push_bytes": part * OBS_STEPS,
+                                "wire/pull_bytes": part * OBS_STEPS,
+                                "compress/bytes_pre": 0,
+                                "compress/bytes_post": 0}
+                    else:
+                        plans = step.device_compressor()._plans.values()
+                        wires = sum(pl.reply_len(i) for pl in plans
+                                    for i in range(len(pl.codecs)))
+                        pre = sum(2 * q.length for pl in plans
+                                  for q, c in zip(pl.ctx.partitions,
+                                                  pl.codecs) if c is not None)
+                        post = sum(2 * pl.reply_len(i) for pl in plans
+                                   for i, c in enumerate(pl.codecs)
+                                   if c is not None)
+                        want = {"wire/push_bytes": wires * OBS_STEPS,
+                                "wire/pull_bytes": wires * OBS_STEPS,
+                                "compress/bytes_pre": pre * OBS_STEPS,
+                                "compress/bytes_post": post * OBS_STEPS}
+                    got = {k: c1.get(k, 0) - c0.get(k, 0) for k in want}
+                    if got != want:
+                        fail(f"obs {label}: counters {got}, reckoned {want}")
+                    step.close()
+                    runs[label] = dict(walls=walls, norms=norms,
+                                       launches=launches, counters=got)
+                reports = bps.get_step_reports()
+                fleet = bps.get_fleet_metrics()
+                ledger = bps.get_ledger()
+                series = bps.get_timeseries()
+                snap = bps.get_metrics()
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{mport}/metrics",
+                        timeout=30) as r:
+                    prom = r.read().decode()
+            finally:
+                bounded(bps.shutdown, "obs shutdown")
+            if proc.wait(timeout=PS_TIMEOUT_S) != 0:
+                fail("obs: the server process did not exit cleanly")
+            server.join(PS_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    walls = runs["dense"]["walls"] + runs["dithering"]["walls"]
+    if len(reports) != 2 * OBS_STEPS:
+        fail(f"obs: {len(reports)} step reports, not {2 * OBS_STEPS}")
+    for r, w in zip(reports, walls):
+        verdict = classify_step(StepReport(**r))
+        if not verdict or not r["compute_ms"] <= r["wall_ms"] or \
+                abs(r["wall_ms"] - w) > 0.05 * w:
+            fail(f"obs: step {r['step']}: wall {r['wall_ms']:.1f} ms "
+                 f"against the synchronised {w:.1f}, compute "
+                 f"{r['compute_ms']:.1f} ms, verdict {verdict!r}")
+    for r, n in zip(reports, runs["dense"]["norms"]):
+        if r["grad_norm"] is None or abs(r["grad_norm"] - n) > 1e-5 * n:
+            fail(f"obs: step {r['step']}: grad_norm {r['grad_norm']} "
+                 f"against the aggregate's {n}")
+    srv = fleet["fleet"]
+    folded = sum(s["fold_bytes"] for s in srv["server"].values()) - sum(
+        s["fold_bytes"] for s in fleet0["fleet"]["server"].values())
+    pushed = sum(r["counters"]["wire/push_bytes"] for r in runs.values())
+    if srv["source"] != "wire" or sorted(srv["server"]) != ["0", "1"] or \
+            folded != pushed:
+        fail(f"obs: fleet {srv['source']} {sorted(srv['server'])}: "
+             f"{folded} bytes folded against {pushed} pushed")
+    want_flops = _llama_step_flops(cfg, B, S)
+    if ledger["source"] != "flop_counter" or not ledger["model_flops"] or \
+            abs(ledger["model_flops"] - want_flops) > 0.02 * want_flops:
+        fail(f"obs: the ledger counts {ledger['model_flops']} FLOPs "
+             f"({ledger['source']}), the analytic count {want_flops:.6g}")
+    if on_card and ledger["peak_source"] != "table":
+        fail(f"obs: the ledger's peak is {ledger['peak_source']} for "
+             f"{ledger['device_kind']}")
+    wall_series = series["series"].get("step/wall_ms", {}).get("steps", [])
+    if wall_series != [r["step"] for r in reports]:
+        fail(f"obs: the time series hold steps {wall_series}")
+    parsed = {}
+    for line in prom.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            parsed[name] = float(value)
+    for name, v in snap["counters"].items():
+        pn = "byteps_" + "".join(ch if ch.isalnum() or ch == "_" else "_"
+                                 for ch in name)
+        if parsed.get(pn) != v:
+            fail(f"obs: /metrics has {pn} {parsed.get(pn)}, the snapshot "
+                 f"{v}")
+    launches = {k: runs["dense"]["launches"][k]
+                 + runs["dithering"]["launches"][k] for k in counters}
+    if on_card and (launches["flash_attn_fwd"] == 0
+                    or launches["dithering_levels"] == 0):
+        fail(f"obs: a kernel of the path never launched: {launches}")
+    ab = _obs_ab(args, dev, cfg, model, attn, batch, B, S)
+    sig = _obs_child_finish(child, flight_dir) if child is not None else {}
+    mfu = [r["mfu"] for r in reports]
+    print(f"obs: {2 * OBS_STEPS} step reports on {card}; walls "
+          f"{['%.1f' % r['wall_ms'] for r in reports]} ms against the "
+          f"synchronised {['%.1f' % w for w in walls]}; compute "
+          f"{['%.1f' % r['compute_ms'] for r in reports]} ms; verdicts "
+          f"{[classify_step(StepReport(**r)) for r in reports[-2:]]}",
+          flush=True)
+    print(f"obs: ledger {ledger['model_flops']:.6g} FLOPs a step "
+          f"(analytic {want_flops:.6g}, "
+          f"{ledger['model_flops'] / want_flops - 1:+.2e}), peak "
+          f"{ledger['peak_flops']:.4g} ({ledger['peak_source']}, "
+          f"{ledger['device_kind']}); mfu by step "
+          f"{['%.4f' % m if m is not None else None for m in mfu]}; "
+          f"grad_norm {[r['grad_norm'] for r in reports[:OBS_STEPS]]} "
+          f"against {runs['dense']['norms']}", flush=True)
+    print(f"obs: counters {json.dumps({k: v['counters'] for k, v in runs.items()})}; "
+          f"fleet {srv['source']}, {len(srv['server'])} servers, "
+          f"{folded} bytes folded = pushed; /metrics {len(parsed)} series; "
+          f"SIGTERM {sig}; launches {launches}", flush=True)
+    print(f"obs: dense PS tokens/s with BYTEPS_METRICS=0 {ab['0']:.1f}, "
+          f"=1 {ab['1']:.1f} ({ab['1'] / ab['0'] - 1:+.4f}; runs in the "
+          f"order 0, 1, 1, 0: {ab['runs']}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
@@ -5357,9 +5799,16 @@ def main() -> int:
                     help="build, then run only B1 at the tp shape and the "
                          "spmd phase (over NCCL on a machine with several "
                          "cards, else over gloo on one); no result line")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="build, then run only the observability phase; "
+                         "no result line")
+    ap.add_argument("--obs-child", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.steps < 3:
         fail("--steps must be at least 3")
+    if args.obs_child:
+        return obs_child(args.obs_child)
 
     import torch
     if not torch.cuda.is_available():
@@ -5391,6 +5840,9 @@ def main() -> int:
         phase_flash_tp(torch.device("cuda", 0), torch.Generator(
             device="cuda").manual_seed(args.seed))
         phase_spmd(args, card)
+        return 0
+    if args.obs_only:
+        phase_observability(args, card)
         return 0
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -5428,6 +5880,7 @@ def main() -> int:
     zoo = {k: v["launches"] for k, v in phase_zoo(args, card).items()
            if "launches" in v}
     spmd = phase_spmd(args, card)
+    obs = phase_observability(args, card)
     # each kernel's count from a path that runs it, each path's counters
     # zeroed just before it and read just after: B1 from the adapter's
     # DistributedOptimizer(Adam) run (this slice's main path; every path
@@ -5456,6 +5909,12 @@ def main() -> int:
         for name, n in path.items():
             if name in launches:
                 launches[name] += n
+    # and the observability phase's PS runs (dense, then device
+    # dithering): B1 24 a step, B4 one a dithering step and the
+    # dequantization two
+    for name in ("flash_attn_fwd", "dithering_levels",
+                 "dithering_dequantize"):
+        launches[name] += obs[name]
     print("launches by path: " + json.dumps({
         "collective onebit": onebit_run,
         "ps device tier": ps, "ps dp2 (root, shard off)": dp2[False],
@@ -5466,7 +5925,7 @@ def main() -> int:
         "ps async": ps_async, "ps cross-barrier dp2 (rank 0)": xb_dp2,
         "zoo": zoo, "train variants": variants, "zero": zero,
         "parallel sp_ulysses (rank 0)": parallel,
-        "spmd tp (rank 0)": spmd}), flush=True)
+        "spmd tp (rank 0)": spmd, "observability": obs}), flush=True)
     for e in kernels:
         e["launches"] = launches[e["name"]]
     print(f"chip_smoke: every phase passed, "

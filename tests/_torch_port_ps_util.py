@@ -6,6 +6,10 @@ card tests, which run without JAX, can use it.
 - ``bounded``, ``ps_server``, ``_ps_env``: a server thread on a free
   port, the worker's environment, and a time limit on every body that
   talks to the server;
+- ``held_replies`` and ``replies_in_before_drain``: the cross-barrier
+  carry's two schedules made certain, whatever the host's load: named
+  keys' replies later than the step's drain (carried), or every reply in
+  before it (nothing carried);
 - ``port_rounds``: two ``DeviceCompressor`` rounds of the leaves in
   ``LEAVES`` through a loopback server, with every wire recorded;
 - ``partition_path_wires``: the same two rounds' wires, partition by
@@ -50,6 +54,79 @@ def bounded(fn, timeout=TIMEOUT_S):
     if "err" in box:
         raise box["err"]
     return box.get("out")
+
+
+@contextlib.contextmanager
+def held_replies(names):
+    """While the block runs, the completion of each fused reply of the
+    keys of ``names`` (tensor names in the process's registry) waits until
+    the yielded ``release()``: the reply has landed, but the step's drain
+    finds the round still out, so a carry-eligible key is carried. Call
+    ``release()`` once after each step, the steps submitting one round of
+    each key: the k-th call completes the rounds up to k (a reply still
+    on its way, or a round still queued, completes on arrival), and
+    later rounds are held again. The block's end releases all."""
+    from byteps_tpu_torch.server import client as tclient
+    orig = tclient.PSClient.zpushpull_async
+    mu = threading.Lock()
+    st = {"released": 0, "held": []}
+
+    def held_keys():
+        reg = bps.get_state().registry
+        ctxs = [reg.get(n) for n in names] if reg is not None else []
+        return {p.key for c in ctxs if c is not None for p in c.partitions}
+
+    def zpushpull_async(self, server, key, data, out, cmd, on_done,
+                        epoch=0, codec=0):
+        on = on_done
+        if key in held_keys():
+            rnd = epoch >> 16          # the round of the key, from 1
+
+            def on(got, err, on_done=on_done, rnd=rnd):
+                with mu:
+                    hold = rnd > st["released"]
+                    if hold:
+                        st["held"].append((rnd, on_done, got, err))
+                if not hold:
+                    on_done(got, err)
+        return orig(self, server, key, data, out, cmd, on, epoch=epoch,
+                    codec=codec)
+
+    def release(until=None):
+        with mu:
+            st["released"] = st["released"] + 1 if until is None else until
+            items = [h for h in st["held"] if h[0] <= st["released"]]
+            st["held"] = [h for h in st["held"] if h[0] > st["released"]]
+        for _, cb, got, err in items:
+            cb(got, err)
+
+    tclient.PSClient.zpushpull_async = zpushpull_async
+    try:
+        yield release
+    finally:
+        tclient.PSClient.zpushpull_async = orig
+        release(until=float("inf"))
+
+
+@contextlib.contextmanager
+def replies_in_before_drain():
+    """While the block runs, the host tier's drain starts only once every
+    reply of the step is in: a carry-eligible round is then never
+    carried."""
+    from byteps_tpu_torch.training import train as ttrain
+    orig = ttrain.HostTierStep._drain
+
+    def _drain(self, state, rnd, ready, *a, **k):
+        for item in ready:
+            if item[1] is not None:
+                item[1]._ev.wait(TIMEOUT_S)
+        return orig(self, state, rnd, ready, *a, **k)
+
+    ttrain.HostTierStep._drain = _drain
+    try:
+        yield
+    finally:
+        ttrain.HostTierStep._drain = orig
 
 
 def _free_port() -> int:

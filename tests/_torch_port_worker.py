@@ -406,9 +406,15 @@ def run_dp_carry(rank: int, world: int, store_path: str, port: int,
             torch.optim.Adam(model.parameters(), lr=1e-2),
             model.params())
         losses, carried = [], []
-        for _ in range(XB_DP_STEPS):
-            losses.append(float(step(batch)))
-            carried.append(";".join(step.counters["carried"]))
+        # the root's replies of the last two weights complete after each
+        # step's drain, so that a loaded host cannot empty the schedule
+        from _torch_port_ps_util import held_replies
+        with held_replies(("grad/w2", "grad/w3") if rank == 0 else ()) \
+                as release:
+            for _ in range(XB_DP_STEPS):
+                losses.append(float(step(batch)))
+                carried.append(";".join(step.counters["carried"]))
+                release()
         step.flush()
         out["flushed_carry"] = np.array(step._carry is None)
         step.close()

@@ -12,7 +12,10 @@
   apply off (the arms of tests/test_barrier_window.py:397-417);
 - the synchronous step matches the JAX ``make_ps_train_step`` at the
   dense tolerance (SGD + momentum);
-- at staleness 1 under a slowed, throttled server the step carries
+- at staleness 1 under a slowed, throttled server, with the replies of
+  the last two weights held past each step's drain
+  (``_torch_port_ps_util.held_replies``, so that a loaded host cannot
+  empty the carry schedule), the step carries
   (``carried_leaves > 0``), every loss is finite, and after ``flush()``
   the parameters equal, bit for bit, a plain local replay of the carry
   schedule the step recorded: each carried leaf's update applied one
@@ -35,8 +38,14 @@ from byteps_tpu_torch.config import Config
 from byteps_tpu_torch.models import mlp
 from byteps_tpu_torch.training import make_ps_train_step
 from byteps_tpu_torch.training.optim import make_leaf_apply
-from _torch_port_ps_util import _ps_env, bounded, ps_server
+from _torch_port_ps_util import (
+    _ps_env, bounded, held_replies, ps_server, replies_in_before_drain,
+)
 from test_torch_port_ps import jax_uses_port_lib, ps_lib  # noqa: F401
+
+# the carry-eligible leaves whose replies the carry tests hold past the
+# drain: the last two of the back half
+HELD = ("grad/w2", "grad/w3")
 
 XB_VARS = ("BYTEPS_CROSS_BARRIER", "BYTEPS_STALENESS", "BYTEPS_FUSION_BYTES",
            "BYTEPS_CHAOS_SLOW_SERVER", "BYTEPS_SERVER_THROTTLE_MBPS",
@@ -58,11 +67,12 @@ def _adam(ps):
 
 
 def _run(monkeypatch, cfg, init, batch, env, steps=4, flush=False,
-         optimizer=_adam, **kw):
+         optimizer=_adam, hold=(), **kw):
     """``steps`` PS steps of the MLP from ``init`` against a loopback
     server started under ``env``: the parameters (after ``step.close()``,
     which lands what is still carried), the losses, each step's counters
-    and the scheduler's window."""
+    and the scheduler's window. ``hold``: tensor names whose replies
+    complete only after each step has returned (``held_replies``)."""
     for k in XB_VARS:
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
@@ -80,9 +90,11 @@ def _run(monkeypatch, cfg, init, batch, env, steps=4, flush=False,
 
             def run():
                 losses = []
-                for _ in range(steps):
-                    losses.append(float(step(batch)))
-                    per_step.append(dict(step.counters))
+                with held_replies(hold) as release:
+                    for _ in range(steps):
+                        losses.append(float(step(batch)))
+                        per_step.append(dict(step.counters))
+                        release()
                 if flush:
                     step.flush()
                 return losses
@@ -286,7 +298,7 @@ def test_staleness1_carries_and_equals_the_replay(monkeypatch):
            "BYTEPS_SERVER_THROTTLE_MBPS": "100",
            "BYTEPS_STREAM_EXPORT": "0"}
     got, losses, per_step, window = _run(monkeypatch, cfg, init, batch, env,
-                                         steps=8, flush=True)
+                                         steps=8, flush=True, hold=HELD)
     assert window == 1
     assert sum(c["carried_leaves"] for c in per_step) > 0, per_step
     assert np.isfinite(losses).all()
@@ -310,7 +322,8 @@ def test_close_lands_the_carry(monkeypatch):
            "BYTEPS_STALENESS": "1", "BYTEPS_CHAOS_SLOW_SERVER": "10",
            "BYTEPS_SERVER_THROTTLE_MBPS": "100",
            "BYTEPS_STREAM_EXPORT": "0"}
-    got, _, per_step, _ = _run(monkeypatch, cfg, init, batch, env, steps=8)
+    got, _, per_step, _ = _run(monkeypatch, cfg, init, batch, env, steps=8,
+                               hold=HELD)
     assert sum(c["carried_leaves"] for c in per_step) > 0, per_step
     want = _replay(cfg, init, batch, [c["carried"] for c in per_step])
     for n, a in want.items():
@@ -319,13 +332,16 @@ def test_close_lands_the_carry(monkeypatch):
 
 def test_flush_is_idempotent_and_a_no_op_without_a_carry(monkeypatch):
     """``_run`` flushes twice (and holds the second flush to the first);
-    here at staleness 1 on the streamed export, where this MLP carries
-    nothing, and with cross-barrier off."""
+    here at staleness 1 on the streamed export with every reply in before
+    the drain (``replies_in_before_drain``: a loaded host's late reply
+    would be carried), so that nothing is carried, and with cross-barrier
+    off."""
     cfg, init, batch = _setup()
     for env in ({"BYTEPS_CROSS_BARRIER": "1", "BYTEPS_FUSION_BYTES": "256"},
                 {}):
-        _, losses, per_step, _ = _run(monkeypatch, cfg, init, batch, env,
-                                      steps=2, flush=True)
+        with replies_in_before_drain():
+            _, losses, per_step, _ = _run(monkeypatch, cfg, init, batch,
+                                          env, steps=2, flush=True)
         assert np.isfinite(losses).all()
         assert all(c["carry_drained"] in (0, None) for c in per_step)
 
@@ -369,8 +385,9 @@ def _dp_replay(schedule):
 def test_dp_group_of_two_carries_alike_and_equals_the_replay(
         monkeypatch, tmp_path):
     """A dp group of two gloo processes at staleness 1 against a slowed,
-    throttled server, the keys after the backward: the root decides the
-    carry, and both ranks carry the same leaves in every step, land them
+    throttled server, the keys after the backward, the root's replies of
+    the last two weights held past each step's drain: the root decides
+    the carry, and both ranks carry the same leaves in every step, land them
     in the next (``flush()`` the last), and end bit for bit on the same
     parameters, those of a local replay of the carry schedule on the
     ranks' mean gradient."""
@@ -426,7 +443,9 @@ def test_a_join_waits_for_the_carried_round_and_the_replay_holds(
     join's quiescence waits for the carried round to land on its old
     server; the next step lands it as usual) and a drain of server 0 two
     steps later: the run still equals the local replay of its carry
-    schedule, bit for bit."""
+    schedule, bit for bit. The last two weights' replies are held past
+    each step's drain, so that the step before the join carries whatever
+    the host's load."""
     import threading
 
     from byteps_tpu_torch.core import elastic
@@ -458,14 +477,16 @@ def test_a_join_waits_for_the_carried_round_and_the_replay_holds(
         per_step = []
 
         def run():
-            for i in range(6):
-                step(batch)
-                per_step.append(dict(step.counters))
-                if i == 1:
-                    elastic.join_server(bps.get_state(),
-                                        f"127.0.0.1:{ports[1]}")
-                if i == 3:
-                    bps.drain_server(0)
+            with held_replies(HELD) as release:
+                for i in range(6):
+                    step(batch)
+                    per_step.append(dict(step.counters))
+                    release()
+                    if i == 1:
+                        elastic.join_server(bps.get_state(),
+                                            f"127.0.0.1:{ports[1]}")
+                    if i == 3:
+                        bps.drain_server(0)
             step.flush()
 
         bounded(run)

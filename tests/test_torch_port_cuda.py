@@ -69,6 +69,32 @@ def test_flash_kernel_matches_blockwise(dev, dtype, causal, D):
                     .all())
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_reports_its_flops_to_the_ledger_count(dev, causal):
+    """The ctypes launch dispatches nothing FlopCounterMode sees: the
+    wrapper reports the forward's FLOPs, the same count as its CPU twin
+    gives, and the backward's products count themselves alike."""
+    from byteps_tpu_torch.core.ledger import count_flops
+    counts = {}
+    for d in (dev, torch.device("cpu")):
+        g = torch.Generator(device=d).manual_seed(1)
+        q, k, v = (torch.randn(2, 256, h, 64, generator=g, device=d,
+                               dtype=torch.float32, requires_grad=True)
+                   for h in (4, 2, 2))
+
+        def run():
+            out = FA.flash_attention(q, k, v, causal, 128)
+            out.sum().backward()
+            return out
+
+        counts[d.type] = count_flops(run)[1]
+    # in causal forwards: the forward 1 (2 without the mask), its
+    # backward 7 (the blockwise recompute 2, its checkpoint's scores 1,
+    # the gradients 4)
+    unit = FA.attention_flops(2, 256, 4, 64, causal=True)
+    assert counts["cuda"] == counts["cpu"] == (8 if causal else 9) * unit
+
+
 def test_flash_kernel_reads_strided_inputs(dev):
     """q/k/v as views of a fused [B,S,H+2Hkv,D] projection, no copy."""
     g = torch.Generator(device=dev).manual_seed(0)

@@ -510,6 +510,11 @@ def test_server_churn_failover_numerics(ps_built, monkeypatch, tmp_path,
     # are still queued when its death migrates them, and their first
     # send goes to server 0
     monkeypatch.setenv("BYTEPS_SCHEDULING_CREDIT", str(DENSE_N * 4))
+    # a retry budget that outlasts a loaded host's sight of the killed
+    # server's EOF (25 ms doubling, capped at 2 s: about 5.2 s in all;
+    # the default 2 retries give 75 ms, which a loaded host can spend
+    # re-sending to the dead server before its connections read dead)
+    monkeypatch.setenv("BYTEPS_WIRE_RETRY", "8")
     procs = [_spawn_server(ports[0]), _spawn_server(
         ports[1], extra_env={"BYTEPS_CHAOS_KILL_AFTER_ROUNDS":
                              str(2 * per_round + 1)})]

@@ -49,8 +49,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_the_ps_path_modules_are_checked():
     """The parameter-server slice's modules, the model zoo, the host
     codecs (lossless, the native codec), the elastic fleet, the
-    asynchronous step's modules and the parallel strategies' modules (the
-    GSPMD tier's too) are among the files above."""
+    asynchronous step's modules, the parallel strategies' modules (the
+    GSPMD tier's too) and the measurement plane's are among the files
+    above."""
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
     for mod in ("config", "core/arena", "core/registry", "core/scheduler",
                 "core/types", "native/build", "ops/compression/host",
@@ -67,8 +68,24 @@ def test_the_ps_path_modules_are_checked():
                 "parallel/distributed", "parallel/sharding",
                 "parallel/ring_attention", "parallel/ulysses",
                 "parallel/pipeline", "parallel/tensor_parallel",
-                "parallel/fsdp", "parallel/spmd", "__init__"):
+                "parallel/fsdp", "parallel/spmd", "core/metrics",
+                "core/health", "core/ledger", "core/timeseries",
+                "utils/flops", "__init__"):
         assert f"byteps_tpu_torch/{mod}.py" in files, mod
+
+
+def test_ps_cc_stat_slot_names_are_the_mirrors():
+    """The slot-layout check of the JAX lint (tools/lint/wire_layout.py)
+    over the port: ``kStatSlotNames`` in the port's ``ps.cc`` names the
+    slots of ``server._STAT_SLOTS``, in order."""
+    import re
+
+    from byteps_tpu_torch.server import _STAT_SLOTS
+    src = (ROOT / "byteps_tpu_torch/native/ps.cc").read_text()
+    body = re.search(r"kStatSlotNames\[\]\s*=\s*\{(.*?)\};", src,
+                     re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    assert tuple(re.findall(r'"([a-z_0-9]+)"', body)) == _STAT_SLOTS
 
 
 def test_forbidden_name_rule():
